@@ -26,6 +26,8 @@ from repro import compat  # noqa: E402
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running end-to-end tests (dry-run compiles)")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device (skipped where none is present)")
 
 
 @pytest.fixture(scope="session")
