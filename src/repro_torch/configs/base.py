@@ -43,6 +43,9 @@ class ModelConfig:
     logit_softcap: float = 0.0
     dtype: torch.dtype = torch.bfloat16
     remat: bool = True
+    # long-context serving variant: full-attention archs get a sliding-window
+    # attention cache of this size (Engine(long_context=True))
+    long_context_window: int = 4096
     source: str = ""               # citation
 
     @property
@@ -71,4 +74,5 @@ def reduce_for_smoke(cfg: ModelConfig, *, d_model: int = 256,
                                          head_dim=32, window=window)
     return dataclasses.replace(
         cfg, name=cfg.name + "-smoke", d_model=d_model, n_layers=n_layers,
-        vocab=vocab, d_ff=d_ff, dtype=torch.float32, remat=False, **kw)
+        vocab=vocab, d_ff=d_ff, dtype=torch.float32, remat=False,
+        long_context_window=64, **kw)

@@ -21,12 +21,15 @@ import threading
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
-# -fmad=false: no FMA contraction, so y - q*s and acc + q*s round like the
-# two separate PyTorch ops of the plain versions. Division stays IEEE
-# (nvcc's default -prec-div=true; never --use_fast_math).
+# Division stays IEEE for every source (nvcc's default -prec-div=true;
+# never --use_fast_math).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
-              "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# Flags of one source only. quant8: -fmad=false, no FMA contraction, so
+# y - q*s and acc + q*s round like the two separate PyTorch ops of the plain
+# versions (bitwise contract). flashattn is held to a tolerance and keeps
+# nvcc's default contraction.
+SOURCE_FLAGS = {"quant8": ("-fmad=false",), "flashattn": ()}
 
 _lock = threading.Lock()
 _loaded: dict = {}
@@ -48,9 +51,16 @@ def nvcc_path() -> str:
                        "to build the CUDA kernels")
 
 
+def flags(name: str) -> tuple:
+    """nvcc's flags for csrc/<name>.cu."""
+    return NVCC_FLAGS + SOURCE_FLAGS[name]
+
+
 def library_path(name: str) -> pathlib.Path:
+    """The library's file name hashes the source and its own flags, so a
+    change to one source's flags rebuilds that source only."""
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(src + " ".join(flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 
 
@@ -67,7 +77,7 @@ def build(name: str) -> tuple[pathlib.Path, str]:
     os.close(fd)
     try:
         proc = subprocess.run(
-            [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
+            [nvcc_path(), *flags(name), "-o", tmp, str(CSRC / f"{name}.cu")],
             capture_output=True, text=True, check=False)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {name}.cu:\n{proc.stderr}")

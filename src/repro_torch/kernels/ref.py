@@ -1,13 +1,17 @@
-"""Plain PyTorch versions of the quantization kernels.
+"""Plain PyTorch versions of the kernels.
 
-They are the CPU path of `repro_torch.kernels.quant8` and the yardstick its
-CUDA kernels are held to on the card. Each repeats the kernel's arithmetic
-op by op (IEEE division, round half to even, the product rounded before the
-add), so a kernel built without FMA contraction matches them bit for bit.
-Signatures mirror `repro_torch.kernels.quant8`.
+They are the CPU path of `repro_torch.kernels.quant8` and
+`repro_torch.kernels.flashattn`, and the yardstick their CUDA kernels are
+held to on the card. The quantization versions repeat the kernel's
+arithmetic op by op (IEEE division, round half to even, the product rounded
+before the add), so a kernel built without FMA contraction matches them bit
+for bit; `flash_attention` materializes the masked score matrix, and the
+kernel is held to it within a tolerance. Signatures mirror the wrappers'.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -44,3 +48,27 @@ def quantize_ef_blocks(x2d: torch.Tensor, res2d: torch.Tensor):
     q, scale = quantize_blocks(y)
     new_residual = dequantize_accumulate_blocks(q, -scale, y)
     return q, scale, new_residual
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    window: int | None = None) -> torch.Tensor:
+    """Plain masked softmax attention in f32, cast to q's dtype.
+
+    q (B, H, Sq, D), k/v (B, H, Sk, D); key j is visible to query i when
+    j <= i (causal) and j > i - window (windowed), positions from 0."""
+    D = q.shape[-1]
+    Sq, Sk = q.shape[2], k.shape[2]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32),
+                     k.to(torch.float32)) / math.sqrt(D)
+    q_pos = torch.arange(Sq, device=q.device)[:, None]
+    k_pos = torch.arange(Sk, device=q.device)[None, :]
+    valid = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        valid &= k_pos <= q_pos
+    if window is not None:
+        valid &= k_pos > q_pos - window
+    s = torch.where(valid, s, torch.full((), -1e30, device=q.device))
+    w = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", w,
+                        v.to(torch.float32)).to(q.dtype)

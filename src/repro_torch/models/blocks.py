@@ -1,12 +1,14 @@
 """Per-layer block assembly: norm + mixer + MLP with residuals.
 
 Ports the "attn" block kind of `repro/models/blocks.py` (causal
-self-attention + dense MLP); the other kinds come with their slices.
+self-attention + dense MLP): full-sequence apply, serving caches and
+one-token decode. The other kinds come with their slices.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -46,10 +48,25 @@ def block_defs(kind: str, cfg: ModelConfig) -> dict:
 
 @dataclasses.dataclass(frozen=True)
 class BlockCtx:
-    """Runtime options passed down from the model (the reference's serving
-    and parallelism options come with their slices)."""
+    """Runtime options passed down from the model (the reference's
+    parallelism and other block kinds' options come with their slices)."""
 
     cfg: ModelConfig
+    window_override: Optional[int] = None  # force SWA on full-attn blocks
+    kv_dtype: str = "native"               # int8: quantized GQA KV cache
+
+    def window_for(self, kind: str) -> Optional[int]:
+        a = self.cfg.attn
+        native = a.window if a is not None else None
+        if self.window_override is not None:
+            return (min(native, self.window_override) if native
+                    else self.window_override)
+        return native
+
+
+def _mlp_residual(p: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    x = norm_apply(p["ln2"], h, cfg)
+    return h + mlp.mlp_apply(p["mlp"], x, act=cfg.mlp_act, gated=cfg.mlp_gated)
 
 
 def block_apply(kind: str, p: dict, h: torch.Tensor,
@@ -59,7 +76,43 @@ def block_apply(kind: str, p: dict, h: torch.Tensor,
     _check_kind(kind)
     cfg = ctx.cfg
     x = norm_apply(p["ln1"], h, cfg)
-    h = h + attn_mod.gqa_apply(p["attn"], x, cfg.attn)
-    x = norm_apply(p["ln2"], h, cfg)
-    y = mlp.mlp_apply(p["mlp"], x, act=cfg.mlp_act, gated=cfg.mlp_gated)
-    return h + y
+    h = h + attn_mod.gqa_apply(p["attn"], x, cfg.attn,
+                               window=ctx.window_for(kind))
+    return _mlp_residual(p, h, cfg)
+
+
+# --- caches ----------------------------------------------------------------------
+
+def block_init_cache(kind: str, cfg: ModelConfig, batch: int, max_seq: int,
+                     ctx: BlockCtx, device=None) -> dict:
+    _check_kind(kind)
+    return attn_mod.gqa_init_cache(batch, max_seq, cfg.attn, cfg.dtype,
+                                   window=ctx.window_for(kind),
+                                   kv_dtype=ctx.kv_dtype, device=device)
+
+
+def block_prefill(kind: str, p: dict, h: torch.Tensor, ctx: BlockCtx):
+    """`block_apply` over the prompt; returns (h, the block's cache after
+    the prompt). Takes the place of the reference's `block_prefill_cache`,
+    which projects the block input's K/V a second time."""
+    _check_kind(kind)
+    cfg = ctx.cfg
+    x = norm_apply(p["ln1"], h, cfg)
+    y, cache = attn_mod.gqa_prefill(p["attn"], x, cfg.attn,
+                                    window=ctx.window_for(kind),
+                                    kv_dtype=ctx.kv_dtype)
+    return _mlp_residual(p, h + y, cfg), cache
+
+
+# --- decode ------------------------------------------------------------------------
+
+def block_decode(kind: str, p: dict, h1: torch.Tensor, cache: dict, pos: int,
+                 ctx: BlockCtx):
+    """One token through the block; returns (h1, cache), the cache updated
+    in place."""
+    _check_kind(kind)
+    cfg = ctx.cfg
+    x = norm_apply(p["ln1"], h1, cfg)
+    y, cache = attn_mod.gqa_decode(p["attn"], x, cache, pos, cfg.attn,
+                                   window=ctx.window_for(kind))
+    return _mlp_residual(p, h1 + y, cfg), cache
