@@ -29,11 +29,15 @@ Phases, each fatal on failure:
                  standard deviation 1. Tolerance (FLASH_TOL), per element,
                  rtol |plain| + atol x the RMS of the plain output's row:
                  bf16 1.6e-2 and 2e-2, f32 2e-5 and 2e-5; a control with 64
-                 keys' scores zeroed must fail it. Times kernel, plain
+                 keys' scores zeroed must fail it; the per-kernel counts
+                 must show S-A and S-B on the Hopper kernel (`wgmma_bf16`)
+                 and the ragged case on the FMA kernel. Times kernel, plain
                  version and the one PyTorch call that computes the same
                  function (`torch.mul`, `torch.addcmul` for the dequantize
-                 kernels, `scaled_dot_product_attention` for flash; no single
-                 call quantizes) with CUDA events;
+                 kernels, `scaled_dot_product_attention` for flash, at S-B
+                 with a boolean causal-and-window mask; no single call
+                 quantizes) with CUDA events, and prints each flash time's
+                 share of its bound and its ratio to the library call;
   4. model    -- the smoke model on the card against the CPU, same weights:
                  loss and gradients (loss rtol 1e-5, gradients 1e-4 of their
                  norm), prefill logits and one decode step (atol 1e-4, f32);
@@ -49,9 +53,9 @@ Phases, each fatal on failure:
                  tokens, greedy (run twice: equal tokens); S-B long context
                  (window 4096), batch 1, prompt 8192, 32 new tokens; S-C as
                  S-A with the int8 KV cache. Each checks 32 flash launches
-                 per prefill, finite prefill and decode logits and tokens in
-                 the vocabulary, and prints prefill, first-token and decode
-                 times and peak memory;
+                 per prefill, all on the Hopper kernel, finite prefill and
+                 decode logits and tokens in the vocabulary, and prints
+                 prefill, first-token and decode times and peak memory;
   9. cli      -- `repro_torch.launch.train.main` and
                  `repro_torch.launch.serve.main` (ragged prompts through
                  `serve_requests`) on the smoke config;
@@ -340,6 +344,14 @@ def flash_excess(torch, out, plain, tol) -> float:
                   / (rtol * plain.abs() + atol * rms)).max())
 
 
+def _window_mask(torch, s, window, dev):
+    """The boolean causal-and-window mask (True: attend) of a (s, s) score
+    matrix, for `scaled_dot_product_attention`'s attn_mask."""
+    i = torch.arange(s, device=dev)[:, None]
+    j = torch.arange(s, device=dev)[None, :]
+    return (j <= i) & (j > i - window)
+
+
 def flash_phase(torch):
     """Both wrappers against the plain version at the three shapes: the
     main path's `gqa_flash_attention` on (B, S, H, D) q and (B, S, KV, D)
@@ -347,7 +359,11 @@ def flash_phase(torch):
     copies with the KV heads repeated. q, k and v are standard normal, so
     the scores q.k/sqrt(D) have a standard deviation of 1. A control (the
     plain version with the scores of 64 keys set to 0) must fall outside
-    the tolerance. Times at S-A's prefill shape go into the report."""
+    the tolerance. The per-kernel counts must show S-A and S-B on the
+    Hopper kernel (`wgmma_bf16`) and the ragged f32 case on the FMA kernel.
+    Times at every shape, with the bound's share and the ratio to
+    `scaled_dot_product_attention` (S-A: is_causal; S-B: a boolean causal-
+    and-window mask); S-A's go into the report."""
     phase("kernels: flash_attention")
     from repro_torch.kernels import flashattn, ref
     dev = torch.device("cuda")
@@ -362,10 +378,16 @@ def flash_phase(torch):
         kt, vt = (t.repeat_interleave(H // KV, dim=2).transpose(1, 2)
                   .contiguous() for t in (k, v))
         kw = dict(causal=True, window=window)
+        flashattn.reset_launches()
         outs = {"gqa_flash_attention":
                 flashattn.gqa_flash_attention(q, k, v, **kw).transpose(1, 2),
                 "flash_attention": flashattn.flash_attention(qt, kt, vt, **kw)}
         torch.cuda.synchronize()
+        variant = "fma_f32" if label == "ragged" else "wgmma_bf16"
+        variants = dict(flashattn.VARIANT_LAUNCHES)
+        log(f"  {label}: launches per kernel {variants}")
+        check(variants == {**dict.fromkeys(flashattn.VARIANTS, 0), variant: 2},
+              f"flash {label}: launched {variants}, expected 2 of {variant}")
         sub = (qt[:, :heads], kt[:, :heads], vt[:, :heads])
         plain = ref.flash_attention(*sub, **kw)
         for name, out in outs.items():
@@ -385,7 +407,25 @@ def flash_phase(torch):
         log(f"  control {label:6s} (keys {lo}..{lo + 63} scored 0): "
             f"{ctrl:.3f} of the tolerance")
         check(ctrl > 1, f"flash {label}: the check passes a wrong result")
-        del outs, plain, k_ctrl
+        del outs, k_ctrl
+        library = None
+        if label == "S-A":
+            def library():
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True)
+        elif label == "S-B":
+            mask = _window_mask(torch, S, window, dev)
+
+            def library():
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask)
+        if library is not None:
+            # the yardstick computes the same function: its agreement with
+            # the plain version, for the record
+            lib_excess = flash_excess(torch, library()[:, :heads], plain, tol)
+            log(f"  library {label:6s} {lib_excess:.3f} of the tolerance on "
+                f"{heads} heads")
+        del plain
         iters = 10 if S * B > 4096 else 50
         ms = _time_ms(torch, lambda: flashattn.gqa_flash_attention(
             q, k, v, **kw), iters)
@@ -398,20 +438,20 @@ def flash_phase(torch):
             (bytes_ / HBM_BYTES_PER_S * 1e3, "bytes"),
             (flops / (BF16_OPS_PER_S if dtype == torch.bfloat16
                       else F32_OPS_PER_S) * 1e3, "operations"))
-        library_ms = None
-        if label == "S-A":
-            library_ms = _time_ms(
-                torch, lambda: torch.nn.functional.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True), iters)
-        lib = "null" if library_ms is None else f"{library_ms:.4f} ms"
-        log(f"  flash {label:6s} gqa_flash_attention {ms:.4f} ms, "
+        library_ms = None if library is None else _time_ms(torch, library,
+                                                           iters)
+        lib = ("null" if library_ms is None else
+               f"{library_ms:.4f} ms (kernel / library "
+               f"{ms / library_ms:.3f})")
+        log(f"  flash {label:6s} {variant} gqa_flash_attention {ms:.4f} ms, "
             f"flash_attention {public_ms:.4f} ms  bound {bound_ms:.4f} ms "
-            f"({bound_by}, {flops} FLOP, {bytes_} B)  plain {plain_ms:.4f} "
-            f"ms on {heads} heads  library {lib}")
+            f"({bound_by}, {flops} FLOP, {bytes_} B)  share of the bound "
+            f"{bound_ms / ms:.1%}  plain {plain_ms:.4f} ms on {heads} heads  "
+            f"library {lib}")
         if label == "S-A":
             res.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                        bound_by=bound_by, library_ms=library_ms)
-        del q, k, v, qt, kt, vt, sub
+        del q, k, v, qt, kt, vt, sub, library
         torch.cuda.empty_cache()
     return res
 
@@ -534,13 +574,19 @@ def serve_phase(torch, model, params, label, *, batch, prompt_len, n_new,
         runs[0][0][:, :1], device=eng.device), pos, **eng.ctx_kw)
     torch.cuda.synchronize()
     launches = read_launches()
+    from repro_torch.kernels import flashattn
+    variants = dict(flashattn.VARIANT_LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     del cache
     prefills = repeat + 1
-    log(f"  launches {launches} over {prefills} prefills")
+    log(f"  launches {launches} over {prefills} prefills; flash per kernel "
+        f"{variants}")
     check(launches["flash_attention"] == N_LAYERS * prefills,
           f"serve {label}: {launches['flash_attention']} flash launches, "
           f"expected {N_LAYERS} per prefill")
+    check(variants["wgmma_bf16"] == N_LAYERS * prefills,
+          f"serve {label}: flash ran {variants}, expected every launch on "
+          f"the Hopper kernel")
     check(bool(torch.isfinite(logits).all()) and
           bool(torch.isfinite(step).all()), f"serve {label}: logits not finite")
     for toks, _ in runs:

@@ -15,15 +15,20 @@
 //
 // Mapping. The TPU walks the grid (B, H, Sq/BQ, Sk/BK) in order and carries
 // the running statistics across the innermost KV axis in VMEM scratch. Here
-// one CTA of 128 threads owns one (b, h, query tile of 64 rows) and walks
-// the KV tiles of 64 keys in a loop; blocks run in parallel and carry
-// nothing between them. The longest rows (the last query tiles, under a
-// causal mask) are scheduled first. Two kernels:
+// one CTA owns one (b, h, query tile) at a time and walks its KV tiles in a
+// loop; blocks run in parallel and carry nothing between them. The longest
+// rows (the last query tiles, under a causal mask) are scheduled first. Each
+// (dtype, D) pair runs exactly one kernel (dispatch_bf16 / dispatch_f32):
 //
-//   * flash_fwd_bf16 (bf16 inputs, the model's prefill): both products on
-//     the tensor cores with mma.sync (see its comment below);
-//   * flash_fwd_f32 (f32 inputs): both products as f32 FMAs on the CUDA
-//     cores, so f32 attention keeps f32 products as in the TPU kernel.
+//   * bf16, D 128 (the model's prefill: yi-6b's head dim):
+//     flash_fwd_wgmma, built for Hopper (see its comment below): persistent
+//     CTAs, TMA loads from a warp-specialized producer, both products on
+//     wgmma, 128-row query tiles and 128-key KV tiles;
+//   * bf16, D 32 and 64: flash_fwd_bf16, both products on mma.sync from
+//     every warp, 64-row query tiles, a cp.async K/V ring;
+//   * f32, D 32, 64 and 128: flash_fwd_f32, both products as f32 FMAs on
+//     the CUDA cores, so f32 attention keeps f32 products as in the TPU
+//     kernel.
 //
 // Tiles that the causal or window mask hides from every row of the CTA are
 // skipped (the TPU kernel runs them). A row whose first tiles are all masked
@@ -38,19 +43,33 @@
 // is made.
 //
 // Bound. At the prefill shapes the work is 4*D flops per visible (query,
-// key) pair against reading q, k, v and writing o once, so the tensor
-// cores' peak bf16 rate bounds it. The bf16 kernel overlaps the next KV
-// tile's copy (cp.async, two stages) with the products of this one; it
-// still runs mma.sync from every warp rather than wgmma fed by TMA with
-// warp specialization, which is the next step toward the bound.
+// key) pair against reading q, k, v and writing o once (S-A: 0.28 ms of
+// bf16 tensor-core work at 989 TFLOP/s against 0.09 ms of HBM traffic), so
+// the tensor cores' rate bounds it. flash_fwd_wgmma is built for that
+// bound: wgmma is the only instruction that reaches it, one thread's TMA
+// copies leave the math warps' registers and issue slots to the products,
+// and 128 x 128 tiles read each K/V tile from shared memory once per 64
+// query rows instead of once per 16. The softmax's exp2 (16 a clock per SM)
+// needs about half the products' time at D 128, so each group runs it
+// under its own P V, and persistent CTAs load the next item's tiles while
+// the last ones finish.
+//
+// Driver API. The TMA descriptors (CUtensorMap) are encoded on the host for
+// every call, since the pointers change, with cuTensorMapEncodeTiled. It is
+// reached through the runtime's cudaGetDriverEntryPoint(ByVersion), so the
+// library links no -lcuda; <cuda.h> supplies its types only.
 //
 // Built with FMA contraction allowed (unlike quant8): the result is held to a
-// tolerance, not bitwise. The f32 kernel uses expf, the bf16 kernel exp2f on
-// scores scaled by log2(e); the final division stays IEEE.
+// tolerance, not bitwise. The f32 kernel uses expf, the bf16 kernels exp2f on
+// scores scaled by log2(e). The final division stays IEEE (flash_fwd_wgmma:
+// one IEEE reciprocal per row, then a multiply per element).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -264,8 +283,8 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_f32(Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: the two products on the tensor cores (mma.sync m16n8k16, bf16 in, f32
-// accumulate). Each of the 4 warps owns 16 query rows of the 64-row tile; Q
+// bf16, D 32 and 64: the two products on the tensor cores (mma.sync
+// m16n8k16, bf16 in, f32 accumulate). Each of the 4 warps owns 16 query rows of the 64-row tile; Q
 // stays in registers as mma A fragments for the whole KV loop. Per KV tile
 // of 64 keys a warp computes its 16 x 64 scores (S = Q K^T) in f32, updates
 // the online softmax on them in registers, rounds the probabilities to bf16
@@ -538,6 +557,613 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Params p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16, D = 128, for Hopper: flash_fwd_wgmma.
+//
+// Persistent: one CTA per SM (at most) takes the work items, each a (b, h,
+// 128-row query tile), in turn: w = blockIdx.x, + gridDim.x, ..., in
+// work_item's order. A CTA is 3 warpgroups (384 threads):
+//   * Warpgroup 0 produces: one thread issues every TMA load, each item's Q
+//     and then its K and V tiles of 128 keys x 128 dims into a ring of
+//     kStages stages; setmaxnreg lowers the warpgroup to 40 registers.
+//   * Warpgroups 1 and 2 consume, 64 query rows each, with setmaxnreg raised
+//     to 232 registers. S = Q K^T is wgmma m64n128k16 with Q and K read from
+//     shared memory (8 k-steps over D); the online softmax runs in registers
+//     on the accumulator layout; O += P V is wgmma m64n128k16 with P
+//     converted to bf16 in registers (the A operand) and V read from shared
+//     memory as stored, keys x D with D contiguous (an MN-major B operand).
+//     Tile i's S = Q K^T is issued together with tile i-1's P V, and tile
+//     i's softmax runs while that P V is still in flight.
+// Barriers (mbarrier): Q full and Q empty (the next item's Q lands once both
+// groups' last S = Q K^T is done); per stage, K full and V full (the
+// producer's expect-tx arrival plus the TMA bytes) and K empty and V empty
+// (all 256 consumer threads arrive once their wgmma group has been waited
+// on). K and V have their own barriers so that S = Q K^T starts before V has
+// landed and K is refilled while V is still read.
+//
+// Shared memory, 1024-byte aligned: Q (32 KiB) and kStages x (K, V) (32 KiB
+// each): 160 KiB at 2 stages. Every tile arrives as two TMA boxes of 128
+// rows x 64 dims (128 bytes a row, the 128-byte swizzle's span), 16 KiB
+// apart. The wgmma descriptors follow that layout: K-major Q and K with
+// 8-row groups 1024 bytes apart (SBO), a k-step of 16 dims 32 bytes further
+// along the row and the second box for dims 64..127; MN-major V with 8-key
+// groups 1024 bytes apart (SBO) and the second 64 dims in the second box
+// (LBO 16 KiB).
+//
+// The tensor maps view q, k and v as (D, S, H, B) with the caller's strides,
+// so query head h reads KV head h / group with no copy, and TMA fills rows
+// past S with zeros (a ragged tile never reads the next head's or batch's
+// rows). Rows at or past Sq are not written. A barrier wait that has not
+// completed after about 2^34 cycles traps: a wrong phase fails the launch
+// instead of hanging the card.
+// ---------------------------------------------------------------------------
+
+namespace wg {
+
+constexpr int kD = 128;
+constexpr int kBQ = 128;                  // query rows per CTA
+constexpr int kBK = 128;                  // keys per KV tile
+constexpr int kStages = 2;
+constexpr int kThreads = 384;
+constexpr int kConsumers = 256;           // threads of the 2 consumer groups
+constexpr int kBox = 64;                  // dims per TMA box (128 bytes)
+constexpr uint32_t kTileBytes = kBK * kD * 2;      // 32 KiB
+constexpr uint32_t kBoxBytes = kTileBytes / 2;     // 16 KiB
+constexpr uint32_t kBarBytes = 8 * (2 + 4 * kStages);
+constexpr int kSmemBytes = 1024 + (1 + 2 * kStages) * kTileBytes + kBarBytes;
+
+static_assert(kBQ == kBK && kBQ * kD * 2 == kTileBytes, "Q, K, V tiles alike");
+
+struct Params {
+  void* o;
+  Strides os;
+  int b, h;                      // batch, query heads
+  int kv_chunk;                  // (b, KV head) pairs per L2 chunk
+  int sq, sk;
+  int group;
+  int causal;
+  int window;                    // <= 0: no window
+  float scale;
+};
+
+// One work item: a (b, h, 128-row query tile) and its KV tiles.
+struct Item {
+  int q0, h, b;
+  int k_begin, n_tiles;
+};
+
+// Item w of a CTA's walk. The (b, KV head) pairs go in chunks of
+// p.kv_chunk, whose K and V fit in L2 together; within a chunk the longest
+// rows come first (the last query tiles, under a causal mask), then the
+// pairs, then the query heads that read one KV head, side by side.
+__device__ __forceinline__ Item work_item(int w, const Params& p) {
+  const int nq = (p.sq + kBQ - 1) / kBQ, hkv = p.h / p.group;
+  const int pairs = p.b * hkv, per_chunk = p.kv_chunk * nq * p.group;
+  const int chunk = w / per_chunk, rem = w % per_chunk;
+  const int in_chunk = min(p.kv_chunk, pairs - chunk * p.kv_chunk);
+  const int qt = rem / (in_chunk * p.group), rem2 = rem % (in_chunk * p.group);
+  const int pair = chunk * p.kv_chunk + rem2 / p.group;
+  Item it;
+  it.b = pair / hkv;
+  it.h = pair % hkv * p.group + rem2 % p.group;
+  it.q0 = (nq - 1 - qt) * kBQ;
+  const int q_last = min(it.q0 + kBQ, p.sq) - 1;
+  const int k_end = p.causal ? min(p.sk, q_last + 1) : p.sk;
+  it.k_begin = p.window > 0 ? max(0, it.q0 - p.window + 1) / kBK * kBK : 0;
+  it.n_tiles = k_end > it.k_begin ? (k_end - it.k_begin + kBK - 1) / kBK : 0;
+  return it;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Wait until the barrier's phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  long long start = 0;
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    const long long now = clock64();
+    if (start == 0)
+      start = now;
+    else if (now - start > (1ll << 34))
+      __trap();
+  }
+}
+
+// One TMA box of the (D, S, H, B) tensor map at (d, s, h, b) into shared
+// memory at `dst`, completing on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int d, int s, int h,
+                                         int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d), "r"(s), "r"(h),
+      "r"(b)
+      : "memory");
+}
+
+// Both boxes of one 128-row tile.
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int s, int h, int b) {
+  mbar_expect_tx(bar, kTileBytes);
+  tma_load(dst, map, bar, 0, s, h, b);
+  tma_load(dst + kBoxBytes, map, bar, kBox, s, h, b);
+}
+
+// wgmma's shared-memory matrix descriptor for a 128-byte-swizzled operand:
+// start address, leading and stride byte offsets (16-byte units), layout 1.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most kPending wgmma groups of this warpgroup are in flight.
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending)
+               : "memory");
+}
+
+// Orders the compiler's reads of the accumulators after the wgmma wait:
+// wgmma writes them asynchronously, which the asm operands do not say.
+__device__ __forceinline__ void fence_regs(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The same for A fragments that an in-flight wgmma still reads: they stay
+// in their registers until the wait.
+__device__ __forceinline__ void fence_frag(uint32_t (&a)[8][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[j][e])::"memory");
+}
+
+// The 64 f32 accumulators of one thread as "+f" operands, 8 at a time.
+#define WG_ACC8(d, i)                                                \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),        \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d (64 x 128, f32) = (accumulate ? d : 0) + A (64 x 16, shared) . B (16 x
+// 128, shared), both K-major (trans 0): S = Q K^T.
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      :
+        WG_ACC8(d, 0),
+        WG_ACC8(d, 8),
+        WG_ACC8(d, 16),
+        WG_ACC8(d, 24),
+        WG_ACC8(d, 32),
+        WG_ACC8(d, 40),
+        WG_ACC8(d, 48),
+        WG_ACC8(d, 56)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 128, f32) += A (64 x 16, this thread's registers) . B (16 x 128,
+// shared), B MN-major (trans 1): O += P V with V stored keys x D.
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        WG_ACC8(d, 0),
+        WG_ACC8(d, 8),
+        WG_ACC8(d, 16),
+        WG_ACC8(d, 24),
+        WG_ACC8(d, 32),
+        WG_ACC8(d, 40),
+        WG_ACC8(d, 48),
+        WG_ACC8(d, 56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+// A consumer thread's rows: it holds columns 8n + 2t + {0, 1} of rows row0
+// (accumulator registers 4n, 4n + 1) and row1 (4n + 2, 4n + 3), n < 16.
+struct Rows {
+  int first;  // the warpgroup's first row
+  int row0, row1, t;
+  float sl2;  // scale * log2(e)
+};
+
+// The online softmax update on one tile's scores `sc` (keys k0..k0+127):
+// scale, mask (edge tiles only), new row maxima m, correction factors c
+// for the old accumulator and denominator, l updated with this tile's row
+// sums (this thread's share), and P in bf16 as wgmma's A fragments (k-step
+// j covers keys 16j..16j+15, the score columns of n-tiles 2j and 2j + 1).
+__device__ __forceinline__ void softmax_tile(float (&sc)[64],
+                                             uint32_t (&pa)[8][4], float& m0,
+                                             float& m1, float& l0, float& l1,
+                                             float& c0, float& c1, int k0,
+                                             const Rows& r, const Params& p) {
+  const bool edge = k0 + kBK > p.sk ||
+                    (p.causal && k0 + kBK - 1 > r.first) ||
+                    (p.window > 0 && k0 <= r.first + 63 - p.window);
+  // Edge tiles scale and mask each score into log2 units; interior tiles
+  // keep the raw scores, take the maxima on them (the scale is positive)
+  // and fold the scale into the exponent's multiply-add.
+  float mx0 = kNegInf, mx1 = kNegInf;
+  if (edge) {
+    // each row sees the keys lo..hi: j < Sk, j <= row if causal, j > row -
+    // window if windowed; offsets from this thread's first column
+    const int c0k = k0 + 2 * r.t;
+    const int hi0 = min(p.sk - 1, p.causal ? r.row0 : p.sk) - c0k;
+    const int hi1 = min(p.sk - 1, p.causal ? r.row1 : p.sk) - c0k;
+    const int lo0 = (p.window > 0 ? r.row0 - p.window + 1 : 0) - c0k;
+    const int lo1 = (p.window > 0 ? r.row1 - p.window + 1 : 0) - c0k;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const int col = 8 * (i / 4) + (i & 1);
+      const bool ok = (i & 2) ? col >= lo1 && col <= hi1
+                              : col >= lo0 && col <= hi0;
+      sc[i] = ok ? sc[i] * r.sl2 : kNegInf;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    if (i & 2)
+      mx1 = fmaxf(mx1, sc[i]);
+    else
+      mx0 = fmaxf(mx0, sc[i]);
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+  }
+  const float f = edge ? 1.f : r.sl2;
+  const float mn0 = fmaxf(m0, mx0 * f), mn1 = fmaxf(m1, mx1 * f);
+  c0 = exp2f(m0 - mn0);
+  c1 = exp2f(m1 - mn1);
+  m0 = mn0;
+  m1 = mn1;
+  float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    sc[i] = exp2f(fmaf(sc[i], f, (i & 2) ? -mn1 : -mn0));
+    if (i & 2)
+      rs1 += sc[i];
+    else
+      rs0 += sc[i];
+  }
+  l0 = l0 * c0 + rs0;
+  l1 = l1 * c1 + rs1;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    pa[j][0] = pack_bf16(sc[8 * j], sc[8 * j + 1]);
+    pa[j][1] = pack_bf16(sc[8 * j + 2], sc[8 * j + 3]);
+    pa[j][2] = pack_bf16(sc[8 * j + 4], sc[8 * j + 5]);
+    pa[j][3] = pack_bf16(sc[8 * j + 6], sc[8 * j + 7]);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, const Params p) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base;
+  const uint32_t bars = base + (1 + 2 * kStages) * kTileBytes;
+  const uint32_t q_full = bars, q_empty = bars + 8;
+  auto sK = [&](int s) { return base + (1 + s) * kTileBytes; };
+  auto sV = [&](int s) { return base + (1 + kStages + s) * kTileBytes; };
+  auto k_full = [&](int s) { return bars + 8 * (2 + s); };
+  auto v_full = [&](int s) { return bars + 8 * (2 + kStages + s); };
+  auto k_empty = [&](int s) { return bars + 8 * (2 + 2 * kStages + s); };
+  auto v_empty = [&](int s) { return bars + 8 * (2 + 3 * kStages + s); };
+  const int n_items = (p.sq + kBQ - 1) / kBQ * p.h * p.b;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, kConsumers);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(k_empty(s), kConsumers);
+      mbar_init(v_empty(s), kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- producer warpgroup: one thread issues every copy ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      int gt = 0;  // KV tiles this CTA has loaded
+      for (int w = blockIdx.x, j = 0; w < n_items; w += gridDim.x, ++j) {
+        const Item item = work_item(w, p);
+        const int hk = item.h / p.group;
+        // the next item's Q once both consumers' last S = Q K^T is done
+        if (j > 0) mbar_wait(q_empty, (j - 1) & 1);
+        tma_tile(sQ, &tq, q_full, item.q0, item.h, item.b);
+        for (int it = 0; it < item.n_tiles; ++it, ++gt) {
+          const int s = gt % kStages;
+          const uint32_t free_parity = ((gt / kStages) & 1) ^ 1;
+          const int k0 = item.k_begin + it * kBK;
+          mbar_wait(k_empty(s), free_parity);
+          tma_tile(sK(s), &tk, k_full(s), k0, hk, item.b);
+          mbar_wait(v_empty(s), free_parity);
+          tma_tile(sV(s), &tv, v_full(s), k0, hk, item.b);
+        }
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: 64 query rows each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int c = threadIdx.x / 128 - 1;
+    const int tid = threadIdx.x & 127;
+    const int warp = tid >> 5, lane = tid & 31;
+    const uint64_t dq = smem_desc(sQ + 64 * c * 128, 16, 1024);
+    float o[64];
+
+    // S = Q K^T of the tile in stage s: 8 k-steps over D, committed as one
+    // wgmma group and left in flight
+    auto issue_qk = [&](float (&sc)[64], int s) {
+      const uint64_t dk = smem_desc(sK(s), 16, 1024);
+#pragma unroll
+      for (int ks = 0; ks < kD / 16; ++ks) {
+        const uint32_t off = ((ks / 4) * kBoxBytes + (ks % 4) * 32) >> 4;
+        wgmma_ss(sc, dq + off, dk + off, ks);
+      }
+      wgmma_commit();
+    };
+    // O += P V of the tile in stage s, 16 keys per k-step, in flight
+    auto issue_pv = [&](const uint32_t (&pa)[8][4], int s) {
+      const uint64_t dv = smem_desc(sV(s), kBoxBytes, 1024);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        wgmma_rs(o, pa[j], dv + ((j * 16 * 128) >> 4));
+      wgmma_commit();
+    };
+
+    int gt = 0;  // KV tiles this CTA has consumed
+    for (int w = blockIdx.x, j = 0; w < n_items; w += gridDim.x, ++j) {
+      const Item item = work_item(w, p);
+      const int n = item.n_tiles;
+      Rows r;
+      r.first = item.q0 + 64 * c;
+      r.row0 = r.first + 16 * warp + (lane >> 2);
+      r.row1 = r.row0 + 8;
+      r.t = lane & 3;
+      // scores in log2 units: exp(s - m) = exp2(s log2(e) - m log2(e))
+      r.sl2 = p.scale * 1.4426950408889634f;
+#pragma unroll
+      for (int i = 0; i < 64; ++i) o[i] = 0.f;
+      float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+      float c0, c1;
+
+      mbar_wait(q_full, j & 1);
+      __syncwarp();
+      if (n == 0) {
+        mbar_arrive(q_empty);
+      } else {
+        // tile 0: its scores, then its P
+        uint32_t pa[8][4];
+        {
+          const int s = gt % kStages;
+          float sc[64];
+          mbar_wait(k_full(s), (gt / kStages) & 1);
+          __syncwarp();
+          wgmma_fence();
+          issue_qk(sc, s);
+          wgmma_wait<0>();
+          fence_regs(sc);
+          mbar_arrive(k_empty(s));
+          if (n == 1) mbar_arrive(q_empty);
+          softmax_tile(sc, pa, m0, m1, l0, l1, c0, c1, item.k_begin, r, p);
+        }
+        // tile it's scores run beside tile it - 1's P V; tile it's softmax
+        // runs while that P V is still in flight
+        for (int it = 1; it < n; ++it) {
+          const int s = (gt + it) % kStages, sp = (gt + it - 1) % kStages;
+          float sc[64];
+          mbar_wait(k_full(s), ((gt + it) / kStages) & 1);
+          mbar_wait(v_full(sp), ((gt + it - 1) / kStages) & 1);
+          __syncwarp();
+          wgmma_fence();
+          issue_qk(sc, s);
+          issue_pv(pa, sp);
+          wgmma_wait<1>();
+          fence_regs(sc);
+          mbar_arrive(k_empty(s));
+          if (it == n - 1) mbar_arrive(q_empty);
+          uint32_t pn[8][4];
+          softmax_tile(sc, pn, m0, m1, l0, l1, c0, c1,
+                       item.k_begin + it * kBK, r, p);
+          // P is computed before the wait, under this tile's P V (the
+          // compiler would otherwise sink the softmax below the wait)
+          fence_frag(pn);
+          wgmma_wait<0>();
+          fence_regs(o);
+          fence_frag(pa);
+          mbar_arrive(v_empty(sp));
+#pragma unroll
+          for (int i = 0; i < 64; ++i) o[i] *= (i & 2) ? c1 : c0;
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) pa[jj][e] = pn[jj][e];
+        }
+        // the last tile's P V
+        const int sl = (gt + n - 1) % kStages;
+        mbar_wait(v_full(sl), ((gt + n - 1) / kStages) & 1);
+        __syncwarp();
+        wgmma_fence();
+        issue_pv(pa, sl);
+        wgmma_wait<0>();
+        fence_regs(o);
+        fence_frag(pa);
+        mbar_arrive(v_empty(sl));
+      }
+      gt += n;
+
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+        l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+      }
+      // O / max(l, 1e-30): one IEEE division per row, then multiplies
+      const float inv0 = 1.f / fmaxf(l0, kMinDenom);
+      const float inv1 = 1.f / fmaxf(l1, kMinDenom);
+      __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) +
+                          item.b * p.os.b + item.h * p.os.h;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int dim = 8 * i + 2 * r.t;
+        if (r.row0 < p.sq)
+          *reinterpret_cast<__nv_bfloat162*>(og + r.row0 * p.os.s + dim) =
+              __floats2bfloat162_rn(o[4 * i] * inv0, o[4 * i + 1] * inv0);
+        if (r.row1 < p.sq)
+          *reinterpret_cast<__nv_bfloat162*>(og + r.row1 * p.os.s + dim) =
+              __floats2bfloat162_rn(o[4 * i + 2] * inv1, o[4 * i + 3] * inv1);
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, found once through the runtime.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The (D, S, H, B) view of a bf16 tensor with d contiguous and (b, h, s)
+// strides `st` (elements), in boxes of 64 dims x kBK rows, 128-byte swizzled.
+cudaError_t make_map(CUtensorMap* map, const void* ptr, int s, int h, int b,
+                     const Strides& st) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {kD, static_cast<cuuint64_t>(s),
+                              static_cast<cuuint64_t>(h),
+                              static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st.s) * 2,
+                                 static_cast<cuuint64_t>(st.h) * 2,
+                                 static_cast<cuuint64_t>(st.b) * 2};
+  const cuuint32_t box[4] = {kBox, kBK, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+}  // namespace wg
+
+cudaError_t launch_wgmma(const Params& p, int b, int h, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = wg::make_map(&tq, p.q, p.sq, h, b, p.qs);
+  if (err == cudaSuccess)
+    err = wg::make_map(&tk, p.k, p.sk, h / p.group, b, p.ks);
+  if (err == cudaSuccess)
+    err = wg::make_map(&tv, p.v, p.sk, h / p.group, b, p.vs);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(wg::flash_fwd_wgmma,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             wg::kSmemBytes);
+  int device, sms;
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  // (b, KV head) pairs whose K and V fit in 32 MiB of the 50 MB L2
+  const int64_t kv_bytes = 2 * int64_t{p.sk} * wg::kD * 2;
+  const int kv_chunk = static_cast<int>(
+      std::max<int64_t>(1, (int64_t{32} << 20) / kv_bytes));
+  const wg::Params wp{p.o,  p.os,    b,        h,        kv_chunk, p.sq,
+                      p.sk, p.group, p.causal, p.window, p.scale};
+  // persistent: one CTA per SM walks the work items
+  const int items = (p.sq + wg::kBQ - 1) / wg::kBQ * h * b;
+  wg::flash_fwd_wgmma<<<std::min(items, sms), wg::kThreads, wg::kSmemBytes,
+                        stream>>>(tq, tk, tv, wp);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch_f32(const Params& p, int b, int h, cudaStream_t stream) {
   const int smem = smem_floats<D>() * static_cast<int>(sizeof(float));
@@ -560,8 +1186,13 @@ cudaError_t launch_bf16(const Params& p, int b, int h, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// The kernels, in the order of the `variant` that flash_attention_fwd
+// reports (the wrapper's VARIANTS).
+enum Variant { kFmaF32 = 0, kMmaBf16 = 1, kWgmmaBf16 = 2 };
+
 cudaError_t dispatch_f32(const Params& p, int b, int h, int d,
-                         cudaStream_t stream) {
+                         cudaStream_t stream, int* variant) {
+  *variant = kFmaF32;
   switch (d) {
     case 32:
       return launch_f32<32>(p, b, h, stream);
@@ -574,15 +1205,17 @@ cudaError_t dispatch_f32(const Params& p, int b, int h, int d,
   }
 }
 
+// bf16: D 128 on the Hopper kernel, D 32 and 64 on the mma.sync kernel.
 cudaError_t dispatch_bf16(const Params& p, int b, int h, int d,
-                          cudaStream_t stream) {
+                          cudaStream_t stream, int* variant) {
+  *variant = d == wg::kD ? kWgmmaBf16 : kMmaBf16;
   switch (d) {
     case 32:
       return launch_bf16<32>(p, b, h, stream);
     case 64:
       return launch_bf16<64>(p, b, h, stream);
-    case 128:
-      return launch_bf16<128>(p, b, h, stream);
+    case wg::kD:
+      return launch_wgmma(p, b, h, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -595,7 +1228,8 @@ extern "C" {
 // Replaces src/repro/kernels/flashattn.py:_flash_kernel (flash_attention).
 // q: (B, H, Sq, D) through strides (q_sb, q_sh, q_ss) and d contiguous; k, v:
 // (B, H / group, Sk, D) likewise; o like q. f32 (is_bf16 == 0) or bf16 for
-// all four. D is 32, 64 or 128; window <= 0 means no window.
+// all four. D is 32, 64 or 128; window <= 0 means no window. *variant
+// receives the kernel that was launched (enum Variant).
 cudaError_t flash_attention_fwd(const void* q, const void* k, const void* v,
                                 void* o, int is_bf16, int b, int h, int group,
                                 int sq, int sk, int d, int64_t q_sb,
@@ -603,7 +1237,8 @@ cudaError_t flash_attention_fwd(const void* q, const void* k, const void* v,
                                 int64_t k_sh, int64_t k_ss, int64_t v_sb,
                                 int64_t v_sh, int64_t v_ss, int64_t o_sb,
                                 int64_t o_sh, int64_t o_ss, int causal,
-                                int window, float scale, void* stream) {
+                                int window, float scale, void* stream,
+                                int* variant) {
   Params p;
   p.q = q;
   p.k = k;
@@ -620,8 +1255,8 @@ cudaError_t flash_attention_fwd(const void* q, const void* k, const void* v,
   p.window = window;
   p.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) return dispatch_bf16(p, b, h, d, st);
-  return dispatch_f32(p, b, h, d, st);
+  if (is_bf16) return dispatch_bf16(p, b, h, d, st, variant);
+  return dispatch_f32(p, b, h, d, st, variant);
 }
 
 const char* flashattn_error_string(int err) {

@@ -16,6 +16,12 @@ Both take the plain version in `ref.py` for tensors that lie on the CPU; for
 CUDA tensors they launch the kernel or raise. They launch on the current
 stream, do not synchronize, and add one to `LAUNCHES["flash_attention"]` per
 launch. The kernel is forward-only, as the reference's is.
+
+Each (dtype, D) runs one CUDA kernel: bf16 at D 128, the model's prefill,
+the Hopper kernel (`wgmma_bf16`: TMA, wgmma, warp specialization); bf16 at D
+32 and 64 the mma.sync kernel (`mma_bf16`); f32 the FMA kernel (`fma_f32`).
+The library reports which kernel it launched, and `VARIANT_LAUNCHES` counts
+launches per kernel.
 """
 
 from __future__ import annotations
@@ -27,24 +33,29 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-HEAD_DIMS = (32, 64, 128)        # head dims the CUDA kernel is built for
+HEAD_DIMS = (32, 64, 128)        # head dims the CUDA kernels are built for
 DTYPES = (torch.float32, torch.bfloat16)
 
 # kernel launches since the last reset
 LAUNCHES = {"flash_attention": 0}
+# the CUDA kernels, in the order of csrc/flashattn.cu's `enum Variant`
+VARIANTS = ("fma_f32", "mma_bf16", "wgmma_bf16")
+# the same launches, per kernel
+VARIANT_LAUNCHES = dict.fromkeys(VARIANTS, 0)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
 _SIGNATURES = {
     "flash_attention_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I)
-    + (_I64,) * 12 + (_I, _I, ctypes.c_float, _P),
+    + (_I64,) * 12 + (_I, _I, ctypes.c_float, _P, ctypes.POINTER(_I)),
 }
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, VARIANT_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def _check(q, k, v, *, heads_dim: int, window) -> None:
@@ -87,7 +98,7 @@ def _check_cuda(q, k, v) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1:
             raise ValueError(f"{name} must be contiguous in its last dim")
-        # the bf16 kernel moves rows in 16-byte vectors
+        # the bf16 kernels move rows in 16-byte vectors or TMA boxes
         if t.dtype == torch.bfloat16 and (
                 t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3])):
             raise ValueError(f"{name}'s rows must be 16-byte aligned")
@@ -114,17 +125,20 @@ def _launch(q, k, v, o, *, heads_dim: int, causal: bool, window) -> None:
 
     lib = _lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    variant = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
         err = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             int(q.dtype == torch.bfloat16), B, H, H // k.shape[heads_dim],
             Sq, Sk, D, *bhs(q), *bhs(k), *bhs(v), *bhs(o), int(causal),
-            0 if window is None else int(window), 1.0 / math.sqrt(D), stream)
+            0 if window is None else int(window), 1.0 / math.sqrt(D), stream,
+            ctypes.byref(variant))
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd failed to launch: "
                            f"{lib.flashattn_error_string(err).decode()} "
                            f"(cudaError {err})")
     LAUNCHES["flash_attention"] += 1
+    VARIANT_LAUNCHES[VARIANTS[variant.value]] += 1
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -130,10 +130,15 @@ def test_smoke_train_step_runs_the_kernels(cuda):
 # --- flash attention ------------------------------------------------------------
 
 # (B, H, Sq, Sk, D, causal, window): ragged edges, cross lengths, windows, and
-# every head dim the kernel is built for
+# every head dim the kernels are built for. At D 128 (bf16: the Hopper
+# kernel's 128-row query and 128-key tiles) lengths that are not multiples
+# of 128, Sq != Sk under the causal mask, and a window narrower than a tile.
 FLASH_CASES = [(1, 2, 64, 64, 32, True, None), (2, 3, 100, 100, 32, True, 24),
                (1, 1, 128, 256, 64, True, None), (2, 2, 65, 65, 64, False, None),
-               (1, 4, 300, 300, 128, True, 100), (2, 2, 130, 70, 128, False, 70)]
+               (1, 4, 300, 300, 128, True, 100), (2, 2, 130, 70, 128, False, 70),
+               (1, 2, 200, 200, 128, True, None),
+               (1, 2, 129, 383, 128, True, 130),
+               (2, 3, 300, 300, 128, True, 24)]
 
 
 # (rtol, atol as a share of the RMS of the plain output's row), as in
@@ -174,6 +179,9 @@ def test_flash_attention_vs_plain(cuda, case, dtype):
     got = flashattn.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert flashattn.LAUNCHES["flash_attention"] == 1
+    kernel = ("fma_f32" if dtype == torch.float32 else
+              "wgmma_bf16" if D == 128 else "mma_bf16")
+    assert flashattn.VARIANT_LAUNCHES[kernel] == 1
     want = ref.flash_attention(q, k, v, causal=causal, window=window)
     assert _flash_excess(got, want, dtype) <= 1
     assert _flash_excess(_control(q, k, v, causal, window), want, dtype) > 1
@@ -195,6 +203,27 @@ def test_gqa_flash_attention_reads_kv_heads_through_strides(cuda):
     want = ref.flash_attention(qt, kt, vt, causal=True, window=64)
     assert _flash_excess(got.transpose(1, 2), want, dtype) <= 1
     assert _flash_excess(_control(qt, kt, vt, True, 64), want, dtype) > 1
+
+
+@pytest.mark.parametrize("window", [None, 130])
+def test_gqa_flash_attention_at_the_prefill_head_ratio(cuda, window):
+    """yi-6b's 32 query heads on 4 KV heads at D 128 (the Hopper kernel),
+    with a ragged length, against the plain version on repeated heads."""
+    from repro_torch.kernels import flashattn
+    dtype = torch.bfloat16
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q = torch.randn(2, 300, 32, 128, generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn(2, 300, 4, 128, generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    flashattn.reset_launches()
+    got = flashattn.gqa_flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert flashattn.VARIANT_LAUNCHES["wgmma_bf16"] == 1
+    qt, kt, vt = (t.repeat_interleave(32 // t.shape[2], dim=2).transpose(1, 2)
+                  for t in (q, k, v))
+    want = ref.flash_attention(qt, kt, vt, causal=True, window=window)
+    assert _flash_excess(got.transpose(1, 2), want, dtype) <= 1
+    assert _flash_excess(_control(qt, kt, vt, True, window), want, dtype) > 1
 
 
 def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):

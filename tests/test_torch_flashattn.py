@@ -21,6 +21,8 @@ CASES = [
     (2, 3, 100, 100, 32, 32, 32),
     (1, 1, 128, 256, 64, 64, 64),
     (1, 2, 33, 65, 16, 16, 16),
+    # D 128 at lengths that are not multiples of the 128-row tiles
+    (1, 2, 200, 200, 128, 128, 128),
 ]
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-6),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
@@ -113,6 +115,7 @@ def test_plain_path_launches_nothing():
     q = torch.zeros(1, 2, 8, 32)
     flashattn.flash_attention(q, q, q)
     assert flashattn.LAUNCHES == {"flash_attention": 0}
+    assert flashattn.VARIANT_LAUNCHES == dict.fromkeys(flashattn.VARIANTS, 0)
 
 
 @pytest.mark.parametrize("name", sorted(_build.SOURCE_FLAGS))
