@@ -41,13 +41,17 @@ Phases, each fatal on failure:
   4. model    -- the smoke model on the card against the CPU, same weights:
                  loss and gradients (loss rtol 1e-5, gradients 1e-4 of their
                  norm), prefill logits and one decode step (atol 1e-4, f32);
-  5-7. train  -- the mlsl int8 train step of yi-6b at full width cut to 4
-                 layers (global batch 8, seq 2048, AdamW, warmup-cosine):
-                 A, the default planner, error feedback, 2 microbatches, 3
-                 steps; B, the same with Planner(dp_only=True); C, dp_only,
-                 int8 without error feedback, 1 microbatch, 2 steps. Each
-                 checks finite losses and its kernels' launch counts (flash
-                 attention: none, the train forward records autograd);
+  5-7. train  -- the train step of yi-6b at full width cut to 4 layers
+                 (global batch 8, seq 2048, AdamW, warmup-cosine), mlsl
+                 int8: A, the default planner, error feedback, 2
+                 microbatches, 3 steps; B, the same with
+                 Planner(dp_only=True); C, dp_only, int8 without error
+                 feedback, 1 microbatch, 2 steps; D, B on the two-level
+                 route (hier, on make_hier_mesh(1, 1): every bucket routes
+                 two-level); E, the gspmd baseline (default planner, 1
+                 microbatch, 2 steps, no kernel). Each checks finite
+                 losses and its kernels' launch counts (flash attention:
+                 none, the train forward records autograd);
   8. serve    -- full yi-6b (32 layers, bf16, random weights from a seed)
                  through `Engine.generate`: S-A batch 8, prompt 2048, 64 new
                  tokens, greedy (run twice: equal tokens); S-B long context
@@ -58,7 +62,12 @@ Phases, each fatal on failure:
                  prefill, first-token and decode times and peak memory;
   9. cli      -- `repro_torch.launch.train.main` and
                  `repro_torch.launch.serve.main` (ragged prompts through
-                 `serve_requests`) on the smoke config;
+                 `serve_requests`) on the smoke config: the flat mlsl int8
+                 run, the verify command's twin (`--hier --nodes 1 --local
+                 1`), `--topo xeon-shm-10gbe` with 2 microbatches (every
+                 bucket routes flat at one node), and the default gspmd
+                 with LAMB and `--ckpt-dir`, whose checkpoint must restore
+                 bit for bit;
  10. report   -- the serve cells' numbers, one JSON line with every kernel,
                  then the device line.
 
@@ -518,15 +527,16 @@ def read_launches():
 
 def train_phase(torch, label, cfg, comm, *, steps, dp_only, expect):
     from repro_torch.launch import train as train_lib
-    phase(f"train {label}: dp_only={dp_only} wire={comm.wire} "
-          f"ef={comm.error_feedback} microbatches={comm.accum_steps}")
+    phase(f"train {label}: mode={comm.mode} hier={comm.hier} "
+          f"dp_only={dp_only} wire={comm.wire} ef={comm.error_feedback} "
+          f"microbatches={comm.accum_steps}")
     batch, seq = 8, 2048
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    recs = train_lib.train(cfg, comm, steps=steps, batch=batch, seq=seq,
-                           lr=3e-4, optimizer="adamw", dp_only=dp_only,
-                           seed=0, device="cuda")
+    recs, _ = train_lib.train(cfg, comm, steps=steps, batch=batch, seq=seq,
+                              lr=3e-4, optimizer="adamw", dp_only=dp_only,
+                              seed=0, device="cuda")
     torch.cuda.synchronize()
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
@@ -543,6 +553,24 @@ def train_phase(torch, label, cfg, comm, *, steps, dp_only, expect):
     return launches, {"step_s": step_s, "first_step_s": recs[0].seconds,
                       "tokens_per_s": batch * seq / step_s,
                       "peak_bytes": peak, "losses": [r.loss for r in recs]}
+
+
+def check_hier_plan(cfg, comm):
+    """Train D's plan on make_hier_mesh(1, 1) under dp_only: 11 fused
+    buckets, every one on the two-level route, with bf16 intra legs."""
+    from repro_torch.core import planner as pl
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models.transformer import Model
+    from repro_torch.train import trainer as tr
+    mesh = mesh_lib.make_hier_mesh(1, 1)
+    plan = tr.make_comm_engine(Model(cfg), mesh,
+                               pl.Planner(mesh=mesh, dp_only=True),
+                               comm).plan
+    log(f"  hier plan: {plan.n_buckets} buckets, routes {set(plan.algos)}, "
+        f"wire_intra {plan.hier_spec.wire_intra}")
+    check(plan.n_buckets == 11 and all(plan.fusable)
+          and set(plan.algos) == {pl.ALGO_HIER},
+          f"train D: plan {plan.algos} {plan.fusable}")
 
 
 def serve_phase(torch, model, params, label, *, batch, prompt_len, n_new,
@@ -610,34 +638,92 @@ def serve_phase(torch, model, params, label, *, batch, prompt_len, n_new,
                       "new_tokens": n_new, "runs": out, "peak_bytes": peak}
 
 
-def cli_phase(torch):
+def _cli_plan(comm, hier: bool):
+    """The plan the CLI builds for the smoke config (default planner)."""
     from repro_torch.configs import registry
     from repro_torch.core import planner as pl
     from repro_torch.launch import mesh as mesh_lib
-    from repro_torch.launch import serve as serve_lib
-    from repro_torch.launch import train as train_lib
     from repro_torch.models.transformer import Model
     from repro_torch.train import trainer as tr
-    phase("cli: python -m repro_torch.launch.train (smoke config)")
-    steps = 2
-    comm = tr.CommConfig(wire="int8", error_feedback=True)
-    mesh = mesh_lib.make_host_mesh(1, 1)
-    cfg = registry.get_smoke_config("yi-6b")
-    plan = tr.make_comm_engine(Model(cfg), mesh, pl.Planner(mesh=mesh),
-                               comm).plan
-    n_fused = sum(plan.fusable)
+    mesh = (mesh_lib.make_hier_mesh(1, 1) if hier
+            else mesh_lib.make_host_mesh(1, 1))
+    return tr.make_comm_engine(Model(registry.get_smoke_config("yi-6b")),
+                               mesh, pl.Planner(mesh=mesh), comm).plan
+
+
+def _cli_train(torch, label, argv, expect):
+    from repro_torch.launch import train as train_lib
+    phase(f"cli: python -m repro_torch.launch.train {label} (smoke config)")
     reset_launches()
-    rc = train_lib.main(["--arch", "yi-6b", "--comm", "mlsl", "--wire", "int8",
-                         "--error-feedback", "--steps", str(steps),
-                         "--log-every", "1"])
+    recs, state = train_lib.run(argv + ["--log-every", "1"])
     torch.cuda.synchronize()
     launches = read_launches()
     log(f"  launches {launches}")
-    expect = {"quantize_blocks": 0, "quantize_ef_blocks": n_fused * steps,
-              "dequantize_blocks": n_fused * steps,
-              "dequantize_accumulate_blocks": 0, "flash_attention": 0}
-    check(rc == 0 and launches == expect,
-          f"cli: rc={rc} launches {launches} != {expect}")
+    check(all(math.isfinite(r.loss) for r in recs) and launches == expect,
+          f"cli {label}: launches {launches} != {expect}")
+    return launches, state
+
+
+def cli_phase(torch):
+    import tempfile
+    from repro_torch import tree as tree_lib
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import registry
+    from repro_torch.core import planner as pl
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.train import trainer as tr
+    zero = dict.fromkeys(KERNELS, 0)
+    totals = dict(zero)
+    steps = 2
+    flat = ["--arch", "yi-6b", "--comm", "mlsl", "--wire", "int8",
+            "--error-feedback"]
+    # flat mlsl int8 + EF: one quantize_ef + one dequantize per fused bucket
+    plan = _cli_plan(tr.CommConfig(mode="mlsl", wire="int8",
+                                          error_feedback=True), False)
+    n = sum(plan.fusable) * steps
+    runs = [("mlsl int8", flat + ["--steps", str(steps)],
+             {**zero, "quantize_ef_blocks": n, "dequantize_blocks": n})]
+    # the verify command's twin: the two-level route at one rank
+    plan = _cli_plan(tr.CommConfig(mode="mlsl", wire="int8",
+                                          error_feedback=True, hier=True),
+                     True)
+    check(set(plan.algos) == {pl.ALGO_HIER}, f"cli hier: {plan.algos}")
+    n = sum(plan.fusable) * 3
+    runs.append(("--hier (verify twin)",
+                 flat + ["--hier", "--nodes", "1", "--local", "1", "--batch",
+                         "8", "--seq", "32", "--steps", "3"],
+                 {**zero, "quantize_ef_blocks": n, "dequantize_blocks": n}))
+    # cost-model routing at one node: every bucket flat, the accumulator in
+    # the gather-side dequantize
+    plan = _cli_plan(tr.CommConfig(
+        mode="mlsl", wire="int8", error_feedback=True, hier=True,
+        topo="xeon-shm-10gbe", accum_steps=2), True)
+    check(set(plan.algos) == {pl.ALGO_FLAT}, f"cli topo: {plan.algos}")
+    n = sum(plan.fusable) * 2 * steps
+    runs.append(("--topo xeon-shm-10gbe",
+                 flat + ["--hier", "--nodes", "1", "--local", "1", "--topo",
+                         "xeon-shm-10gbe", "--microbatches", "2", "--steps",
+                         str(steps)],
+                 {**zero, "quantize_ef_blocks": n,
+                  "dequantize_accumulate_blocks": n}))
+    for label, argv, expect in runs:
+        launches, _ = _cli_train(torch, label, argv, expect)
+        for k, v in launches.items():
+            totals[k] += v
+    # the default --comm gspmd with LAMB and a checkpoint
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        launches, state = _cli_train(
+            torch, "gspmd --optimizer lamb --ckpt-dir",
+            ["--optimizer", "lamb", "--ckpt-dir", ckpt_dir, "--steps",
+             str(steps)], zero)
+        back = ckpt.restore(ckpt_dir, {"params": state.params})["params"]
+        same = all(a.dtype == b.dtype and torch.equal(a, b) for a, b in
+                   zip(tree_lib.leaves(state.params), tree_lib.leaves(back)))
+        log(f"  checkpoint step {ckpt.latest_step(ckpt_dir)}, restored "
+            f"bitwise: {same}")
+        check(same and ckpt.latest_step(ckpt_dir) == steps,
+              "cli gspmd: the checkpoint does not restore bit for bit")
+    cfg = registry.get_smoke_config("yi-6b")
     phase("cli: python -m repro_torch.launch.serve (smoke config)")
     reset_launches()
     rc = serve_lib.main(["--arch", "yi-6b", "--batch", "4", "--prompt-len",
@@ -648,7 +734,7 @@ def cli_phase(torch):
     check(rc == 0 and served["flash_attention"] == cfg.n_layers,
           f"cli serve: rc={rc} launches {served}, expected "
           f"{cfg.n_layers} flash launches (one prefill)")
-    return {k: launches[k] + served[k] for k in launches}
+    return {k: totals[k] + served[k] for k in totals}
 
 
 def main() -> int:
@@ -676,16 +762,25 @@ def main() -> int:
     totals = dict(zero)
     runs = {}
     for label, comm, steps, dp_only, expect in (
-            ("A", tr.CommConfig(wire="int8", error_feedback=True,
-                                accum_steps=2), 3, False,
+            ("A", tr.CommConfig(mode="mlsl", wire="int8",
+                                error_feedback=True, accum_steps=2), 3, False,
              {**zero, "quantize_ef_blocks": 12,
               "dequantize_accumulate_blocks": 12}),
-            ("B", tr.CommConfig(wire="int8", error_feedback=True,
-                                accum_steps=2), 3, True,
+            ("B", tr.CommConfig(mode="mlsl", wire="int8",
+                                error_feedback=True, accum_steps=2), 3, True,
              {**zero, "quantize_ef_blocks": 66,
               "dequantize_accumulate_blocks": 66}),
-            ("C", tr.CommConfig(wire="int8"), 2, True,
-             {**zero, "quantize_blocks": 22, "dequantize_blocks": 22})):
+            ("C", tr.CommConfig(mode="mlsl", wire="int8"), 2, True,
+             {**zero, "quantize_blocks": 22, "dequantize_blocks": 22}),
+            # the two-level route: 11 buckets x 2 microbatches x 3 steps,
+            # the accumulator added after the bf16 all-gather
+            ("D", tr.CommConfig(mode="mlsl", wire="int8",
+                                error_feedback=True, accum_steps=2,
+                                hier=True), 3, True,
+             {**zero, "quantize_ef_blocks": 66, "dequantize_blocks": 66}),
+            ("E", tr.CommConfig(mode="gspmd"), 2, False, zero)):
+        if comm.hier:
+            check_hier_plan(cfg, comm)
         launches, runs[label] = train_phase(torch, label, cfg, comm,
                                             steps=steps, dp_only=dp_only,
                                             expect=expect)

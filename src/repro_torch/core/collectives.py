@@ -1,6 +1,7 @@
 """MLSL-style collectives over `torch.distributed`.
 
-Ports the data-parallel half of `repro/core/collectives.py`. The reference
+Ports the data-parallel half of `repro/core/collectives.py` (the
+tensor-parallel f/g operators come with the hybrid slice). The reference
 calls `lax` collectives over named mesh axes inside a `shard_map`; here an
 axis is a process group (a DeviceMesh dimension), and a tuple of axes is a
 list of groups in the same order. Every call goes through
@@ -28,6 +29,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from repro_torch.core.planner import mesh_shape
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import quant8
 
@@ -227,3 +229,123 @@ def all_gather(x: torch.Tensor, groups: Sequence) -> torch.Tensor:
     for g in reversed(list(groups)):
         y = _all_gather(y, g)
     return y
+
+
+def all_to_all(x: torch.Tensor, groups: Sequence, *, split_axis: int,
+               concat_axis: int) -> torch.Tensor:
+    """Tiled all-to-all over one axis: x splits into p chunks along
+    `split_axis`, chunk j goes to rank j, and the received chunks are
+    concatenated in rank order along `concat_axis`."""
+    if len(groups) != 1:
+        raise ValueError("all_to_all runs over a single mesh axis")
+    group = groups[0]
+    p = dist.get_world_size(group)
+    if x.shape[split_axis] % p:
+        raise ValueError(f"dimension {split_axis} of {tuple(x.shape)} does "
+                         f"not split over {p} ranks")
+    parts = torch.stack(torch.chunk(x, p, dim=split_axis)).contiguous()
+    out = torch.empty_like(parts)
+    dist.all_to_all_single(out, parts, group=group)
+    return torch.cat(list(out.unbind(0)), dim=concat_axis)
+
+
+def broadcast(x: torch.Tensor, groups: Sequence, *,
+              root: int = 0) -> torch.Tensor:
+    """The value of rank `root`, its row-major index over the axes (the
+    reference's masked psum, as one broadcast per axis)."""
+    sizes = [dist.get_world_size(g) for g in groups]
+    coords = []
+    for size in reversed(sizes):
+        root, c = divmod(root, size)
+        coords.append(c)
+    out = x.clone()
+    for g, c in zip(groups, reversed(coords)):
+        dist.broadcast(out, group=g, group_src=c)
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class Comm:
+    """A communicator bound to a DeviceMesh and its data axes (MLSL
+    'distribution').
+
+    `data_axes` are the gradient-reduction axes; `model_axis` names the
+    node-group axis of model/hybrid parallelism. When the data dimension is
+    factored over the machine hierarchy, `node_axis`/`local_axis` name the
+    inter-node (fabric) and intra-node axes, and `allreduce` takes the
+    two-level path (repro_torch.core.hier)."""
+
+    mesh: object                       # torch.distributed DeviceMesh
+    data_axes: tuple
+    model_axis: str | None = "model"
+    node_axis: str | None = None       # inter-node fabric axis
+    local_axis: str | None = None      # intra-node fast-link axis
+
+    def run(self, fn, *args):
+        """Call `fn` on this rank's values. (The reference wraps `fn` in a
+        shard_map over the data axes; here every rank already runs its own
+        program, so there is nothing to wrap.)"""
+        return fn(*args)
+
+    def groups(self, axes: Sequence[str]) -> list:
+        return [self.mesh.get_group(a) for a in axes]
+
+    @property
+    def data_parallel_size(self) -> int:
+        return math.prod(mesh_shape(self.mesh)[a] for a in self.data_axes)
+
+    @property
+    def model_parallel_size(self) -> int:
+        if self.model_axis is None:
+            return 1
+        return mesh_shape(self.mesh)[self.model_axis]
+
+    # -- machine-hierarchy awareness ---------------------------------------
+
+    @property
+    def hierarchical(self) -> bool:
+        """True when the data axes are factored over the node hierarchy."""
+        return (self.node_axis is not None and self.local_axis is not None
+                and self.node_axis in self.data_axes
+                and self.local_axis in self.data_axes)
+
+    @property
+    def node_size(self) -> int:
+        return mesh_shape(self.mesh)[self.node_axis] if self.node_axis else 1
+
+    @property
+    def local_size(self) -> int:
+        return (mesh_shape(self.mesh)[self.local_axis] if self.local_axis
+                else 1)
+
+    def hier_spec(self, *, wire_intra: str = WIRE_FP32,
+                  wire_inter: str = WIRE_FP32, error_feedback: bool = False):
+        from repro_torch.core import hier as hier_lib
+        if not self.hierarchical:
+            raise ValueError(
+                f"a two-level spec needs node and local axes among the data "
+                f"axes: node={self.node_axis!r} local={self.local_axis!r} "
+                f"data={self.data_axes}")
+        return hier_lib.HierSpec(node_axis=self.node_axis,
+                                 local_axis=self.local_axis,
+                                 wire_intra=wire_intra,
+                                 wire_inter=wire_inter,
+                                 error_feedback=error_feedback)
+
+    def allreduce(self, x: torch.Tensor, *, wire: str = WIRE_FP32,
+                  wire_intra: str | None = None,
+                  mean: bool = False) -> torch.Tensor:
+        """Gradient allreduce over the data axes. On a hierarchical
+        communicator this is the two-level path: `wire` selects the fabric
+        leg, `wire_intra` the intra-node legs (bf16 when the fabric is
+        lossy, fp32 otherwise)."""
+        if not self.hierarchical:
+            return allreduce(x, self.groups(self.data_axes), wire=wire,
+                             mean=mean)
+        from repro_torch.core import hier as hier_lib
+        if wire_intra is None:
+            wire_intra = hier_lib.default_wire_intra(wire)
+        spec = self.hier_spec(wire_intra=wire_intra, wire_inter=wire)
+        axes = (self.node_axis, self.local_axis)
+        return hier_lib.hier_allreduce(
+            x, dict(zip(axes, self.groups(axes))), spec, mean=mean)

@@ -1,21 +1,23 @@
 """CommEngine: the unified bucket-reduction data path (paper §2, MLSL EP servers).
 
-Ports the flat data-parallel half of `repro/core/engine.py`:
+Ports the data-parallel half of `repro/core/engine.py`:
 
   * ``CommConfig``  -- the declarative knobs (mode, wire precision, bucket
-    size, error feedback, overlap), shared by the trainer and the driver;
+    size, error feedback, two-level hierarchy, overlap), shared by the
+    trainer and the CLI;
   * ``EnginePlan``  -- the static plan compiled from a gradient structure +
     CommConfig + mesh: bucket boundaries (scheduler.plan_buckets), which
-    buckets may travel fused, each bucket's route, and the resolved int8
-    kernel backend;
+    buckets may travel fused, each bucket's flat-vs-two-level route
+    (scheduler.route_buckets over the hw.Topology cost model), and the
+    resolved int8 kernel backend;
   * ``CommEngine``  -- executes the plan eagerly over `torch.distributed`.
 
 The reference threads an `optimization_barrier` token through the buckets
 so XLA issues them in priority order. Eagerly, the engine issues the
 buckets in plan order, which is the priority order, and every collective of
 the exchange is ordered on the stream; `prioritize` is recorded for the plan
-but changes nothing here. Two-level (`hier`, `topo`) routing and hybrid
-tensor parallelism (`tp_axis`) are later slices and raise.
+but changes nothing here. Hybrid tensor parallelism (`tp_axis`) is a later
+slice and raises.
 """
 
 from __future__ import annotations
@@ -27,12 +29,11 @@ import torch
 
 from repro_torch import tree as tree_lib
 from repro_torch.core import collectives as cl
+from repro_torch.core import hier as hier_lib
+from repro_torch.core import hw
 from repro_torch.core import planner as planner_lib
 from repro_torch.core import scheduler
 from repro_torch.kernels import ops as kops
-
-_HIER_SLICE = ("two-level (hier/topo) collectives are not yet ported to "
-               "repro_torch; they come with the hierarchical-collectives slice")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,14 +41,21 @@ class CommConfig:
     """Declarative communication configuration (consumed by CommEngine and
     the train-step factory)."""
 
-    mode: str = "mlsl"               # mlsl (gspmd is not yet ported)
+    mode: str = "gspmd"              # gspmd | mlsl
     wire: str = cl.WIRE_FP32
     prioritize: bool = True
     bucket_bytes: float = 25e6
     error_feedback: bool = False     # int8 wire only
     accum_steps: int = 1             # microbatch gradient accumulation
-    hier: bool = False               # later slice
-    topo: Optional[str] = None       # later slice (with hier)
+    # two-level collectives over a ("node", "local") factored data dimension
+    # (repro_torch.core.hier): `wire` selects the fabric leg and
+    # `wire_intra` the intra-node legs (None: hier.default_wire_intra).
+    # `topo` names a machine hierarchy (hw.TOPOLOGIES); when set, each
+    # bucket is routed flat vs two-level by the per-level cost model
+    # (scheduler.route_buckets) instead of always going two-level.
+    hier: bool = False
+    wire_intra: Optional[str] = None
+    topo: Optional[str] = None
     # accum_steps > 1: reduce microbatch k-1's buckets after microbatch k's
     # backward (the reference's software-pipelined order), with blocking
     # calls; False reduces each microbatch right after its own backward
@@ -66,13 +74,16 @@ class EnginePlan:
     """Static description of one model's gradient exchange."""
 
     buckets: scheduler.BucketPlan
-    algos: tuple                     # planner.ALGO_FLAT per bucket
+    algos: tuple                     # planner.ALGO_FLAT|ALGO_HIER per bucket
     fusable: tuple                   # bool per bucket: may travel flattened
     data_axes: tuple
     dp: int                          # total data-parallel ranks
     wire: str
     prioritize: bool
     use_ef: bool
+    hier_spec: Optional[hier_lib.HierSpec]
+    n_node: int                      # 1 when not hierarchical
+    n_local: int
     overlap: bool
     accum_steps: int
     skip_reduce: bool = False
@@ -82,6 +93,9 @@ class EnginePlan:
     quant_backend: str = "torch"
     fused_quant: bool = True
     quant_pad: tuple = ()
+    # the hw.TOPOLOGIES name the buckets were routed against (None: no
+    # cost-model routing)
+    topo: Optional[str] = None
 
     @property
     def n_buckets(self) -> int:
@@ -101,9 +115,10 @@ def build_plan(grad_struct, comm: CommConfig, mesh, data_axes, *,
     must not fuse across; `leaf_replicated(path)` says whether a leaf is
     fully replicated (only such buckets travel as one flat message).
     `device` is where the gradients live (default: the mesh's device type);
-    it resolves the int8 kernel backend."""
-    if comm.hier or comm.topo is not None:
-        raise NotImplementedError(_HIER_SLICE)
+    it resolves the int8 kernel backend. With `comm.hier` the data axes
+    must hold the ("node", "local") factoring (launch.mesh.make_hier_mesh);
+    every bucket then goes two-level, or, with `comm.topo`, the route the
+    cost model picks."""
     if tp_axis is not None:
         raise NotImplementedError(
             "hybrid tensor parallelism (tp_axis) is not yet ported to "
@@ -130,14 +145,47 @@ def build_plan(grad_struct, comm: CommConfig, mesh, data_axes, *,
     if comm.wire == cl.WIRE_INT8:
         quant_pad = tuple(kops.pad_info(b.n_elems).waste_frac
                           for b in plan.buckets)
-    return EnginePlan(buckets=plan,
-                      algos=tuple(planner_lib.ALGO_FLAT for _ in plan.buckets),
-                      fusable=fusable, data_axes=tuple(data_axes), dp=dp,
-                      wire=comm.wire, prioritize=comm.prioritize,
-                      use_ef=use_ef, overlap=comm.overlap,
-                      accum_steps=comm.accum_steps,
+
+    hier_spec = None
+    n_node, n_local = 1, dp
+    if comm.hier:
+        if not (hier_lib.NODE_AXIS in data_axes
+                and hier_lib.LOCAL_AXIS in data_axes):
+            raise ValueError(
+                "comm.hier needs the data dimension factored over "
+                f"({hier_lib.NODE_AXIS!r}, {hier_lib.LOCAL_AXIS!r}) mesh "
+                f"axes (launch.mesh.make_hier_mesh); got {tuple(data_axes)}")
+        wire_intra = comm.wire_intra or hier_lib.default_wire_intra(comm.wire)
+        hier_spec = hier_lib.HierSpec(wire_intra=wire_intra,
+                                      wire_inter=comm.wire,
+                                      error_feedback=use_ef, backend=qb,
+                                      fused=comm.fused_quant)
+        n_node = shape[hier_lib.NODE_AXIS]
+        n_local = shape[hier_lib.LOCAL_AXIS]
+        if comm.topo is not None:
+            if comm.topo not in hw.TOPOLOGIES:
+                raise ValueError(
+                    f"unknown topology {comm.topo!r}; known: "
+                    f"{sorted(hw.TOPOLOGIES)}")
+            # small latency-bound buckets may stay flat while bulk buckets
+            # take the hierarchy (MLSL's per-message phase choice)
+            algos = scheduler.route_buckets(plan, hw.TOPOLOGIES[comm.topo],
+                                            nodes=n_node, wire=comm.wire,
+                                            ef=use_ef,
+                                            fused_quant=comm.fused_quant)
+        else:
+            algos = tuple(planner_lib.ALGO_HIER for _ in plan.buckets)
+    else:
+        algos = tuple(planner_lib.ALGO_FLAT for _ in plan.buckets)
+
+    return EnginePlan(buckets=plan, algos=algos, fusable=fusable,
+                      data_axes=tuple(data_axes), dp=dp, wire=comm.wire,
+                      prioritize=comm.prioritize, use_ef=use_ef,
+                      hier_spec=hier_spec, n_node=n_node, n_local=n_local,
+                      overlap=comm.overlap, accum_steps=comm.accum_steps,
                       skip_reduce=comm.skip_reduce, quant_backend=qb,
-                      fused_quant=comm.fused_quant, quant_pad=quant_pad)
+                      fused_quant=comm.fused_quant, quant_pad=quant_pad,
+                      topo=comm.topo)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,6 +204,12 @@ class CommEngine:
         return cls(plan=plan,
                    groups=tuple(mesh.get_group(a) for a in data_axes))
 
+    @property
+    def axis_groups(self) -> dict:
+        """{data axis name: its process group} (the two-level route looks
+        up the spec's node and local axes here)."""
+        return dict(zip(self.plan.data_axes, self.groups))
+
     # -- residual (error-feedback) state -----------------------------------
 
     def ef_applied(self, bi: int) -> bool:
@@ -165,18 +219,27 @@ class CommEngine:
         return self.plan.use_ef and self.plan.fusable[bi]
 
     def init_residuals(self, device):
-        """Zero residuals: this rank's fabric shard per EF bucket, and a
-        zero-length placeholder per other bucket (one entry per bucket).
-        The reference returns the global view (shard x dp ranks); each rank
-        here holds its own shard."""
+        """Zero residuals: this rank's fabric shard per EF bucket, sized by
+        the bucket's route, and a zero-length placeholder per other bucket
+        (one entry per bucket). The reference returns the global view
+        (shard x dp ranks, rank n * local + l holding the n-th fabric
+        sub-chunk of the l-th intra chunk on the two-level route); each rank
+        here holds its own shard of that view."""
         p = self.plan
+
+        def shape(bi, b):
+            if not self.ef_applied(bi):
+                return (0,)
+            if p.algos[bi] == planner_lib.ALGO_HIER:
+                return hier_lib.ef_residual_shape(b.n_elems, p.n_local,
+                                                  p.n_node)
+            return cl.ef_residual_shape(b.n_elems, p.dp)
+
         if not p.use_ef:
             return None
-        return tuple(
-            torch.zeros(cl.ef_residual_shape(b.n_elems, p.dp)
-                        if self.ef_applied(bi) else (0,),
-                        dtype=torch.float32, device=device)
-            for bi, b in enumerate(p.buckets.buckets))
+        return tuple(torch.zeros(shape(bi, b), dtype=torch.float32,
+                                 device=device)
+                     for bi, b in enumerate(p.buckets.buckets))
 
     # -- the data path ------------------------------------------------------
 
@@ -187,11 +250,20 @@ class CommEngine:
                              f"plan {len(self.plan.buckets.paths)}")
         return leaves
 
-    def _reduce_bucket(self, flat, residual, acc=None):
-        """One fused message over the data axes (flat route). Returns
-        (reduced, new_residual_or_None). `acc` folds an accumulator into the
-        gather-side dequantize."""
+    def _reduce_bucket(self, flat, residual, bi: int, acc=None):
+        """One fused message over the data axes, flat or two-level per the
+        bucket's route. Returns (reduced, new_residual_or_None). `acc` folds
+        an accumulator into the result (on the flat int8 route inside the
+        gather-side dequantize)."""
         p = self.plan
+        if p.algos[bi] == planner_lib.ALGO_HIER:
+            if p.use_ef:
+                return hier_lib.hier_allreduce_ef(
+                    flat, residual, self.axis_groups, p.hier_spec, mean=True,
+                    acc=acc)
+            return hier_lib.hier_allreduce(flat, self.axis_groups,
+                                           p.hier_spec, mean=True,
+                                           acc=acc), None
         if p.use_ef:
             return cl.allreduce_ef(flat, residual, self.groups, mean=True,
                                    backend=p.quant_backend,
@@ -223,7 +295,7 @@ class CommEngine:
             if p.fusable[bi]:
                 flat = scheduler.fuse_bucket(leaves, bucket)
                 red, res = self._reduce_bucket(
-                    flat, residuals[bi] if p.use_ef else None)
+                    flat, residuals[bi] if p.use_ef else None, bi)
                 if p.use_ef:
                     new_residuals.append(res)
                 for lid, leaf in scheduler.unfuse_bucket(red, bucket).items():
@@ -273,7 +345,7 @@ class CommEngine:
                     res = residuals[bi] if p.use_ef else None
                 else:
                     red, res = self._reduce_bucket(
-                        flat, residuals[bi] if p.use_ef else None,
+                        flat, residuals[bi] if p.use_ef else None, bi,
                         acc=acc[bi])
                     new_acc.append(red)
             else:

@@ -1,6 +1,9 @@
-"""The DL Layer API, parameter half: per-parameter partition specs.
+"""The DL Layer API: per-parameter partition specs, and the cost model that
+routes each gradient message flat or two-level.
 
-Ports the parameter half of `repro/core/planner.py`. Models declare their
+Ports the parameter half and the flat-vs-hierarchical router of
+`repro/core/planner.py` (`estimate_overlap` waits for the simulator, the
+hybrid plan for the hybrid slice). Models declare their
 parameters as `ParamDef`s with a *kind*; the planner owns the kind ->
 sharding rules. A spec is a tuple with one entry per dimension: a mesh axis
 name, a tuple of names, or None (replicated along that dimension).
@@ -22,6 +25,7 @@ from typing import Callable
 import torch
 
 from repro_torch import tree as tree_lib
+from repro_torch.core import hw
 
 # Parameter kinds understood by the planner.
 K_EMBED = "embed"            # (vocab, d)
@@ -36,9 +40,6 @@ K_NORM = "norm"              # replicated small vectors
 K_SCALAR = "scalar"
 K_REPLICATED = "replicated"  # explicitly replicated projections
 
-# flat vs two-level collective (the two-level path is a later slice)
-ALGO_FLAT = "flat"
-ALGO_HIER = "hier"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,3 +138,53 @@ class Planner:
             lambda path, pd: self.spec_for(
                 pd, stacked=stacked_paths(path) if stacked_paths else False),
             defs_tree)
+
+
+# --- flat vs hierarchical collective choice (machine-hierarchy planning) -----
+
+ALGO_FLAT = "flat"
+ALGO_HIER = "hier"
+
+
+def bucket_allreduce_times(buckets, algos, nodes: int, topo: hw.Topology, *,
+                           bytes_per_elem: float = 4.0, wire: str = "fp32",
+                           ef: bool = False,
+                           fused_quant: bool = True) -> tuple:
+    """Per-bucket allreduce service time under each bucket's route
+    (ALGO_FLAT rings over all ranks, ALGO_HIER two-level). `buckets` has
+    `n_elems` per bucket, `algos` the matching routes (an EnginePlan's).
+    `wire`/`ef`/`fused_quant` charge the int8 wire's quantization term."""
+    out = []
+    for b, algo in zip(buckets, algos):
+        nbytes = b.n_elems * bytes_per_elem
+        t = (hw.hier_allreduce_time(nbytes, nodes, topo, wire_inter=wire,
+                                    ef=ef, fused_quant=fused_quant)
+             if algo == ALGO_HIER else
+             hw.flat_allreduce_time(nbytes, nodes, topo, wire=wire, ef=ef,
+                                    fused_quant=fused_quant))
+        out.append(t)
+    return tuple(out)
+
+
+def choose_allreduce_algo(nbytes: float, nodes: int, topo: hw.Topology,
+                          fault=None, *, wire: str = "fp32",
+                          ef: bool = False, fused_quant: bool = True) -> str:
+    """Flat vs two-level allreduce for one message, from the per-level
+    bandwidth/latency model (repro_torch.core.hw): the hierarchy wins when
+    the fabric-volume saving (1/local_size of the bytes cross the slow
+    link) beats the two extra intra-node phases. `wire`/`ef`/`fused_quant`
+    add the int8 wire's quantization term to both candidates.
+
+    `fault` (the reference's simulator.FaultSpec) needs the simulator,
+    which is not yet ported: passing one raises."""
+    if fault is not None:
+        raise NotImplementedError(
+            "fault= needs simulator.FaultSpec, which is not yet ported to "
+            "repro_torch")
+    if topo.local_size <= 1 or nodes <= 1:
+        return ALGO_FLAT
+    t_flat = hw.flat_allreduce_time(nbytes, nodes, topo, wire=wire, ef=ef,
+                                    fused_quant=fused_quant)
+    t_hier = hw.hier_allreduce_time(nbytes, nodes, topo, wire_inter=wire,
+                                    ef=ef, fused_quant=fused_quant)
+    return ALGO_HIER if t_hier < t_flat else ALGO_FLAT

@@ -1,14 +1,24 @@
-"""Training driver, mlsl data path.
+"""Training entry point (the CLI).
 
-Ports `repro/launch/train.py` for the flat mlsl step:
+Ports `repro/launch/train.py`:
 
-  python -m repro_torch.launch.train --arch yi-6b --comm mlsl --wire int8 \\
-      --error-feedback --microbatches 2
+  python -m repro_torch.launch.train --arch yi-6b --steps 3 --comm mlsl \\
+      --wire int8 --error-feedback --hier --nodes 1 --local 1 --batch 8 \\
+      --seq 32
 
-runs on the card (`--device cpu` for the CPU). `--smoke` (the default) uses
-the reduced config of the same family. `--comm gspmd`, `--hier`,
-`--hybrid`, `--topo` and the observability flags are not yet ported and
-raise.
+runs on the card (`--device cpu` for the CPU). One process is one rank:
+more ranks start through torchrun, e.g. the verify command on 8 gloo ranks
+of the CPU,
+
+  python -m torch.distributed.run --standalone --nproc-per-node 8 \\
+      -m repro_torch.launch.train --device cpu --hier --comm mlsl ...
+
+and the mesh must have as many ranks as the world (`--hier` with the
+default `--nodes 2 --local 4` needs 8; on one card pass `--nodes 1
+--local 1`). Through torchrun, `--local-size` is the spelling of
+`--local` that no torchrun option abbreviates to. `--smoke` (the default) uses the reduced config of the same
+family. `--hybrid`, `--model-parallel` above 1 and the observability flags
+are not yet ported and raise.
 """
 
 from __future__ import annotations
@@ -19,7 +29,9 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.checkpoint import ckpt
 from repro_torch.configs import registry
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import planner as pl
@@ -29,8 +41,8 @@ from repro_torch.models.transformer import Batch, Model
 from repro_torch.optim import optimizers as opt_lib, schedules
 from repro_torch.train import trainer as tr
 
-_NOT_PORTED = ("--hier", "--hybrid", "--topo", "--stats", "--trace",
-               "--telemetry", "--telemetry-sample", "--ckpt-dir")
+_NOT_PORTED = ("--hybrid", "--stats", "--trace", "--telemetry",
+               "--telemetry-sample")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,14 +55,18 @@ class StepRecord:
 
 def train(cfg: ModelConfig, comm: tr.CommConfig, *, steps: int, batch: int,
           seq: int, lr: float = 3e-3, optimizer: str = "adamw",
-          dp_only: bool = False, seed: int = 0, device=None,
-          log_every: int = 0) -> list:
-    """Train `cfg` for `steps` steps of the mlsl step on one process and
-    return a StepRecord per step. Weights are random from `seed`; data is
-    the seeded synthetic stream. `dp_only` builds `Planner(mesh,
-    dp_only=True)` instead of the default planner."""
+          dp_only: bool = False, seed: int = 0, device=None, mesh=None,
+          ckpt_dir: str | None = None, log_every: int = 0) -> tuple:
+    """Train `cfg` for `steps` steps and return (a StepRecord per step, the
+    final TrainState). Weights are random from `seed`; data is the seeded
+    synthetic stream. `mesh` defaults to one rank: `make_hier_mesh(1, 1)`
+    with `comm.hier`, else `make_host_mesh(1, 1)`. `dp_only` builds
+    `Planner(mesh, dp_only=True)` instead of the default planner. With
+    `ckpt_dir`, rank 0 saves {"params": ...} there after the last step."""
     dev = mesh_lib.resolve_device(device)
-    mesh = mesh_lib.make_host_mesh(1, 1, device=dev)
+    if mesh is None:
+        mesh = (mesh_lib.make_hier_mesh(1, 1, device=dev) if comm.hier
+                else mesh_lib.make_host_mesh(1, 1, device=dev))
     planner = pl.Planner(mesh=mesh, dp_only=dp_only)
     model = Model(cfg)
     sched = schedules.warmup_cosine(lr, max(steps // 10, 1), steps)
@@ -70,9 +86,18 @@ def train(cfg: ModelConfig, comm: tr.CommConfig, *, steps: int, batch: int,
         gnorm = float(metrics["grad_norm"])
         out.append(StepRecord(s, loss, gnorm, time.perf_counter() - t0))
         if log_every and (s % log_every == 0 or s == steps - 1):
-            print(f"step {s:5d} loss {loss:.4f} gnorm {gnorm:.3f} "
-                  f"({out[-1].seconds:.3f}s)", flush=True)
-    return out
+            _log(f"step {s:5d} loss {loss:.4f} gnorm {gnorm:.3f} "
+                 f"({out[-1].seconds:.3f}s)")
+    if ckpt_dir and dist.get_rank() == 0:
+        ckpt.save(ckpt_dir, {"params": state.params}, step=steps)
+        _log(f"checkpoint -> {ckpt_dir}")
+    return out, state
+
+
+def _log(msg: str) -> None:
+    """Print on rank 0 only (every rank runs the same loop)."""
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        print(msg, flush=True)
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -86,13 +111,30 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--optimizer", default="adamw",
                     choices=sorted(opt_lib.OPTIMIZERS))
-    ap.add_argument("--comm", default="mlsl", choices=["gspmd", "mlsl"])
+    ap.add_argument("--comm", default="gspmd", choices=["gspmd", "mlsl"])
     ap.add_argument("--wire", default="fp32", choices=["fp32", "bf16", "int8"])
     ap.add_argument("--error-feedback", action="store_true")
     ap.add_argument("--no-prioritize", action="store_true")
+    ap.add_argument("--data-parallel", type=int, default=1)
+    ap.add_argument("--model-parallel", type=int, default=1)
+    # two-level collectives over a ("node", "local") factored mesh of
+    # nodes * local ranks (one process each)
+    ap.add_argument("--hier", action="store_true")
+    ap.add_argument("--nodes", type=int, default=2)
+    # --local-size: the same value under a name torchrun's own parser does
+    # not take for an abbreviation of --local-addr (an argparse that checks
+    # abbreviations past the script, as Python 3.12 on the GPU machine
+    # does, rejects "--local" there as ambiguous)
+    ap.add_argument("--local", "--local-size", dest="local", type=int,
+                    default=4)
+    ap.add_argument("--wire-intra", default=None, choices=["fp32", "bf16"])
+    # a machine hierarchy of repro_torch.core.hw.TOPOLOGIES: the per-level
+    # cost model routes each bucket flat or two-level
+    ap.add_argument("--topo", default=None)
     ap.add_argument("--microbatches", type=int, default=1,
                     help="gradient-accumulation microbatches per step")
     ap.add_argument("--overlap", action="store_true")
+    ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
@@ -103,32 +145,50 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main(argv=None) -> int:
+def run(argv=None) -> tuple:
+    """The CLI without the exit code: parse `argv`, train, and return (the
+    StepRecords, the final TrainState)."""
     args = _parser().parse_args(argv)
     asked = [f for f in _NOT_PORTED
              if getattr(args, f[2:].replace("-", "_")) is not None]
+    if args.model_parallel > 1:
+        asked.append(f"--model-parallel {args.model_parallel}")
     if asked:
         raise NotImplementedError(
             f"{', '.join(asked)}: not yet ported to repro_torch")
-    if args.comm != "mlsl":
-        raise NotImplementedError(
-            f"--comm {args.comm}: not yet ported to repro_torch (only mlsl)")
     cfg = (registry.get_smoke_config(args.arch) if args.smoke
            else registry.get_config(args.arch))
+    dev = mesh_lib.resolve_device(args.device)
+    if args.hier:
+        mesh = mesh_lib.make_hier_mesh(args.nodes, args.local, device=dev)
+    else:
+        mesh = mesh_lib.make_host_mesh(args.data_parallel,
+                                       args.model_parallel, device=dev)
     comm = tr.CommConfig(mode=args.comm, wire=args.wire,
                          prioritize=not args.no_prioritize,
-                         error_feedback=args.error_feedback,
+                         error_feedback=args.error_feedback, hier=args.hier,
+                         wire_intra=args.wire_intra, topo=args.topo,
                          accum_steps=args.microbatches, overlap=args.overlap)
-    dev = mesh_lib.resolve_device(args.device)
-    print(f"arch={cfg.name} params={Model(cfg).n_params():,} "
-          f"comm={args.comm}/{args.wire} device={dev}", flush=True)
-    recs = train(cfg, comm, steps=args.steps, batch=args.batch, seq=args.seq,
-                 lr=args.lr, optimizer=args.optimizer, seed=args.seed,
-                 device=dev, log_every=args.log_every)
+    _log(f"arch={cfg.name} params={Model(cfg).n_params():,} "
+         f"comm={args.comm}/{args.wire} mesh={pl.mesh_shape(mesh)} "
+         f"device={dev}")
+    recs, state = train(cfg, comm, steps=args.steps, batch=args.batch,
+                        seq=args.seq, lr=args.lr, optimizer=args.optimizer,
+                        seed=args.seed, device=dev, mesh=mesh,
+                        ckpt_dir=args.ckpt_dir, log_every=args.log_every)
     if not all(np.isfinite(r.loss) for r in recs):
         raise RuntimeError(f"non-finite loss: {[r.loss for r in recs]}")
+    return recs, state
+
+
+def main(argv=None) -> int:
+    run(argv)
     return 0
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    try:
+        raise SystemExit(main())
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()

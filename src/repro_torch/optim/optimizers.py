@@ -1,18 +1,19 @@
-"""Optimizers built in-tree: SGD-momentum and AdamW.
+"""Optimizers built in-tree: SGD-momentum, AdamW, and the layerwise
+large-batch optimizers LARS and LAMB.
 
-Ports `clip_by_global_norm`, `sgd_momentum`, `adamw` and `make_optimizer`
-of `repro/optim/optimizers.py` (LARS/LAMB and bf16 `state_dtype` come
-later). One interface:
+Ports `repro/optim/optimizers.py`. One interface:
 
     opt = adamw(lr=..., ...)
     state = opt.init(params)
     opt.update(grads, state, params, step)
 
 `lr` is a float or a schedule step -> lr (repro_torch.optim.schedules).
-Where the reference returns new parameter and state trees, `update` writes
-them in place under `torch.no_grad()` (it saves one copy of the model and
-of both moments) and returns the same trees. The arithmetic is the
-reference's, op by op in f32.
+`state_dtype` keeps the moments in another dtype (bf16 for giant models);
+they are read into f32, updated there and stored back rounded. Where the
+reference returns new parameter and state trees, `update` writes them in
+place under `torch.no_grad()` (it saves one copy of the model and of the
+moments) and returns the same trees. The arithmetic is the reference's, op
+by op in f32.
 """
 
 from __future__ import annotations
@@ -48,16 +49,20 @@ def clip_by_global_norm(grads, max_norm: float):
         lambda g: (g.to(torch.float32) * scale).to(g.dtype), grads), gn
 
 
-def _zeros_like_tree(params):
+def _zeros_like_tree(params, dtype):
     return tree_lib.tree_map(
-        lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
-        params)
+        lambda p: torch.zeros(p.shape, dtype=dtype, device=p.device), params)
+
+
+def _itemsize(dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
 
 
 def sgd_momentum(lr, momentum: float = 0.9, weight_decay: float = 0.0,
-                 nesterov: bool = False) -> Optimizer:
+                 nesterov: bool = False,
+                 state_dtype=torch.float32) -> Optimizer:
     def init(params):
-        return {"mu": _zeros_like_tree(params)}
+        return {"mu": _zeros_like_tree(params, state_dtype)}
 
     @torch.no_grad()
     def update(grads, state, params, step):
@@ -68,53 +73,112 @@ def sgd_momentum(lr, momentum: float = 0.9, weight_decay: float = 0.0,
             g = g.to(torch.float32)
             if weight_decay:
                 g = g + weight_decay * p.to(torch.float32)
-            mu_new = momentum * mu + g
+            mu_new = momentum * mu.to(torch.float32) + g
             d = g + momentum * mu_new if nesterov else mu_new
             p.copy_((p.to(torch.float32) - lr_t * d).to(p.dtype))
             mu.copy_(mu_new)
         return params, state
 
-    return Optimizer(init, update, state_bytes_per_param=4)
+    return Optimizer(init, update,
+                     state_bytes_per_param=_itemsize(state_dtype))
 
 
-def adamw(lr, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
-          weight_decay: float = 0.1) -> Optimizer:
-    def init(params):
-        return {"m": _zeros_like_tree(params), "v": _zeros_like_tree(params)}
+def _adam_moments(g, m, v, b1, b2):
+    g = g.to(torch.float32)
+    m_new = b1 * m.to(torch.float32) + (1 - b1) * g
+    v_new = b2 * v.to(torch.float32) + (1 - b2) * g * g
+    return m_new, v_new
 
+
+def _adam_update(lr, b1, b2, eps, weight_decay, trust: bool):
+    """AdamW's update, and with `trust` LAMB's (the step scaled by the
+    layer's trust ratio)."""
     @torch.no_grad()
     def update(grads, state, params, step):
         dev = _device(params)
         lr_t = _lr_at(lr, step).to(dev)
         t = torch.tensor(step + 1, dtype=torch.float32, device=dev)
-        c1 = 1 - b1 ** t
-        c2 = 1 - b2 ** t
+        c1, c2 = 1 - b1 ** t, 1 - b2 ** t
         for g, m, v, p in zip(tree_lib.leaves(grads),
                               tree_lib.leaves(state["m"]),
                               tree_lib.leaves(state["v"]),
                               tree_lib.leaves(params)):
-            g = g.to(torch.float32)
-            m_new = b1 * m + (1 - b1) * g
-            v_new = b2 * v + (1 - b2) * g * g
+            m_new, v_new = _adam_moments(g, m, v, b1, b2)
             upd = (m_new / c1) / (torch.sqrt(v_new / c2) + eps)
             upd = upd + weight_decay * p.to(torch.float32)
-            p.copy_((p.to(torch.float32) - lr_t * upd).to(p.dtype))
+            step_t = lr_t * _trust_ratio(p, upd) * upd if trust \
+                else lr_t * upd
+            p.copy_((p.to(torch.float32) - step_t).to(p.dtype))
             m.copy_(m_new)
             v.copy_(v_new)
         return params, state
+    return update
 
-    return Optimizer(init, update, state_bytes_per_param=8)
+
+def _adam_init(state_dtype):
+    def init(params):
+        return {"m": _zeros_like_tree(params, state_dtype),
+                "v": _zeros_like_tree(params, state_dtype)}
+    return init
+
+
+def adamw(lr, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
+          weight_decay: float = 0.1, state_dtype=torch.float32) -> Optimizer:
+    return Optimizer(_adam_init(state_dtype),
+                     _adam_update(lr, b1, b2, eps, weight_decay, False),
+                     state_bytes_per_param=2 * _itemsize(state_dtype))
+
+
+def _trust_ratio(p, upd, eps: float = 1e-9) -> torch.Tensor:
+    """||p|| / (||upd|| + eps) where both norms are positive, else 1."""
+    wn = torch.linalg.vector_norm(p.to(torch.float32).reshape(-1))
+    un = torch.linalg.vector_norm(upd.reshape(-1))
+    return torch.where((wn > 0) & (un > 0), wn / (un + eps),
+                       torch.ones((), dtype=torch.float32, device=wn.device))
+
+
+def lars(lr, momentum: float = 0.9, weight_decay: float = 1e-4,
+         trust_coeff: float = 0.001, state_dtype=torch.float32) -> Optimizer:
+    """Layerwise Adaptive Rate Scaling (You et al.) for large-batch SGD."""
+    def init(params):
+        return {"mu": _zeros_like_tree(params, state_dtype)}
+
+    @torch.no_grad()
+    def update(grads, state, params, step):
+        lr_t = _lr_at(lr, step).to(_device(params))
+        for g, mu, p in zip(tree_lib.leaves(grads),
+                            tree_lib.leaves(state["mu"]),
+                            tree_lib.leaves(params)):
+            g = g.to(torch.float32) + weight_decay * p.to(torch.float32)
+            local = trust_coeff * _trust_ratio(p, g)
+            mu_new = momentum * mu.to(torch.float32) + local * lr_t * g
+            p.copy_((p.to(torch.float32) - mu_new).to(p.dtype))
+            mu.copy_(mu_new)
+        return params, state
+
+    return Optimizer(init, update,
+                     state_bytes_per_param=_itemsize(state_dtype))
+
+
+def lamb(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-6,
+         weight_decay: float = 0.01, state_dtype=torch.float32) -> Optimizer:
+    """LAMB (You et al.): layerwise-adaptive AdamW for large-batch
+    training."""
+    return Optimizer(_adam_init(state_dtype),
+                     _adam_update(lr, b1, b2, eps, weight_decay, True),
+                     state_bytes_per_param=2 * _itemsize(state_dtype))
 
 
 def _device(params) -> torch.device:
     return tree_lib.leaves(params)[0].device
 
 
-OPTIMIZERS = {"sgd": sgd_momentum, "adamw": adamw}
+OPTIMIZERS = {"sgd": sgd_momentum, "adamw": adamw, "lars": lars, "lamb": lamb}
 
 
-def make_optimizer(name: str, lr, **kw) -> Optimizer:
+def make_optimizer(name: str, lr, *, state_dtype=torch.float32,
+                   **kw) -> Optimizer:
     if name not in OPTIMIZERS:
-        raise ValueError(f"optimizer {name!r} is not yet ported; ported: "
+        raise ValueError(f"unknown optimizer {name!r}; known: "
                          f"{sorted(OPTIMIZERS)}")
-    return OPTIMIZERS[name](lr, **kw)
+    return OPTIMIZERS[name](lr, state_dtype=state_dtype, **kw)

@@ -1,11 +1,18 @@
-"""Training step factory, mlsl mode: forward/backward + MLSL communication +
-optimizer.
+"""Training step factory: forward/backward + communication + optimizer.
 
-Ports the `mlsl` mode of `repro/train/trainer.py`. Each rank computes the
-gradients of its own slice of the global batch; the gradients are fused into
-priority buckets and reduced explicitly through the CommEngine, which owns
-bucket planning, wire precision (fp32 / bf16 / int8 with optional error
-feedback) and the issue order.
+Ports `repro/train/trainer.py`'s two communication modes. Each rank computes
+the gradients of its own slice of the global batch (its index over the data
+axes, row-major), then:
+
+  * ``gspmd``  -- the baseline: the microbatch gradients are accumulated in
+    f32 and cast to the parameter dtype, and each leaf is all-reduced (mean
+    over the data axes) on its own, in priority order. (The reference lets
+    the partitioner insert these reductions.)
+
+  * ``mlsl``   -- the paper's data path: the gradients are fused into
+    priority buckets and reduced explicitly through the CommEngine, which
+    owns bucket planning, flat-vs-two-level routing, wire precision (fp32 /
+    bf16 / int8 with optional error feedback) and the order of the calls.
 
 Gradient accumulation (``accum_steps > 1``) reduces each microbatch's
 buckets as they are produced (DDP-style) and accumulates the *reduced*
@@ -16,19 +23,21 @@ microbatch k's backward) with blocking calls; both orders perform the same
 operations on the same values, so they are bit-identical. With
 ``accum_steps == 1`` the step reduces once after the backward.
 
-The reference's `gspmd` mode, hybrid tensor parallelism and FSDP are not
-ported; asking for them raises.
+Hybrid tensor parallelism and FSDP are not ported; asking for them
+raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import torch
 import torch.distributed as dist
 
 from repro_torch import tree as tree_lib
+from repro_torch.core import collectives as cl
 from repro_torch.core import scheduler
 from repro_torch.core.engine import CommConfig, CommEngine
 from repro_torch.core.planner import Planner, mesh_shape
@@ -103,19 +112,17 @@ def make_train_step(model: Model, optimizer: opt_lib.Optimizer, mesh,
 
     `batch` is the global batch; each rank trains on its slice over the
     data axes. `device` (default: the mesh's) is where the state lives."""
-    if comm.mode != "mlsl":
-        raise NotImplementedError(
-            f"comm mode {comm.mode!r} is not yet ported to repro_torch "
-            f"(only 'mlsl')")
-    if planner.fsdp:
-        raise ValueError("comm=mlsl needs replicated (non-FSDP) parameters "
-                         "over the batch axes")
+    if comm.mode not in ("gspmd", "mlsl"):
+        raise ValueError(f"unknown comm mode {comm.mode!r}")
+    if comm.overlap and comm.mode != "mlsl":
+        raise ValueError("CommConfig(overlap=True) needs the explicit mlsl "
+                         "data path; gspmd reduces each leaf after the "
+                         "backward and cannot be pipelined")
     if device is None:
         device = torch.device(mesh.device_type)
     data_axes = planner.batch_axes
-    engine = make_comm_engine(model, mesh, planner, comm, device=device)
-    groups = engine.groups
-    dp = engine.plan.dp
+    groups = [mesh.get_group(a) for a in data_axes]
+    dp = math.prod(mesh_shape(mesh)[a] for a in data_axes)
     rank = _data_rank(mesh, data_axes)
 
     def value_and_grad(params, batch: Batch):
@@ -132,6 +139,57 @@ def make_train_step(model: Model, optimizer: opt_lib.Optimizer, mesh,
 
     def _to_f32(tree):
         return tree_lib.tree_map(lambda x: x.to(torch.float32), tree)
+
+    def grads_fn(params, batch: Batch):
+        """(loss, unreduced grads) over comm.accum_steps microbatches: the
+        sum in f32, divided by the count and cast to the parameter dtype."""
+        n = comm.accum_steps
+        if n <= 1:
+            return value_and_grad(params, batch)
+        lsum = gsum = None
+        for k in range(n):
+            loss, g = value_and_grad(params, _rows(batch, k, n))
+            lsum = loss if lsum is None else lsum + loss
+            gsum = (_to_f32(g) if gsum is None else tree_lib.tree_map(
+                lambda a, b: a + b.to(torch.float32), gsum, g))
+        return lsum / n, tree_lib.tree_map(
+            lambda g, p: (g / n).to(p.dtype), gsum, params)
+
+    def finish(state: TrainState, loss, grads, residuals):
+        """Clip, pmean the loss over the data axes, update."""
+        grads, gnorm = opt_lib.clip_by_global_norm(grads, grad_clip)
+        loss = loss.clone()
+        for g in groups:
+            dist.all_reduce(loss, op=dist.ReduceOp.SUM, group=g)
+        loss = loss / dp
+        params, opt_state = optimizer.update(grads, state.opt_state,
+                                             state.params, state.step)
+        new = TrainState(params=params, opt_state=opt_state,
+                         step=state.step + 1, comm_residuals=residuals)
+        return new, {"loss": loss, "grad_norm": gnorm}
+
+    if comm.mode == "gspmd":
+        plan = scheduler.plan_buckets(_grad_struct(model),
+                                      scheduler.default_layer_index,
+                                      bucket_bytes=comm.bucket_bytes)
+
+        def reduce_leaf(g, _bucket):
+            return cl.allreduce(g, groups, mean=True)
+
+        def gspmd_step(state: TrainState, batch: Batch):
+            loss, grads = grads_fn(state.params, _rows(batch, rank, dp))
+            # leaf by leaf (fuse=False), as the reference's partitioner-
+            # inserted reductions are
+            grads = scheduler.reduce_with_priority(
+                grads, reduce_leaf, plan, prioritize=comm.prioritize,
+                fuse=False)
+            return finish(state, loss, grads, state.comm_residuals)
+        return gspmd_step
+
+    if planner.fsdp:
+        raise ValueError("comm=mlsl needs replicated (non-FSDP) parameters "
+                         "over the batch axes")
+    engine = make_comm_engine(model, mesh, planner, comm, device=device)
 
     def accum_reduce(params, batch: Batch, residuals):
         """Per-microbatch exchange into the bucket-layout accumulator."""
@@ -173,16 +231,7 @@ def make_train_step(model: Model, optimizer: opt_lib.Optimizer, mesh,
         else:
             loss, grads = value_and_grad(state.params, local)
             grads, residuals = engine.reduce(grads, residuals)
-        grads, gnorm = opt_lib.clip_by_global_norm(grads, grad_clip)
-        loss = loss.clone()
-        for g in groups:                    # pmean over the data axes
-            dist.all_reduce(loss, op=dist.ReduceOp.SUM, group=g)
-        loss = loss / dp
-        params, opt_state = optimizer.update(grads, state.opt_state,
-                                             state.params, state.step)
-        new = TrainState(params=params, opt_state=opt_state,
-                         step=state.step + 1, comm_residuals=residuals)
-        return new, {"loss": loss, "grad_norm": gnorm}
+        return finish(state, loss, grads, residuals)
 
     return train_step
 

@@ -118,13 +118,51 @@ def test_smoke_train_step_runs_the_kernels(cuda):
     from repro_torch.launch import train as train_lib
     from repro_torch.train import trainer as tr
     quant8.reset_launches()
-    recs = train_lib.train(registry.get_smoke_config("yi-6b"),
-                           tr.CommConfig(wire="int8", error_feedback=True,
-                                         accum_steps=2),
-                           steps=2, batch=4, seq=32, device=cuda)
+    recs, _ = train_lib.train(registry.get_smoke_config("yi-6b"),
+                              tr.CommConfig(mode="mlsl", wire="int8",
+                                            error_feedback=True,
+                                            accum_steps=2),
+                              steps=2, batch=4, seq=32, device=cuda)
     assert all(torch.isfinite(torch.tensor(r.loss)) for r in recs)
     assert quant8.LAUNCHES["quantize_ef_blocks"] > 0
     assert quant8.LAUNCHES["dequantize_accumulate_blocks"] > 0
+
+
+@pytest.mark.parametrize("with_acc", [False, True])
+def test_hier_route_at_world_size_one_is_the_flat_route_plus_bf16(cuda,
+                                                                 with_acc):
+    """At world size 1 (NCCL groups of one rank) the two-level int8 + EF
+    route quantizes the same bf16 shard with the same residual as the flat
+    route, on the same kernels: residual bitwise equal. Its intra
+    all-gather carries the dequantized shard on the bf16 wire, so the
+    result is bitwise the flat route's (without accumulator) rounded to
+    bf16, plus the accumulator. It launches one quantize_ef_blocks and one
+    dequantize_blocks, whatever the accumulator."""
+    from repro_torch.core import collectives as cl
+    from repro_torch.core import hier
+    from repro_torch.launch import mesh as mesh_lib
+    mesh = mesh_lib.make_hier_mesh(1, 1, device=cuda)
+    groups = {a: mesh.get_group(a) for a in ("node", "local")}
+    g = torch.Generator(device=cuda).manual_seed(11)
+    n = 180_355_072 // 64                  # a slice of the MLP bucket
+    x = torch.randn(n, generator=g, device=cuda) * 0.01
+    res = torch.randn(hier.ef_residual_shape(n, 1, 1), generator=g,
+                      device=cuda) * 1e-4
+    acc = torch.randn(n, generator=g, device=cuda) if with_acc else None
+    spec = hier.HierSpec(wire_intra="bf16", wire_inter="int8",
+                         error_feedback=True, backend="cuda")
+    quant8.reset_launches()
+    got, got_res = hier.hier_allreduce_ef(x, res, groups, spec, mean=True,
+                                          acc=acc)
+    torch.cuda.synchronize()
+    assert quant8.LAUNCHES == {**dict.fromkeys(quant8.LAUNCHES, 0),
+                               "quantize_ef_blocks": 1,
+                               "dequantize_blocks": 1}
+    flat, flat_res = cl.allreduce_ef(x, res, [groups["node"],
+                                              groups["local"]], mean=True)
+    assert torch.equal(got_res, flat_res)
+    want = flat.to(torch.bfloat16).to(torch.float32)
+    assert torch.equal(got, want if acc is None else acc + want)
 
 
 # --- flash attention ------------------------------------------------------------

@@ -9,6 +9,7 @@ dp_only every bucket fuses. The port reproduces both.
 """
 
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -27,6 +28,7 @@ from repro_torch import tree as tree_lib
 from repro_torch.configs import registry as treg
 from repro_torch.core import collectives as cl
 from repro_torch.core import engine as eng
+from repro_torch.core import hier, hw
 from repro_torch.core import planner as pl
 from repro_torch.core import scheduler
 from repro_torch.launch import mesh as tmesh
@@ -34,6 +36,9 @@ from repro_torch.models.transformer import Model as TModel
 from repro_torch.train import trainer as ttr
 
 COMM = dict(mode="mlsl", wire="int8", error_feedback=True)
+# the (2, 4) hier mesh's shape, without ranks: plans need only the shape
+HIER8 = types.SimpleNamespace(mesh_dim_names=("node", "local"), shape=(2, 4),
+                              device_type="cpu", get_group=lambda a: None)
 
 
 @pytest.fixture(scope="module")
@@ -113,7 +118,14 @@ def test_planner_specs_and_errors(meshes):
     assert planner.spec_for(pl.ParamDef((8,), pl.K_NORM)) == (None,)
     with pytest.raises(ValueError, match="fsdp"):
         pl.Planner(mesh=tm, fsdp=True)
-    with pytest.raises(NotImplementedError, match="hier"):
+    hm = tmesh.make_hier_mesh(1, 1, device="cpu")
+    hplan = ttr.make_comm_engine(TModel(treg.get_smoke_config("yi-6b")), hm,
+                                 pl.Planner(mesh=hm),
+                                 ttr.CommConfig(hier=True)).plan
+    assert set(hplan.algos) == {pl.ALGO_HIER}
+    assert (hplan.n_node, hplan.n_local) == (1, 1)
+    assert hplan.hier_spec.wire_intra == "fp32"
+    with pytest.raises(ValueError, match="node"):
         ttr.make_comm_engine(TModel(treg.get_smoke_config("yi-6b")), tm,
                              planner, ttr.CommConfig(hier=True))
 
@@ -260,3 +272,80 @@ def test_residuals_only_where_ef_applies(meshes):
     res = engine.init_residuals("cpu")
     assert [r.shape for r in res] == [cl.ef_residual_shape(5000, 1), (0,)]
     assert engine.ef_applied(0) and not engine.ef_applied(1)
+
+
+# --------------------------------------------------------------------------
+# the two-level route: plans on the (2, 4) hier mesh, and dp = 1 equality
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", ["smoke", "yi6b_4layers"])
+@pytest.mark.parametrize("dp_only", [False, True])
+@pytest.mark.parametrize("topo", [None] + sorted(hw.TOPOLOGIES))
+def test_hier_plan_matches_reference(mesh8, name, dp_only, topo):
+    """Routes, fusability, the two-level spec and the residual shapes
+    (the reference's global view over 8 ranks) for the same gradient
+    shapes on the (2, 4) mesh, under each topology's cost model."""
+    jcfg, tcfg = _configs(name)
+    comm = dict(COMM, hier=True, topo=topo)
+    jeng = jtr.make_comm_engine(JModel(jcfg), mesh8,
+                                JPlanner(mesh=mesh8, dp_only=dp_only),
+                                jtr.CommConfig(**comm))
+    teng = ttr.make_comm_engine(TModel(tcfg), HIER8,
+                                pl.Planner(mesh=HIER8, dp_only=dp_only),
+                                ttr.CommConfig(**comm), device="cpu")
+    jp, tp = jeng.plan, teng.plan
+    assert tp.algos == jp.algos
+    assert tp.fusable == jp.fusable
+    assert (tp.n_node, tp.n_local, tp.dp, tp.topo) == \
+        (jp.n_node, jp.n_local, jp.dp, jp.topo)
+    assert (tp.hier_spec.wire_intra, tp.hier_spec.wire_inter,
+            tp.hier_spec.error_feedback) == \
+        (jp.hier_spec.wire_intra, jp.hier_spec.wire_inter,
+         jp.hier_spec.error_feedback)
+    tres = teng.init_residuals("meta")
+    assert [tuple(r.shape) for r in tres] == \
+        [(int(r.shape[0]) // 8,) for r in jeng.init_residuals()]
+    if name == "yi6b_4layers" and not dp_only:
+        # the reference's caveat under the CLI's planner: 2 of 11 buckets
+        # (the norm scales) fuse; the rest go leaf by leaf on bf16
+        assert sum(tp.fusable) == 2 and tp.n_buckets == 11
+
+
+def test_hier_plan_errors(meshes):
+    _, tm = meshes
+    model = TModel(treg.get_smoke_config("yi-6b"))
+    with pytest.raises(ValueError, match="unknown topology"):
+        ttr.make_comm_engine(model, HIER8, pl.Planner(mesh=HIER8),
+                             ttr.CommConfig(mode="mlsl", hier=True,
+                                            topo="nowhere"), device="cpu")
+    # topo without hier routes nothing (the reference ignores it too)
+    plan = ttr.make_comm_engine(model, tm, pl.Planner(mesh=tm),
+                                ttr.CommConfig(mode="mlsl",
+                                               topo="xeon-shm-10gbe")).plan
+    assert set(plan.algos) == {pl.ALGO_FLAT}
+
+
+@pytest.mark.parametrize("with_acc", [False, True])
+def test_hier_route_at_world_size_one_is_the_flat_route_plus_bf16(with_acc):
+    """At p = 1 the two-level int8 + EF route quantizes the same bf16 shard
+    with the same residual as the flat route: codes, scales and residual
+    are bitwise the flat route's. Its intra all-gather carries the
+    dequantized shard on the bf16 wire (the reference's design), so the
+    result is the flat route's without accumulator rounded to bf16, plus
+    the accumulator."""
+    hm = tmesh.make_hier_mesh(1, 1, device="cpu")
+    groups = {a: hm.get_group(a) for a in ("node", "local")}
+    g = torch.Generator().manual_seed(7)
+    n = 70000
+    x = torch.randn(n, generator=g) * 0.01
+    res = torch.randn(hier.ef_residual_shape(n, 1, 1), generator=g) * 1e-4
+    acc = torch.randn(n, generator=g) if with_acc else None
+    spec = hier.HierSpec(wire_intra="bf16", wire_inter="int8",
+                         error_feedback=True)
+    got, got_res = hier.hier_allreduce_ef(x, res, groups, spec, mean=True,
+                                          acc=acc)
+    flat_groups = [groups["node"], groups["local"]]
+    flat, flat_res = cl.allreduce_ef(x, res, flat_groups, mean=True)
+    assert torch.equal(got_res, flat_res)
+    want = flat.to(torch.bfloat16).to(torch.float32)
+    assert torch.equal(got, want if acc is None else acc + want)

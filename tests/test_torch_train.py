@@ -9,6 +9,11 @@ rounding tie can flip one int8 code, which moves one gradient element by one
 scale step.
 """
 
+import os
+import pathlib
+import subprocess
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -33,6 +38,7 @@ from repro_torch.models.transformer import Batch as TBatch, Model as TModel
 from repro_torch.optim import optimizers as topt, schedules as tsched
 from repro_torch.train import trainer as ttr
 
+ROOT = pathlib.Path(__file__).resolve().parents[1]
 STEPS = 3
 DATA = dict(seq_len=32, global_batch=8, seed=0)
 CASES = {"a_default_ef_accum2": (False, True, 2),
@@ -75,8 +81,8 @@ def _port_run(params, dp_only, ef, accum, overlap=False):
     model = TModel(cfg)
     mesh = tmesh.make_host_mesh(1, 1, device="cpu")
     opt = topt.adamw(tsched.warmup_cosine(3e-3, 1, STEPS))
-    comm = ttr.CommConfig(wire="int8", error_feedback=ef, accum_steps=accum,
-                          overlap=overlap)
+    comm = ttr.CommConfig(mode="mlsl", wire="int8", error_feedback=ef,
+                          accum_steps=accum, overlap=overlap)
     state = ttr.train_state_from_params(
         convert.params_from_jax(params, device="cpu"), opt)
     step = ttr.make_train_step(model, opt, mesh,
@@ -99,6 +105,78 @@ def test_losses_match_jax_trainer(jax_params, case):
     assert got[-1] < got[0]
     assert state.step == STEPS
     assert (state.comm_residuals is not None) == ef
+
+
+def _run_both(params, comm_kw, optimizer="adamw"):
+    """3 steps of the reference's and the port's trainer at one rank with
+    the same CommConfig, optimizer and weights; (losses, final params) of
+    each, as numpy."""
+    cfg_j, cfg_t = jreg.get_smoke_config("yi-6b"), treg.get_smoke_config(
+        "yi-6b")
+    jmesh11 = jmesh.make_host_mesh(1, 1)
+    tmesh11 = tmesh.make_host_mesh(1, 1, device="cpu")
+    jo = jopt.make_optimizer(optimizer, jsched.warmup_cosine(3e-3, 1, STEPS))
+    to = topt.make_optimizer(optimizer, tsched.warmup_cosine(3e-3, 1, STEPS))
+    data = list(jpipe.iterate(jpipe.DataConfig(vocab=cfg_j.vocab, **DATA),
+                              STEPS))
+    with compat.set_mesh(jmesh11):
+        jp = jax.tree_util.tree_map(jnp.asarray, params)
+        js = jtr.TrainState(params=jp, opt_state=jo.init(jp),
+                            step=jnp.zeros((), jnp.int32))
+        jstep = jax.jit(jtr.make_train_step(
+            JModel(cfg_j), jo, jmesh11, JPlanner(mesh=jmesh11),
+            jtr.CommConfig(**comm_kw)))
+        jl = []
+        for raw in data:
+            js, m = jstep(js, JBatch(tokens=jnp.asarray(raw["tokens"]),
+                                     labels=jnp.asarray(raw["labels"])))
+            jl.append(float(m["loss"]))
+    ts = ttr.train_state_from_params(
+        convert.params_from_jax(params, device="cpu"), to)
+    tstep = ttr.make_train_step(TModel(cfg_t), to, tmesh11,
+                                TPlanner(mesh=tmesh11),
+                                ttr.CommConfig(**comm_kw))
+    tl = []
+    for raw in data:
+        ts, m = tstep(ts, TBatch(tokens=torch.from_numpy(raw["tokens"]),
+                                 labels=torch.from_numpy(raw["labels"])))
+        tl.append(float(m["loss"]))
+    return ((jl, jax.tree_util.tree_map(np.asarray, js.params)),
+            (tl, tree_lib.tree_map(lambda t: t.numpy(), ts.params)))
+
+
+@pytest.mark.parametrize("accum", [1, 2])
+@pytest.mark.parametrize("optimizer", ["adamw", "lamb"])
+def test_gspmd_matches_jax_trainer(jax_params, accum, optimizer):
+    """The gspmd baseline at one rank: microbatch gradients summed in f32,
+    cast to the parameter dtype, all-reduced leaf by leaf, clipped. Losses
+    rtol 1e-5 (the same weights; sums in another order); parameters after 3
+    updates rtol 1e-2, atol 5e-4 (the reference's bound between its own
+    flat and two-level runs) on all but 1e-4 of the elements, and every
+    element within 3 x the summed learning rate: Adam divides each gradient
+    element by its own scale, so the sign of a near-zero element can flip,
+    which moves it by at most two steps of about lr each."""
+    (jl, jp), (tl, tp) = _run_both(
+        jax_params, dict(mode="gspmd", accum_steps=accum), optimizer)
+    np.testing.assert_allclose(tl, jl, rtol=1e-5)
+    lr = jsched.warmup_cosine(3e-3, 1, STEPS)
+    lr_sum = sum(float(lr(jnp.int32(t))) for t in range(STEPS))
+    got = np.concatenate([b.reshape(-1) for b in tree_lib.leaves(tp)])
+    want = np.concatenate([np.asarray(a).reshape(-1)
+                           for a in jax.tree_util.tree_leaves(jp)])
+    diff = np.abs(got - want)
+    outside = diff > 5e-4 + 1e-2 * np.abs(want)
+    assert outside.mean() <= 1e-4, (outside.sum(), diff.max())
+    assert diff.max() <= 3 * lr_sum, diff.max()
+
+
+def test_gspmd_rejects_overlap():
+    mesh = tmesh.make_host_mesh(1, 1, device="cpu")
+    with pytest.raises(ValueError, match="mlsl"):
+        ttr.make_train_step(TModel(treg.get_smoke_config("yi-6b")),
+                            topt.adamw(1e-3), mesh, TPlanner(mesh=mesh),
+                            ttr.CommConfig(mode="gspmd", overlap=True,
+                                           accum_steps=2))
 
 
 def test_overlap_equals_blocking_bitwise(jax_params):
@@ -178,10 +256,62 @@ def test_cli_defaults_to_cuda_and_raises_without_it():
         ttrain.main(["--steps", "1"])
 
 
-@pytest.mark.parametrize("flags", [["--comm", "gspmd"], ["--hier"],
-                                   ["--hybrid"], ["--topo", "xeon-shm-10gbe"],
-                                   ["--stats"], ["--trace", "out"],
-                                   ["--telemetry", "out"]])
+@pytest.mark.parametrize("flags", [["--hybrid"], ["--stats"],
+                                   ["--trace", "out"], ["--telemetry", "out"],
+                                   ["--telemetry-sample", "5"],
+                                   ["--model-parallel", "2"],
+                                   ["--hybrid", "--comm", "mlsl", "--hier"]])
 def test_cli_unported_flags_raise(flags):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         ttrain.main(flags + ["--device", "cpu", "--steps", "1"])
+
+
+@pytest.mark.parametrize("flags", [["--hier"],
+                                   ["--hier", "--nodes", "1", "--local", "2"],
+                                   ["--data-parallel", "4"]])
+def test_cli_mesh_larger_than_the_world_raises(flags):
+    """One process is a world of one rank: a mesh of more ranks raises,
+    naming both sizes, and is never shrunk to fit."""
+    with pytest.raises(RuntimeError, match="needs [248] ranks but the world "
+                                           "has 1"):
+        ttrain.main(flags + ["--device", "cpu", "--steps", "1"])
+
+
+def test_cli_unknown_topology_raises():
+    with pytest.raises(ValueError, match="unknown topology 'nowhere'"):
+        ttrain.main(["--device", "cpu", "--steps", "1", "--comm", "mlsl",
+                     "--hier", "--nodes", "1", "--local", "1",
+                     "--topo", "nowhere"])
+
+
+def test_cli_defaults_match_the_reference():
+    args = ttrain._parser().parse_args([])
+    assert (args.comm, args.wire, args.nodes, args.local, args.batch,
+            args.seq, args.steps, args.optimizer, args.data_parallel,
+            args.model_parallel) == ("gspmd", "fp32", 2, 4, 8, 64, 100,
+                                     "adamw", 1, 1)
+    assert ttr.CommConfig().mode == "gspmd"
+    # the spelling torchrun cannot take for an abbreviation of --local-addr
+    assert ttrain._parser().parse_args(["--local-size", "2"]).local == 2
+
+
+def test_cli_verify_twin_on_eight_gloo_ranks(tmp_path):
+    """The verify command's twin through torchrun on 8 gloo ranks of the
+    CPU: mesh ("node"=2, "local"=4), finite losses, one log per step."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]),
+        OMP_NUM_THREADS="1")
+    env.pop("JAX_PLATFORMS", None)
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "8", "-m", "repro_torch.launch.train",
+         "--device", "cpu", "--arch", "yi-6b", "--steps", "3", "--comm",
+         "mlsl", "--wire", "int8", "--error-feedback", "--hier", "--batch",
+         "8", "--seq", "32", "--log-every", "1"],
+        env=env, cwd=tmp_path, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    out = proc.stdout
+    assert "mesh={'node': 2, 'local': 4}" in out
+    losses = [float(line.split()[3]) for line in out.splitlines()
+              if line.startswith("step")]
+    assert len(losses) == 3 and all(np.isfinite(losses)), out
