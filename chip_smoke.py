@@ -41,6 +41,10 @@ Phases, each fatal on failure:
   4. model    -- the smoke model on the card against the CPU, same weights:
                  loss and gradients (loss rtol 1e-5, gradients 1e-4 of their
                  norm), prefill logits and one decode step (atol 1e-4, f32);
+                 and the tensor-parallel f/g Functions (tp_replicate with
+                 tp_psum, and with tp_psum_scatter) on bf16 CUDA tensors
+                 over the one-rank NCCL "local" group of make_hier_mesh(1,
+                 1), forward and backward: bitwise the dense computation;
   5-7. train  -- the train step of yi-6b at full width cut to 4 layers
                  (global batch 8, seq 2048, AdamW, warmup-cosine), mlsl
                  int8: A, the default planner, error feedback, 2
@@ -49,9 +53,9 @@ Phases, each fatal on failure:
                  feedback, 1 microbatch, 2 steps; D, B on the two-level
                  route (hier, on make_hier_mesh(1, 1): every bucket routes
                  two-level); E, the gspmd baseline (default planner, 1
-                 microbatch, 2 steps, no kernel). Each checks finite
-                 losses and its kernels' launch counts (flash attention:
-                 none, the train forward records autograd);
+                 microbatch, 2 steps, no kernel). Each checks finite losses
+                 and its kernels' launch counts (flash attention: none, the
+                 train forward records autograd);
   8. serve    -- full yi-6b (32 layers, bf16, random weights from a seed)
                  through `Engine.generate`: S-A batch 8, prompt 2048, 64 new
                  tokens, greedy (run twice: equal tokens); S-B long context
@@ -60,15 +64,26 @@ Phases, each fatal on failure:
                  per prefill, all on the Hopper kernel, finite prefill and
                  decode logits and tokens in the vocabulary, and prints
                  prefill, first-token and decode times and peak memory;
-  9. cli      -- `repro_torch.launch.train.main` and
+  9. train F  -- A-E's configuration under the hybrid planner
+                 (make_hybrid_planner on make_hier_mesh(1, 1)), int8
+                 without error feedback, 2 microbatches, 3 steps: at tp = 1
+                 the C2C chooser sends every layer data-parallel, so F is
+                 the hybrid machinery's data-parallel fallback (split
+                 reduce groups of one rank, the sharded-norm clip, local
+                 optimizer state) on D's two-level route. It runs after
+                 the serve cells, so that the serve cells start from the
+                 state the train cells A-E leave, as before F existed;
+ 10. cli      -- `repro_torch.launch.train.main` and
                  `repro_torch.launch.serve.main` (ragged prompts through
                  `serve_requests`) on the smoke config: the flat mlsl int8
                  run, the verify command's twin (`--hier --nodes 1 --local
                  1`), `--topo xeon-shm-10gbe` with 2 microbatches (every
-                 bucket routes flat at one node), and the default gspmd
+                 bucket routes flat at one node), the `--hybrid --nodes 1
+                 --local-size 1 --comm mlsl --wire int8` twin (its plan
+                 lines, every bucket two-level), and the default gspmd
                  with LAMB and `--ckpt-dir`, whose checkpoint must restore
                  bit for bit;
- 10. report   -- the serve cells' numbers, one JSON line with every kernel,
+ 11. report   -- the serve cells' numbers, one JSON line with every kernel,
                  then the device line.
 
 Exits non-zero without the result line when CUDA is absent or any phase
@@ -508,10 +523,43 @@ def model_phase(torch):
         f"{worst:.3e} of its norm")
     check(math.isclose(l_gpu, l_cpu, rel_tol=1e-5), "model: loss differs")
     check(worst <= 1e-4, "model: gradients differ")
+    fg_check(torch)
+
+
+def fg_check(torch):
+    """tp_replicate, then a column- and a row-split projection, then
+    tp_psum or tp_psum_scatter, over the one-rank NCCL "local" group, on
+    bf16 tensors of one microbatch of train F's residual stream (4, 2048,
+    4096) through 512 hidden features: output and every gradient must equal
+    the dense computation's bit for bit (a collective over one rank is the
+    identity)."""
+    from repro_torch.core import collectives as cl
+    from repro_torch.launch import mesh as mesh_lib
+    phase("model: f/g Functions over a one-rank NCCL group")
+    group = mesh_lib.make_hier_mesh(1, 1).get_group("local")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x, w1, w2 = (torch.randn(shape, generator=gen, device="cuda")
+                 .to(torch.bfloat16)
+                 for shape in ((4, 2048, 4096), (4096, 512), (512, 4096)))
+    for g_op in (cl.tp_psum, cl.tp_psum_scatter):
+        outs = []
+        for wrap in (False, True):
+            a, b, xx = (t.clone().requires_grad_(True) for t in (w1, w2, x))
+            xr = cl.tp_replicate(xx, group) if wrap else xx
+            y = torch.relu(xr @ a) @ b
+            if wrap:
+                y = g_op(y, group)
+            loss = y.float().square().sum()
+            outs.append([y.detach(), *torch.autograd.grad(loss, (a, b, xx))])
+        same = [torch.equal(got, want) for got, want in zip(*reversed(outs))]
+        log(f"  tp_replicate + {g_op.__name__}: output, dw1, dw2, dx "
+            f"bitwise the dense computation's: {same}")
+        check(all(same), f"f/g: {g_op.__name__} is not the identity over "
+                         f"one rank")
 
 
 # --------------------------------------------------------------------------
-# 5-8. the main path
+# 5-10. the main path
 # --------------------------------------------------------------------------
 
 def reset_launches():
@@ -525,18 +573,21 @@ def read_launches():
     return {**quant8.LAUNCHES, **flashattn.LAUNCHES}
 
 
-def train_phase(torch, label, cfg, comm, *, steps, dp_only, expect):
+def train_phase(torch, label, cfg, comm, *, steps, dp_only, expect,
+                planner=None):
     from repro_torch.launch import train as train_lib
     phase(f"train {label}: mode={comm.mode} hier={comm.hier} "
-          f"dp_only={dp_only} wire={comm.wire} ef={comm.error_feedback} "
-          f"microbatches={comm.accum_steps}")
+          f"dp_only={dp_only} hybrid={planner is not None} wire={comm.wire} "
+          f"ef={comm.error_feedback} microbatches={comm.accum_steps}")
     batch, seq = 8, 2048
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     recs, _ = train_lib.train(cfg, comm, steps=steps, batch=batch, seq=seq,
                               lr=3e-4, optimizer="adamw", dp_only=dp_only,
-                              seed=0, device="cuda")
+                              seed=0, device="cuda",
+                              mesh=None if planner is None else planner.mesh,
+                              planner=planner)
     torch.cuda.synchronize()
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
@@ -571,6 +622,36 @@ def check_hier_plan(cfg, comm):
     check(plan.n_buckets == 11 and all(plan.fusable)
           and set(plan.algos) == {pl.ALGO_HIER},
           f"train D: plan {plan.algos} {plan.fusable}")
+
+
+def hybrid_planner(cfg, comm, *, batch, seq, n_buckets):
+    """The hybrid planner on make_hier_mesh(1, 1), its plan lines, and the
+    checks of its plan at tp = 1: every layer chooser-data, `n_buckets`
+    fused buckets, each reducing over ("node", "local") on the two-level
+    route."""
+    from repro_torch.core import planner as pl
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import train as train_lib
+    from repro_torch.models.transformer import Model
+    from repro_torch.train import trainer as tr
+    mesh = mesh_lib.make_hier_mesh(1, 1)
+    planner = pl.make_hybrid_planner(mesh, cfg, batch=batch, seq=seq)
+    for lp in planner.hybrid.layers:
+        log("  " + train_lib.plan_line(lp))
+    check({(lp.executed, lp.reason) for lp in planner.hybrid.layers}
+          == {("data", "chooser-data")},
+          "hybrid: at tp = 1 the chooser must send every layer data-parallel")
+    log("  tp = 1: every layer chooser-data; the hybrid machinery runs its "
+        "data-parallel fallback")
+    plan = tr.make_comm_engine(Model(cfg), mesh, planner, comm).plan
+    log(f"  hybrid plan: {plan.n_buckets} buckets, tp_axis {plan.tp_axis} "
+        f"tp {plan.tp}, reduce axes {set(plan.bucket_axes)}, routes "
+        f"{set(plan.algos)}")
+    check(plan.n_buckets == n_buckets and all(plan.fusable)
+          and set(plan.algos) == {pl.ALGO_HIER}
+          and set(plan.bucket_axes) == {("node", "local")} and plan.tp == 1,
+          f"hybrid: plan {plan.algos} {plan.bucket_axes} {plan.fusable}")
+    return planner
 
 
 def serve_phase(torch, model, params, label, *, batch, prompt_len, n_new,
@@ -706,6 +787,17 @@ def cli_phase(torch):
                          str(steps)],
                  {**zero, "quantize_ef_blocks": n,
                   "dequantize_accumulate_blocks": n}))
+    # the --hybrid twin at one rank: every layer chooser-data, every bucket
+    # two-level, one quantize and one dequantize per bucket and step
+    hybrid_planner(registry.get_smoke_config("yi-6b"),
+                   tr.CommConfig(mode="mlsl", wire="int8", hier=True),
+                   batch=8, seq=32, n_buckets=6)
+    n = 6 * steps
+    runs.append(("--hybrid",
+                 ["--arch", "yi-6b", "--hybrid", "--nodes", "1",
+                  "--local-size", "1", "--comm", "mlsl", "--wire", "int8",
+                  "--batch", "8", "--seq", "32", "--steps", str(steps)],
+                 {**zero, "quantize_blocks": n, "dequantize_blocks": n}))
     for label, argv, expect in runs:
         launches, _ = _cli_train(torch, label, argv, expect)
         for k, v in launches.items():
@@ -805,6 +897,17 @@ def main() -> int:
             totals[k] += v
     del model, params
     torch.cuda.empty_cache()
+    # the hybrid planner at tp = 1: D's route without error feedback, 11
+    # buckets x 2 microbatches x 3 steps
+    comm = tr.CommConfig(mode="mlsl", wire="int8", accum_steps=2, hier=True)
+    launches, runs["F"] = train_phase(
+        torch, "F", cfg, comm, steps=3, dp_only=False,
+        expect={**zero, "quantize_blocks": 66, "dequantize_blocks": 66},
+        planner=hybrid_planner(cfg, comm, batch=8, seq=2048, n_buckets=11))
+    for k, v in launches.items():
+        totals[k] += v
+    check(launches["flash_attention"] == 0,
+          "the train step launched the flash kernel")
     for k, v in cli_phase(torch).items():
         totals[k] += v
     check(all(v > 0 for v in totals.values()),

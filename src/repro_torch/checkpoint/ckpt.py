@@ -4,7 +4,10 @@ Ports `repro/checkpoint/ckpt.py`: a directory holds `payload.npz` (one
 array per leaf, keyed by its `/`-joined tree path; bf16 stored as its
 uint16 bit pattern) and `manifest.json` (the paths, the step and the list
 of bf16 keys). Every leaf is stored whole, so a checkpoint written by
-either package, at any world size, restores in the other.
+either package, at any world size, restores in the other. A tensor-parallel
+run saves the full tensors gathered over its ranks
+(`convert.gather_params`), and `restore(specs=, mesh=)` cuts them into the
+rank's shards again, as the reference's `restore(shardings=)` places them.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch import convert
 from repro_torch import tree as tree_lib
 
 
@@ -44,10 +48,13 @@ def save(directory: str, tree: Any, *, step: int | None = None) -> str:
 
 
 def restore(directory: str, like: Any, *,
-            device: torch.device | str | None = None) -> Any:
-    """Restore into the structure of `like` (nested dicts of tensors; meta
-    tensors will do). Each leaf keeps its stored dtype and goes to `device`,
-    by default to the device of its `like` leaf."""
+            device: torch.device | str | None = None, specs: Any = None,
+            mesh: Any = None) -> Any:
+    """Restore into the structure of `like` (nested dicts of tensors with
+    the full shapes; meta tensors will do). Each leaf keeps its stored dtype
+    and goes to `device`, by default to the device of its `like` leaf. With
+    `specs` (the planner's spec tree) and `mesh` (a DeviceMesh), each leaf
+    comes back as this rank's shard (`convert.shard_params`)."""
     with open(os.path.join(directory, "manifest.json")) as f:
         manifest = json.load(f)
     bf16 = set(manifest.get("bf16", []))
@@ -69,7 +76,10 @@ def restore(directory: str, like: Any, *,
             if dev.type == "meta":
                 raise ValueError("restore onto meta tensors needs device=")
             out.append(t.to(dev))
-    return tree_lib.unflatten([p for p, _ in pl], out)
+    tree = tree_lib.unflatten([p for p, _ in pl], out)
+    if specs is not None:
+        tree = convert.shard_params(tree, specs, mesh)
+    return tree
 
 
 def latest_step(directory: str) -> int | None:

@@ -1,10 +1,9 @@
 """MLSL-style collectives over `torch.distributed`.
 
-Ports the data-parallel half of `repro/core/collectives.py` (the
-tensor-parallel f/g operators come with the hybrid slice). The reference
-calls `lax` collectives over named mesh axes inside a `shard_map`; here an
-axis is a process group (a DeviceMesh dimension), and a tuple of axes is a
-list of groups in the same order. Every call goes through
+Ports `repro/core/collectives.py`. The reference calls `lax` collectives
+over named mesh axes inside a `shard_map`; here an axis is a process group
+(a DeviceMesh dimension), and a tuple of axes is a list of groups in the
+same order. Every call goes through
 `torch.distributed`, NCCL on the card and gloo on the CPU, also at world size
 1: there is no branch that skips the call for one rank.
 
@@ -16,7 +15,9 @@ list of groups in the same order. Every call goes through
     residual is this rank's shard of the fabric message
     (`ef_residual_shape`);
   * the mean folds into the scale vector, and an accumulator folds into the
-    gather-side dequantize.
+    gather-side dequantize;
+  * the tensor-parallel f/g activation pair (`tp_replicate`, `tp_psum`,
+    `tp_psum_scatter`) with explicit backward rules, and `TPComm`.
 """
 
 from __future__ import annotations
@@ -262,6 +263,123 @@ def broadcast(x: torch.Tensor, groups: Sequence, *,
     for g, c in zip(groups, reversed(coords)):
         dist.broadcast(out, group=g, group_src=c)
     return out
+
+
+# --- activation exchange for tensor/model parallelism (hybrid execution) -----
+#
+# The Megatron-style conjugate operator pair: a model-sharded block wraps its
+# projections as
+#
+#     y = tp_psum(h @ W_out_shard, group)  where  h = act(tp_replicate(x,
+#     group) @ W_in_shard)
+#
+# `tp_replicate` (the "f" operator) is identity in the forward pass and
+# all-reduces the cotangent in the backward pass: the residual stream enters
+# replicated, and its gradient must re-synchronize after each rank
+# back-propagated through its own head/feature shard only. `tp_psum` ("g")
+# is the conjugate: all-reduce forward (the out-projection computes a
+# partial sum over the sharded contraction dim), identity backward (the
+# incoming cotangent is already replicated). Together they keep every
+# residual-stream activation AND its gradient replicated across the model
+# group while weights stay sharded. Both directions are written out as
+# autograd Functions (the reference's custom_vjp), not left to autograd of
+# the collectives. `groups` is one process group or a sequence of them.
+
+def _group_list(groups) -> list:
+    return list(groups) if isinstance(groups, (list, tuple)) else [groups]
+
+
+class _Replicate(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _psum(ct.contiguous(), ctx.groups), None
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, groups):
+        return _psum(x.contiguous(), groups)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct, None
+
+
+class _PsumScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, groups):
+        return _psum_scatter_gather(x, groups)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct, None
+
+
+def _psum_scatter_gather(x: torch.Tensor, groups: list) -> torch.Tensor:
+    """Reduce-scatter then all-gather along the trailing dimension, over
+    the groups in order and back in reverse (the ring allreduce's two
+    halves)."""
+    p = axis_size(groups)
+    if x.shape[-1] % p:
+        raise ValueError(
+            f"tp_psum_scatter: the trailing dimension {x.shape[-1]} must "
+            f"divide by the group size {p} (the quantum)")
+    y = x.movedim(-1, 0)
+    for g in groups:
+        y = _psum_scatter(y, g)
+    for g in reversed(groups):
+        y = _all_gather(y, g)
+    return y.movedim(0, -1).contiguous()
+
+
+def tp_replicate(x: torch.Tensor, groups) -> torch.Tensor:
+    """f operator: identity forward; the backward all-reduces the cotangent
+    over `groups`. Place on a replicated activation entering model-sharded
+    projections."""
+    return _Replicate.apply(x, _group_list(groups))
+
+
+def tp_psum(x: torch.Tensor, groups) -> torch.Tensor:
+    """g operator: all-reduce forward (combine per-shard partial sums);
+    identity backward (the cotangent arrives replicated across the model
+    group)."""
+    return _Psum.apply(x, _group_list(groups))
+
+
+def tp_psum_scatter(x: torch.Tensor, groups) -> torch.Tensor:
+    """g operator in the bandwidth-optimal reduce-scatter + all-gather form:
+    `tp_psum`'s value, with each rank combining 1/p of the trailing
+    dimension, which must divide by the group size p (else ValueError)."""
+    return _PsumScatter.apply(x, _group_list(groups))
+
+
+@dataclasses.dataclass(frozen=True)
+class TPComm:
+    """Activation-exchange communicator for one model-parallel mesh axis:
+    `axis` names it, `group` is its process group. The CommEngine hands
+    this out (`engine.tp`) when its plan carries a tensor-parallel axis;
+    the train step passes its group to the model, whose blocks call
+    `tp_replicate` / `tp_psum` on it directly."""
+
+    axis: str
+    group: object
+
+    def replicate(self, x: torch.Tensor) -> torch.Tensor:
+        return tp_replicate(x, self.group)
+
+    def psum(self, x: torch.Tensor, *, scatter: bool = False) -> torch.Tensor:
+        if scatter:
+            return tp_psum_scatter(x, self.group)
+        return tp_psum(x, self.group)
+
+    @property
+    def size(self) -> int:
+        return dist.get_world_size(self.group)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -8,16 +8,16 @@ Ports the data-parallel half of `repro/core/engine.py`:
   * ``EnginePlan``  -- the static plan compiled from a gradient structure +
     CommConfig + mesh: bucket boundaries (scheduler.plan_buckets), which
     buckets may travel fused, each bucket's flat-vs-two-level route
-    (scheduler.route_buckets over the hw.Topology cost model), and the
-    resolved int8 kernel backend;
+    (scheduler.route_buckets over the hw.Topology cost model), each
+    bucket's reduce axes under hybrid tensor parallelism, and the resolved
+    int8 kernel backend;
   * ``CommEngine``  -- executes the plan eagerly over `torch.distributed`.
 
 The reference threads an `optimization_barrier` token through the buckets
 so XLA issues them in priority order. Eagerly, the engine issues the
 buckets in plan order, which is the priority order, and every collective of
 the exchange is ordered on the stream; `prioritize` is recorded for the plan
-but changes nothing here. Hybrid tensor parallelism (`tp_axis`) is a later
-slice and raises.
+but changes nothing here.
 """
 
 from __future__ import annotations
@@ -87,6 +87,15 @@ class EnginePlan:
     overlap: bool
     accum_steps: int
     skip_reduce: bool = False
+    # hybrid (data x model) execution: gradients of model-sharded parameters
+    # reduce over the data axes only (each rank owns a distinct 1/tp shard),
+    # while replicated-parameter gradients reduce over data axes + tp_axis
+    # (their per-rank copies are identical, so the mean is unchanged and the
+    # two-level path gets the intra link back). bucket_axes records the
+    # reduce axes per bucket; () means "use data_axes for every bucket".
+    tp_axis: Optional[str] = None
+    tp: int = 1
+    bucket_axes: tuple = ()
     # int8 wire execution detail, resolved once at plan-build time: the
     # kernel backend ("cuda" | "torch"), whether the single-pass fused
     # kernels run, and the per-bucket padding waste of the tiling
@@ -96,6 +105,9 @@ class EnginePlan:
     # the hw.TOPOLOGIES name the buckets were routed against (None: no
     # cost-model routing)
     topo: Optional[str] = None
+
+    def axes_for(self, bi: int) -> tuple:
+        return self.bucket_axes[bi] if self.bucket_axes else self.data_axes
 
     @property
     def n_buckets(self) -> int:
@@ -107,7 +119,9 @@ def build_plan(grad_struct, comm: CommConfig, mesh, data_axes, *,
                layer_index: Callable[[tuple], float] | None = None,
                group_key: Callable[[tuple], object] | None = None,
                leaf_replicated: Callable[[tuple], bool] | None = None,
-               tp_axis: Optional[str] = None) -> EnginePlan:
+               tp_axis: Optional[str] = None,
+               leaf_sharded: Callable[[tuple], bool] | None = None
+               ) -> EnginePlan:
     """Compile CommConfig + gradient structure + mesh into an EnginePlan.
 
     `grad_struct` is a nested dict of tensors with the gradients' shapes
@@ -118,11 +132,14 @@ def build_plan(grad_struct, comm: CommConfig, mesh, data_axes, *,
     it resolves the int8 kernel backend. With `comm.hier` the data axes
     must hold the ("node", "local") factoring (launch.mesh.make_hier_mesh);
     every bucket then goes two-level, or, with `comm.topo`, the route the
-    cost model picks."""
-    if tp_axis is not None:
-        raise NotImplementedError(
-            "hybrid tensor parallelism (tp_axis) is not yet ported to "
-            "repro_torch; it comes with the hybrid data x model slice")
+    cost model picks.
+
+    `tp_axis` + `leaf_sharded` switch on hybrid (data x model) execution:
+    `grad_struct` then describes each rank's LOCAL gradient shards, and
+    `leaf_sharded(path)` marks leaves whose parameter is model-sharded over
+    `tp_axis`. Sharded buckets reduce over the data axes only, on the flat
+    route; replicated buckets reduce over data axes + tp_axis, on the route
+    the plan picks. Every leaf is a local tensor, so all buckets fuse."""
     if layer_index is None:
         layer_index = scheduler.default_layer_index
     plan = scheduler.plan_buckets(grad_struct, layer_index,
@@ -146,15 +163,37 @@ def build_plan(grad_struct, comm: CommConfig, mesh, data_axes, *,
         quant_pad = tuple(kops.pad_info(b.n_elems).waste_frac
                           for b in plan.buckets)
 
+    tp = 1
+    bucket_axes = ()
+    sharded_buckets = tuple(False for _ in plan.buckets)
+    if tp_axis is not None:
+        if leaf_sharded is None:
+            raise ValueError("tp_axis requires a leaf_sharded predicate")
+        if use_ef:
+            raise ValueError(
+                "error feedback is unsupported with hybrid tensor "
+                "parallelism: the int8 residual is a per-rank fabric shard, "
+                "but model-sharded gradients reduce over the node axis only "
+                "while replicated ones reduce over (node, local)")
+        tp = int(shape[tp_axis])
+        sharded_buckets = tuple(
+            any(leaf_sharded(plan.paths[i]) for i in b.leaf_ids)
+            for b in plan.buckets)
+        full = tuple(data_axes) + (tp_axis,)
+        bucket_axes = tuple(tuple(data_axes) if sh else full
+                            for sh in sharded_buckets)
+        fusable = tuple(True for _ in plan.buckets)
+
     hier_spec = None
     n_node, n_local = 1, dp
     if comm.hier:
-        if not (hier_lib.NODE_AXIS in data_axes
-                and hier_lib.LOCAL_AXIS in data_axes):
+        hier_axes = tuple(data_axes) + ((tp_axis,) if tp_axis else ())
+        if not (hier_lib.NODE_AXIS in hier_axes
+                and hier_lib.LOCAL_AXIS in hier_axes):
             raise ValueError(
                 "comm.hier needs the data dimension factored over "
                 f"({hier_lib.NODE_AXIS!r}, {hier_lib.LOCAL_AXIS!r}) mesh "
-                f"axes (launch.mesh.make_hier_mesh); got {tuple(data_axes)}")
+                f"axes (launch.mesh.make_hier_mesh); got {hier_axes}")
         wire_intra = comm.wire_intra or hier_lib.default_wire_intra(comm.wire)
         hier_spec = hier_lib.HierSpec(wire_intra=wire_intra,
                                       wire_inter=comm.wire,
@@ -175,6 +214,12 @@ def build_plan(grad_struct, comm: CommConfig, mesh, data_axes, *,
                                             fused_quant=comm.fused_quant)
         else:
             algos = tuple(planner_lib.ALGO_HIER for _ in plan.buckets)
+        if tp_axis is not None:
+            # the two-level path needs BOTH hierarchy axes in a bucket's
+            # reduce axes; model-sharded buckets reduce over the node axis
+            # only, so they always go flat
+            algos = tuple(planner_lib.ALGO_FLAT if sh else a
+                          for a, sh in zip(algos, sharded_buckets))
     else:
         algos = tuple(planner_lib.ALGO_FLAT for _ in plan.buckets)
 
@@ -183,7 +228,8 @@ def build_plan(grad_struct, comm: CommConfig, mesh, data_axes, *,
                       prioritize=comm.prioritize, use_ef=use_ef,
                       hier_spec=hier_spec, n_node=n_node, n_local=n_local,
                       overlap=comm.overlap, accum_steps=comm.accum_steps,
-                      skip_reduce=comm.skip_reduce, quant_backend=qb,
+                      skip_reduce=comm.skip_reduce, tp_axis=tp_axis, tp=tp,
+                      bucket_axes=bucket_axes, quant_backend=qb,
                       fused_quant=comm.fused_quant, quant_pad=quant_pad,
                       topo=comm.topo)
 
@@ -192,23 +238,46 @@ def build_plan(grad_struct, comm: CommConfig, mesh, data_axes, *,
 class CommEngine:
     """Executes an EnginePlan: the single entry point for bucket reduction.
 
-    `groups` are the process groups of the plan's data axes, in order."""
+    `groups` are the process groups of the plan's data axes, in order;
+    `tp_group` is the group of its tp axis (None on pure-DP plans)."""
 
     plan: EnginePlan
     groups: tuple
+    tp_group: object = None
 
     @classmethod
     def create(cls, grad_struct, comm: CommConfig, mesh, data_axes,
                **kw) -> "CommEngine":
         plan = build_plan(grad_struct, comm, mesh, data_axes, **kw)
         return cls(plan=plan,
-                   groups=tuple(mesh.get_group(a) for a in data_axes))
+                   groups=tuple(mesh.get_group(a) for a in data_axes),
+                   tp_group=(None if plan.tp_axis is None
+                             else mesh.get_group(plan.tp_axis)))
 
     @property
     def axis_groups(self) -> dict:
-        """{data axis name: its process group} (the two-level route looks
-        up the spec's node and local axes here)."""
-        return dict(zip(self.plan.data_axes, self.groups))
+        """{axis name: its process group} over the data axes and the tp
+        axis (the two-level route looks up the spec's node and local axes
+        here)."""
+        out = dict(zip(self.plan.data_axes, self.groups))
+        if self.plan.tp_axis is not None:
+            out[self.plan.tp_axis] = self.tp_group
+        return out
+
+    def groups_for(self, bi: int) -> list:
+        """The process groups bucket `bi` reduces over."""
+        groups = self.axis_groups
+        return [groups[a] for a in self.plan.axes_for(bi)]
+
+    @property
+    def tp(self) -> Optional[cl.TPComm]:
+        """Activation-exchange communicator for the plan's model axis (None
+        on pure-DP plans). The train step takes its tp group from here, so
+        the f/g operators the blocks place around their sharded projections
+        run over the group the engine's replicated buckets reduce over."""
+        if self.plan.tp_axis is None:
+            return None
+        return cl.TPComm(self.plan.tp_axis, self.tp_group)
 
     # -- residual (error-feedback) state -----------------------------------
 
@@ -268,17 +337,17 @@ class CommEngine:
             return cl.allreduce_ef(flat, residual, self.groups, mean=True,
                                    backend=p.quant_backend,
                                    fused=p.fused_quant, acc=acc)
-        return cl.allreduce(flat, self.groups, wire=p.wire, mean=True,
+        return cl.allreduce(flat, self.groups_for(bi), wire=p.wire, mean=True,
                             backend=p.quant_backend, fused=p.fused_quant,
                             acc=acc), None
 
-    def _reduce_leafwise(self, vals):
+    def _reduce_leafwise(self, vals, bi: int):
         """A non-fusable bucket: per leaf, shape-preserving, on the bf16
         wire when the plan's wire is int8."""
         wire = self.plan.wire if self.plan.wire != cl.WIRE_INT8 \
             else cl.WIRE_BF16
-        return [cl.allreduce(v, self.groups, wire=wire, mean=True)
-                for v in vals]
+        groups = self.groups_for(bi)
+        return [cl.allreduce(v, groups, wire=wire, mean=True) for v in vals]
 
     def reduce_chained(self, grads, residuals):
         """Fused, prioritized, wire-precision gradient exchange: buckets are
@@ -301,7 +370,8 @@ class CommEngine:
                 for lid, leaf in scheduler.unfuse_bucket(red, bucket).items():
                     new_leaves[lid] = leaf
             else:
-                vals = self._reduce_leafwise([leaves[i] for i in bucket.leaf_ids])
+                vals = self._reduce_leafwise(
+                    [leaves[i] for i in bucket.leaf_ids], bi)
                 if p.use_ef:
                     new_residuals.append(residuals[bi])
                 for lid, leaf in zip(bucket.leaf_ids, vals):
@@ -351,7 +421,7 @@ class CommEngine:
             else:
                 vals = [leaves[i] for i in bucket.leaf_ids]
                 if not p.skip_reduce:
-                    vals = self._reduce_leafwise(vals)
+                    vals = self._reduce_leafwise(vals, bi)
                 new_acc.append(tuple(a + v.to(torch.float32)
                                      for a, v in zip(acc[bi], vals)))
                 res = residuals[bi] if p.use_ef else None

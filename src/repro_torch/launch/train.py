@@ -16,9 +16,17 @@ of the CPU,
 and the mesh must have as many ranks as the world (`--hier` with the
 default `--nodes 2 --local 4` needs 8; on one card pass `--nodes 1
 --local 1`). Through torchrun, `--local-size` is the spelling of
-`--local` that no torchrun option abbreviates to. `--smoke` (the default) uses the reduced config of the same
-family. `--hybrid`, `--model-parallel` above 1 and the observability flags
-are not yet ported and raise.
+`--local` that no torchrun option abbreviates to. `--smoke` (the default)
+uses the reduced config of the same family.
+
+`--hybrid` executes the C2C chooser's hybrid plan: tensor parallelism over
+the "local" axis of `make_hier_mesh(nodes, local)` for the layers the
+chooser sends model-parallel, data parallelism across "node"; it prints one
+`plan ...` line per layer, implies `--hier` and needs `--comm mlsl`. With
+`--ckpt-dir` it saves the full parameters gathered over the tp group.
+`--model-parallel` above 1 without `--hybrid` (the reference's GSPMD
+model axis, which needs a vocab-parallel embedding, head and loss) and the
+observability flags are not yet ported and raise.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch import convert
 from repro_torch.checkpoint import ckpt
 from repro_torch.configs import registry
 from repro_torch.configs.base import ModelConfig
@@ -41,8 +50,7 @@ from repro_torch.models.transformer import Batch, Model
 from repro_torch.optim import optimizers as opt_lib, schedules
 from repro_torch.train import trainer as tr
 
-_NOT_PORTED = ("--hybrid", "--stats", "--trace", "--telemetry",
-               "--telemetry-sample")
+_NOT_PORTED = ("--stats", "--trace", "--telemetry", "--telemetry-sample")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,23 +64,31 @@ class StepRecord:
 def train(cfg: ModelConfig, comm: tr.CommConfig, *, steps: int, batch: int,
           seq: int, lr: float = 3e-3, optimizer: str = "adamw",
           dp_only: bool = False, seed: int = 0, device=None, mesh=None,
-          ckpt_dir: str | None = None, log_every: int = 0) -> tuple:
+          planner: pl.Planner | None = None, ckpt_dir: str | None = None,
+          log_every: int = 0) -> tuple:
     """Train `cfg` for `steps` steps and return (a StepRecord per step, the
     final TrainState). Weights are random from `seed`; data is the seeded
     synthetic stream. `mesh` defaults to one rank: `make_hier_mesh(1, 1)`
-    with `comm.hier`, else `make_host_mesh(1, 1)`. `dp_only` builds
-    `Planner(mesh, dp_only=True)` instead of the default planner. With
-    `ckpt_dir`, rank 0 saves {"params": ...} there after the last step."""
+    with `comm.hier`, else `make_host_mesh(1, 1)`. `planner` defaults to
+    `Planner(mesh, dp_only=dp_only)`; under a hybrid planner
+    (`make_hybrid_planner`) every rank draws the full weights and keeps its
+    shards, and the state holds shards. With `ckpt_dir`, rank 0 saves
+    {"params": ...} there after the last step, the full tensors."""
     dev = mesh_lib.resolve_device(device)
     if mesh is None:
         mesh = (mesh_lib.make_hier_mesh(1, 1, device=dev) if comm.hier
                 else mesh_lib.make_host_mesh(1, 1, device=dev))
-    planner = pl.Planner(mesh=mesh, dp_only=dp_only)
+    if planner is None:
+        planner = pl.Planner(mesh=mesh, dp_only=dp_only)
     model = Model(cfg)
     sched = schedules.warmup_cosine(lr, max(steps // 10, 1), steps)
     opt = opt_lib.make_optimizer(optimizer, sched)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    state = tr.make_train_state(model, opt, gen, dev)
+    specs = tr.param_specs(model, planner) if planner.hybrid else None
+    params = model.init(gen, dev)
+    if specs is not None:
+        params = convert.shard_params(params, specs, mesh)
+    state = tr.train_state_from_params(params, opt)
     step_fn = tr.make_train_step(model, opt, mesh, planner, comm, device=dev)
     dcfg = pipeline.DataConfig(vocab=cfg.vocab, seq_len=seq,
                                global_batch=batch, seed=seed)
@@ -88,10 +104,21 @@ def train(cfg: ModelConfig, comm: tr.CommConfig, *, steps: int, batch: int,
         if log_every and (s % log_every == 0 or s == steps - 1):
             _log(f"step {s:5d} loss {loss:.4f} gnorm {gnorm:.3f} "
                  f"({out[-1].seconds:.3f}s)")
-    if ckpt_dir and dist.get_rank() == 0:
-        ckpt.save(ckpt_dir, {"params": state.params}, step=steps)
-        _log(f"checkpoint -> {ckpt_dir}")
+    if ckpt_dir:
+        full = (state.params if specs is None else
+                convert.gather_params(state.params, specs, mesh))
+        if dist.get_rank() == 0:
+            ckpt.save(ckpt_dir, {"params": full}, step=steps)
+            _log(f"checkpoint -> {ckpt_dir}")
     return out, state
+
+
+def plan_line(lp: pl.HybridLayerPlan) -> str:
+    """The reference CLI's `plan ...` line for one layer of a hybrid plan."""
+    note = f" [{lp.reason}]" if lp.reason else ""
+    return (f"plan {lp.name:12s} {lp.kind:6s} "
+            f"chooser={lp.choice.strategy.value}(g={lp.choice.group_size}) "
+            f"executed={lp.executed}{note}")
 
 
 def _log(msg: str) -> None:
@@ -120,6 +147,11 @@ def _parser() -> argparse.ArgumentParser:
     # two-level collectives over a ("node", "local") factored mesh of
     # nodes * local ranks (one process each)
     ap.add_argument("--hier", action="store_true")
+    # execute the C2C chooser's hybrid plan: tensor parallelism over the
+    # "local" mesh axis for the layers the chooser sends model-parallel,
+    # data parallelism across "node" (implies the hier mesh; needs --comm
+    # mlsl)
+    ap.add_argument("--hybrid", action="store_true")
     ap.add_argument("--nodes", type=int, default=2)
     # --local-size: the same value under a name torchrun's own parser does
     # not take for an abbreviation of --local-addr (an argparse that checks
@@ -151,22 +183,35 @@ def run(argv=None) -> tuple:
     args = _parser().parse_args(argv)
     asked = [f for f in _NOT_PORTED
              if getattr(args, f[2:].replace("-", "_")) is not None]
-    if args.model_parallel > 1:
-        asked.append(f"--model-parallel {args.model_parallel}")
+    if args.model_parallel > 1 and not args.hybrid:
+        asked.append(f"--model-parallel {args.model_parallel} (the GSPMD "
+                     "model axis needs a vocab-parallel embedding, head and "
+                     "cross-entropy)")
     if asked:
         raise NotImplementedError(
             f"{', '.join(asked)}: not yet ported to repro_torch")
+    if args.hybrid and args.comm != "mlsl":
+        raise SystemExit("--hybrid needs --comm mlsl (the activation "
+                         "f/g collectives run in the explicit data path)")
     cfg = (registry.get_smoke_config(args.arch) if args.smoke
            else registry.get_config(args.arch))
     dev = mesh_lib.resolve_device(args.device)
-    if args.hier:
+    planner = None
+    if args.hybrid:
+        mesh = mesh_lib.make_hier_mesh(args.nodes, args.local, device=dev)
+        planner = pl.make_hybrid_planner(mesh, cfg, batch=args.batch,
+                                         seq=args.seq)
+        for lp in planner.hybrid.layers:
+            _log(plan_line(lp))
+    elif args.hier:
         mesh = mesh_lib.make_hier_mesh(args.nodes, args.local, device=dev)
     else:
         mesh = mesh_lib.make_host_mesh(args.data_parallel,
                                        args.model_parallel, device=dev)
     comm = tr.CommConfig(mode=args.comm, wire=args.wire,
                          prioritize=not args.no_prioritize,
-                         error_feedback=args.error_feedback, hier=args.hier,
+                         error_feedback=args.error_feedback,
+                         hier=args.hier or args.hybrid,
                          wire_intra=args.wire_intra, topo=args.topo,
                          accum_steps=args.microbatches, overlap=args.overlap)
     _log(f"arch={cfg.name} params={Model(cfg).n_params():,} "
@@ -175,7 +220,8 @@ def run(argv=None) -> tuple:
     recs, state = train(cfg, comm, steps=args.steps, batch=args.batch,
                         seq=args.seq, lr=args.lr, optimizer=args.optimizer,
                         seed=args.seed, device=dev, mesh=mesh,
-                        ckpt_dir=args.ckpt_dir, log_every=args.log_every)
+                        planner=planner, ckpt_dir=args.ckpt_dir,
+                        log_every=args.log_every)
     if not all(np.isfinite(r.loss) for r in recs):
         raise RuntimeError(f"non-finite loss: {[r.loss for r in recs]}")
     return recs, state

@@ -25,11 +25,13 @@ and returns the same tensors; the reference returns updated copies.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
 
 from repro_torch.configs.base import AttnConfig
+from repro_torch.core import collectives as cl
 from repro_torch.core import planner as pl
 from repro_torch.kernels import flashattn
 from repro_torch.models import common
@@ -97,10 +99,25 @@ def _attend(p: dict, x: torch.Tensor, a: AttnConfig, *, pos0: int,
 
 
 def gqa_apply(p: dict, x: torch.Tensor, a: AttnConfig, *, pos0: int = 0,
-              window: int | None = None,
-              mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Full causal self-attention over a sequence (training and prefill)."""
-    return _attend(p, x, a, pos0=pos0, window=window, mask=mask)[0]
+              window: int | None = None, mask: torch.Tensor | None = None,
+              tp_axis=None) -> torch.Tensor:
+    """Full causal self-attention over a sequence (training and prefill).
+
+    tp_axis (a process group): head-sharded tensor parallelism -- the
+    projections in `p` are this rank's head shard (local head counts come
+    from the shard shapes), x enters through the f operator (identity
+    forward, all-reduce backward) and the out-projection's partial sum
+    leaves through g (all-reduce forward, identity backward):
+    collectives.tp_replicate / tp_psum. Rope and softmax are per head, so
+    the sharded math is exact."""
+    if tp_axis is not None:
+        a = dataclasses.replace(a, n_heads=p["wq"].shape[-1] // a.head_dim,
+                                n_kv=p["wk"].shape[-1] // a.head_dim)
+        x = cl.tp_replicate(x, tp_axis)
+    y = _attend(p, x, a, pos0=pos0, window=window, mask=mask)[0]
+    if tp_axis is not None:
+        y = cl.tp_psum(y, tp_axis)
+    return y
 
 
 # --- serving caches ------------------------------------------------------------

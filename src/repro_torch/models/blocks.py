@@ -1,8 +1,10 @@
 """Per-layer block assembly: norm + mixer + MLP with residuals.
 
 Ports the "attn" block kind of `repro/models/blocks.py` (causal
-self-attention + dense MLP): full-sequence apply, serving caches and
-one-token decode. The other kinds come with their slices.
+self-attention + dense MLP): full-sequence apply, with head/feature-sharded
+tensor parallelism under a hybrid plan, serving caches and one-token
+decode (unsharded, as in the reference). The other kinds come with their
+slices.
 """
 
 from __future__ import annotations
@@ -48,12 +50,29 @@ def block_defs(kind: str, cfg: ModelConfig) -> dict:
 
 @dataclasses.dataclass(frozen=True)
 class BlockCtx:
-    """Runtime options passed down from the model (the reference's
-    parallelism and other block kinds' options come with their slices)."""
+    """Runtime options passed down from the model (other block kinds'
+    options come with their slices)."""
 
     cfg: ModelConfig
     window_override: Optional[int] = None  # force SWA on full-attn blocks
     kv_dtype: str = "native"               # int8: quantized GQA KV cache
+    # hybrid execution: the activation-exchange group (process group) of
+    # tensor-parallel blocks. Whether a given block actually runs sharded is
+    # detected from its shard shapes (attn_tp / mlp_tp) -- the per-layer
+    # hybrid plan leaves fallback layers replicated, and putting f/g around
+    # full-size weights would multiply their output by the group size.
+    tp_axis: object = None
+
+    def attn_tp(self, p_attn: dict, a):
+        if self.tp_axis is None:
+            return None
+        sharded = p_attn["wo"].shape[-2] != a.n_heads * a.head_dim
+        return self.tp_axis if sharded else None
+
+    def mlp_tp(self, p_mlp: dict):
+        if self.tp_axis is None:
+            return None
+        return self.tp_axis if p_mlp["w2"].shape[-2] != self.cfg.d_ff else None
 
     def window_for(self, kind: str) -> Optional[int]:
         a = self.cfg.attn
@@ -64,9 +83,11 @@ class BlockCtx:
         return native
 
 
-def _mlp_residual(p: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _mlp_residual(p: dict, h: torch.Tensor, cfg: ModelConfig,
+                  tp_axis=None) -> torch.Tensor:
     x = norm_apply(p["ln2"], h, cfg)
-    return h + mlp.mlp_apply(p["mlp"], x, act=cfg.mlp_act, gated=cfg.mlp_gated)
+    return h + mlp.mlp_apply(p["mlp"], x, act=cfg.mlp_act, gated=cfg.mlp_gated,
+                             tp_axis=tp_axis)
 
 
 def block_apply(kind: str, p: dict, h: torch.Tensor,
@@ -77,8 +98,9 @@ def block_apply(kind: str, p: dict, h: torch.Tensor,
     cfg = ctx.cfg
     x = norm_apply(p["ln1"], h, cfg)
     h = h + attn_mod.gqa_apply(p["attn"], x, cfg.attn,
-                               window=ctx.window_for(kind))
-    return _mlp_residual(p, h, cfg)
+                               window=ctx.window_for(kind),
+                               tp_axis=ctx.attn_tp(p["attn"], cfg.attn))
+    return _mlp_residual(p, h, cfg, ctx.mlp_tp(p["mlp"]))
 
 
 # --- caches ----------------------------------------------------------------------

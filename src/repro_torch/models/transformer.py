@@ -82,9 +82,9 @@ class Model:
     # ---------------- forward ----------------
 
     def _ctx(self, window_override: Optional[int] = None,
-             kv_dtype: str = "native") -> blocks.BlockCtx:
+             kv_dtype: str = "native", tp_axis=None) -> blocks.BlockCtx:
         return blocks.BlockCtx(cfg=self.cfg, window_override=window_override,
-                               kv_dtype=kv_dtype)
+                               kv_dtype=kv_dtype, tp_axis=tp_axis)
 
     def _embed(self, params: dict, batch: Batch) -> torch.Tensor:
         h = params["embed"][batch.tokens.long()]
@@ -126,15 +126,19 @@ class Model:
             logits = torch.tanh(logits / c) * c
         return logits
 
-    def forward(self, params: dict, batch: Batch) -> torch.Tensor:
-        """Full-sequence logits (training / evaluation)."""
-        ctx = self._ctx()
+    def forward(self, params: dict, batch: Batch, *,
+                tp_axis=None) -> torch.Tensor:
+        """Full-sequence logits (training / evaluation). `tp_axis` (a
+        process group): blocks whose weights are head/feature shards run
+        tensor-parallel over it; replicated blocks ignore it."""
+        ctx = self._ctx(tp_axis=tp_axis)
         h = self._embed(params, batch)
         h = self._run_blocks(params, h, ctx)
         return self._head(params, h)
 
-    def loss(self, params: dict, batch: Batch) -> torch.Tensor:
-        logits = self.forward(params, batch)
+    def loss(self, params: dict, batch: Batch, *,
+             tp_axis=None) -> torch.Tensor:
+        logits = self.forward(params, batch, tp_axis=tp_axis)
         return common.softmax_xent(
             logits[:, :-1], batch.labels[:, 1:],
             None if batch.mask is None else batch.mask[:, 1:])

@@ -40,10 +40,14 @@ def _global_norm(leaves) -> torch.Tensor:
                           for g in leaves))
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, *,
+                        global_norm: torch.Tensor | None = None):
     """Scale every gradient by min(1, max_norm / global norm). Returns
-    (clipped tree, global norm)."""
-    gn = _global_norm(tree_lib.leaves(grads))
+    (clipped tree, global norm). `global_norm` replaces the norm of the
+    local leaves where the caller reckons it over more ranks (the hybrid
+    step's sharded leaves)."""
+    gn = (_global_norm(tree_lib.leaves(grads)) if global_norm is None
+          else global_norm)
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
     return tree_lib.tree_map(
         lambda g: (g.to(torch.float32) * scale).to(g.dtype), grads), gn

@@ -23,8 +23,17 @@ microbatch k's backward) with blocking calls; both orders perform the same
 operations on the same values, so they are bit-identical. With
 ``accum_steps == 1`` the step reduces once after the backward.
 
-Hybrid tensor parallelism and FSDP are not ported; asking for them
-raises.
+Hybrid (data x model) execution (`planner.hybrid`, mlsl only): the ranks of
+one tp group see the same rows (the batch splits over the data axes only);
+parameters and optimizer state are each rank's local shards
+(`convert.shard_params` by the planner's specs); model-sharded layers
+exchange activations through the f/g collectives over the tp group; the
+engine reduces sharded buckets over the data axes and replicated ones over
+data axes + tp axis; the clip adds the sharded leaves' sum of squares over
+the tp group. LARS and LAMB take per-leaf norms of the local shards there,
+which differ from the dense norms (the reference's do too).
+
+FSDP is not ported; asking for it raises.
 """
 
 from __future__ import annotations
@@ -74,12 +83,19 @@ def _grad_struct(model: Model):
         model.param_defs())
 
 
+def param_specs(model: Model, planner: Planner):
+    """The planner's spec tree for the model's parameters."""
+    return planner.tree_specs(model.param_defs(),
+                              stacked_paths=Model.stacked_path)
+
+
 def make_comm_engine(model: Model, mesh, planner: Planner,
                      comm: CommConfig, *, device=None) -> CommEngine:
     """The model's CommEngine: bucket plan from its parameter structure and
-    sharding groups. Only buckets of fully replicated leaves may fuse."""
-    specs = planner.tree_specs(model.param_defs(),
-                               stacked_paths=Model.stacked_path)
+    sharding groups. Only buckets of fully replicated leaves may fuse,
+    except under a hybrid plan, where the engine plans on each rank's local
+    shards and every bucket fuses."""
+    specs = param_specs(model, planner)
     spec_by_path = dict(tree_lib.leaves_with_paths(specs))
 
     def group_key(path):
@@ -88,11 +104,28 @@ def make_comm_engine(model: Model, mesh, planner: Planner,
     def leaf_replicated(path):
         return all(a is None for a in spec_by_path.get(path, ()))
 
-    return CommEngine.create(_grad_struct(model), comm, mesh,
-                             planner.batch_axes, device=device,
+    grad_struct = _grad_struct(model)
+    hybrid = planner.hybrid
+    if hybrid is None:
+        return CommEngine.create(grad_struct, comm, mesh, planner.batch_axes,
+                                 device=device,
+                                 layer_index=scheduler.default_layer_index,
+                                 group_key=group_key,
+                                 leaf_replicated=leaf_replicated)
+
+    # model-sharded leaves shrink to their local 1/tp shard
+    def shard_struct(path, leaf):
+        shape = [n // hybrid.tp if ax == hybrid.tp_axis else n
+                 for n, ax in zip(leaf.shape, spec_by_path.get(path, ()))]
+        return torch.empty(shape, dtype=leaf.dtype, device="meta")
+
+    return CommEngine.create(tree_lib.map_with_path(shard_struct, grad_struct),
+                             comm, mesh, hybrid.data_axes, device=device,
                              layer_index=scheduler.default_layer_index,
                              group_key=group_key,
-                             leaf_replicated=leaf_replicated)
+                             leaf_replicated=leaf_replicated,
+                             tp_axis=hybrid.tp_axis,
+                             leaf_sharded=lambda p: not leaf_replicated(p))
 
 
 def _data_rank(mesh, data_axes) -> int:
@@ -111,9 +144,16 @@ def make_train_step(model: Model, optimizer: opt_lib.Optimizer, mesh,
     """Returns train_step(state, batch) -> (state, metrics).
 
     `batch` is the global batch; each rank trains on its slice over the
-    data axes. `device` (default: the mesh's) is where the state lives."""
+    data axes. `device` (default: the mesh's) is where the state lives.
+    Under a hybrid planner the state holds this rank's local shards."""
     if comm.mode not in ("gspmd", "mlsl"):
         raise ValueError(f"unknown comm mode {comm.mode!r}")
+    hybrid = planner.hybrid
+    if hybrid is not None and comm.mode != "mlsl":
+        raise ValueError("hybrid execution (planner.hybrid) needs comm mode "
+                         "'mlsl': the activation f/g collectives and the "
+                         "split gradient reduction run inside the explicit "
+                         "data path")
     if comm.overlap and comm.mode != "mlsl":
         raise ValueError("CommConfig(overlap=True) needs the explicit mlsl "
                          "data path; gspmd reduces each leaf after the "
@@ -124,13 +164,25 @@ def make_train_step(model: Model, optimizer: opt_lib.Optimizer, mesh,
     groups = [mesh.get_group(a) for a in data_axes]
     dp = math.prod(mesh_shape(mesh)[a] for a in data_axes)
     rank = _data_rank(mesh, data_axes)
+    engine = None
+    if comm.mode == "mlsl":
+        if planner.fsdp:
+            raise ValueError("comm=mlsl needs replicated (non-FSDP) "
+                             "parameters over the batch axes")
+        engine = make_comm_engine(model, mesh, planner, comm, device=device)
+    # under a hybrid plan the engine hands out the tp axis's communicator;
+    # blocks detect model-sharded weights by their shard shapes and place
+    # the f/g activation collectives over its group; DP-fallback layers
+    # see full-size (replicated) weights and ignore it
+    tp = None if engine is None else engine.tp
+    tp_group = None if tp is None else tp.group
 
     def value_and_grad(params, batch: Batch):
         leaves = tree_lib.leaves(params)
         with torch.enable_grad():
             for p in leaves:
                 p.requires_grad_(True)
-            loss = model.loss(params, batch)
+            loss = model.loss(params, batch, tp_axis=tp_group)
             grads = torch.autograd.grad(loss, leaves)
             for p in leaves:
                 p.requires_grad_(False)
@@ -155,9 +207,31 @@ def make_train_step(model: Model, optimizer: opt_lib.Optimizer, mesh,
         return lsum / n, tree_lib.tree_map(
             lambda g, p: (g / n).to(p.dtype), gsum, params)
 
+    if hybrid is None:
+        clip_grads = opt_lib.clip_by_global_norm
+    else:
+        sharded_flags = [any(ax == hybrid.tp_axis for ax in spec)
+                         for spec in tree_lib.leaves(param_specs(model,
+                                                                 planner))]
+
+        def clip_grads(grads, max_norm):
+            """clip_by_global_norm with the model-sharded leaves' sum of
+            squares all-reduced over the tp group (each rank holds a
+            distinct shard; replicated leaves are counted once). The norm
+            comes out the same on every rank of the group, so replicated
+            parameters keep taking identical updates."""
+            z = torch.zeros((), dtype=torch.float32, device=device)
+            sq = [(torch.sum(g.to(torch.float32) ** 2), sh) for g, sh
+                  in zip(tree_lib.leaves(grads), sharded_flags)]
+            sq_sh = sum((v for v, sh in sq if sh), z)
+            sq_rep = sum((v for v, sh in sq if not sh), z)
+            gn = torch.sqrt(sq_rep + cl.allreduce(sq_sh, [tp.group]))
+            return opt_lib.clip_by_global_norm(grads, max_norm,
+                                               global_norm=gn)
+
     def finish(state: TrainState, loss, grads, residuals):
         """Clip, pmean the loss over the data axes, update."""
-        grads, gnorm = opt_lib.clip_by_global_norm(grads, grad_clip)
+        grads, gnorm = clip_grads(grads, grad_clip)
         loss = loss.clone()
         for g in groups:
             dist.all_reduce(loss, op=dist.ReduceOp.SUM, group=g)
@@ -185,11 +259,6 @@ def make_train_step(model: Model, optimizer: opt_lib.Optimizer, mesh,
                 fuse=False)
             return finish(state, loss, grads, state.comm_residuals)
         return gspmd_step
-
-    if planner.fsdp:
-        raise ValueError("comm=mlsl needs replicated (non-FSDP) parameters "
-                         "over the batch axes")
-    engine = make_comm_engine(model, mesh, planner, comm, device=device)
 
     def accum_reduce(params, batch: Batch, residuals):
         """Per-microbatch exchange into the bucket-layout accumulator."""

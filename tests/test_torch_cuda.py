@@ -165,6 +165,70 @@ def test_hier_route_at_world_size_one_is_the_flat_route_plus_bf16(cuda,
     assert torch.equal(got, want if acc is None else acc + want)
 
 
+# --- hybrid (data x model) parallelism at tp = 1 -------------------------------
+
+@pytest.mark.parametrize("g_op", ["tp_psum", "tp_psum_scatter"])
+def test_fg_functions_are_the_identity_on_a_one_rank_nccl_group(cuda, g_op):
+    """tp_replicate and tp_psum (or tp_psum_scatter) around a column- and a
+    row-split projection, over the one-rank NCCL "local" group: forward and
+    every gradient bitwise the dense computation's."""
+    from repro_torch.core import collectives as cl
+    from repro_torch.launch import mesh as mesh_lib
+    group = mesh_lib.make_hier_mesh(1, 1, device=cuda).get_group("local")
+    g = torch.Generator(device=cuda).manual_seed(12)
+    x, w1, w2 = (torch.randn(shape, generator=g, device=cuda)
+                 .to(torch.bfloat16)
+                 for shape in ((2, 256, 512), (512, 384), (384, 512)))
+    outs = []
+    for wrap in (False, True):
+        a, b, xx = (t.clone().requires_grad_(True) for t in (w1, w2, x))
+        xr = cl.tp_replicate(xx, group) if wrap else xx
+        y = torch.relu(xr @ a) @ b
+        if wrap:
+            y = getattr(cl, g_op)(y, group)
+        loss = y.float().square().sum()
+        outs.append([y.detach(), *torch.autograd.grad(loss, (a, b, xx))])
+    for got, want in zip(*reversed(outs)):
+        assert torch.equal(got, want)
+
+
+def test_hybrid_step_at_tp_one_runs_the_kernels(cuda):
+    """The hybrid planner on make_hier_mesh(1, 1): every layer is chooser-
+    data, every bucket fuses and takes the two-level int8 route over
+    ("node", "local"), one quantize_blocks and one dequantize_blocks per
+    bucket and microbatch; the same losses as the dp_only planner's two-
+    level step, which reduces the same buckets."""
+    from repro_torch.configs import registry
+    from repro_torch.core import planner as pl
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import train as train_lib
+    from repro_torch.models.transformer import Model
+    from repro_torch.train import trainer as tr
+    cfg = registry.get_smoke_config("yi-6b")
+    comm = tr.CommConfig(mode="mlsl", wire="int8", hier=True, accum_steps=2)
+    mesh = mesh_lib.make_hier_mesh(1, 1, device=cuda)
+    planner = pl.make_hybrid_planner(mesh, cfg, batch=4, seq=32)
+    assert {lp.reason for lp in planner.hybrid.layers} == {"chooser-data"}
+    plan = tr.make_comm_engine(Model(cfg), mesh, planner, comm,
+                               device=cuda).plan
+    assert set(plan.bucket_axes) == {("node", "local")}
+    assert set(plan.algos) == {pl.ALGO_HIER} and all(plan.fusable)
+    losses = {}
+    for name, pln in (("hybrid", planner), ("dp_only", None)):
+        quant8.reset_launches()
+        recs, _ = train_lib.train(cfg, comm, steps=2, batch=4, seq=32,
+                                  dp_only=True, device=cuda, mesh=mesh,
+                                  planner=pln)
+        torch.cuda.synchronize()
+        losses[name] = [r.loss for r in recs]
+        n = plan.n_buckets * 2 * 2
+        assert quant8.LAUNCHES == {**dict.fromkeys(quant8.LAUNCHES, 0),
+                                   "quantize_blocks": n,
+                                   "dequantize_blocks": n}, name
+    assert all(torch.isfinite(torch.tensor(losses["hybrid"])))
+    assert losses["hybrid"] == losses["dp_only"]
+
+
 # --- flash attention ------------------------------------------------------------
 
 # (B, H, Sq, Sk, D, causal, window): ragged edges, cross lengths, windows, and

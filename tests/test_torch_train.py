@@ -256,14 +256,22 @@ def test_cli_defaults_to_cuda_and_raises_without_it():
         ttrain.main(["--steps", "1"])
 
 
-@pytest.mark.parametrize("flags", [["--hybrid"], ["--stats"],
+@pytest.mark.parametrize("flags", [["--model-parallel", "2", "--hier"],
+                                   ["--stats"],
                                    ["--trace", "out"], ["--telemetry", "out"],
                                    ["--telemetry-sample", "5"],
                                    ["--model-parallel", "2"],
-                                   ["--hybrid", "--comm", "mlsl", "--hier"]])
+                                   ["--stats", "--hybrid", "--comm", "mlsl"]])
 def test_cli_unported_flags_raise(flags):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         ttrain.main(flags + ["--device", "cpu", "--steps", "1"])
+
+
+def test_cli_model_parallel_without_hybrid_names_the_cause():
+    with pytest.raises(NotImplementedError,
+                       match="needs a vocab-parallel embedding, head and "
+                             "cross-entropy"):
+        ttrain.main(["--model-parallel", "2", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("flags", [["--hier"],
