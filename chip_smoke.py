@@ -73,7 +73,24 @@ Phases, each fatal on failure:
                  optimizer state) on D's two-level route. It runs after
                  the serve cells, so that the serve cells start from the
                  state the train cells A-E leave, as before F existed;
- 10. cli      -- `repro_torch.launch.train.main` and
+ 10. obs train -- cell B's configuration (dp_only, int8 + EF, 2
+                 microbatches, 3 steps) through `train()` with every
+                 observability hook: a StepMeter, a TraceWriter, a
+                 TelemetryWriter sampling the bucket replay after every
+                 step and a HealthMonitor, then one more replay of 3
+                 iterations for the measured column of `CommStats.table()`.
+                 Checks 11 rows with finite positive measured seconds, a
+                 trace and a telemetry stream that validate, and the quant8
+                 launches: the train steps' plus exactly one
+                 `quantize_ef_blocks` and one `dequantize_blocks` per bucket
+                 per replay; prints the steady step beside B's;
+ 11. obs serve -- S-A through `Engine(meter=, tracer=)` (one prefill span
+                 and a span per decode step in a trace that validates, 32
+                 flash launches), then a `torch.profiler` window over 4
+                 decode steps of S-A: per step, the host time to issue it
+                 (with and without the profiler), the summed CUDA kernel
+                 time and the kernel launches;
+ 12. cli      -- `repro_torch.launch.train.main` and
                  `repro_torch.launch.serve.main` (ragged prompts through
                  `serve_requests`) on the smoke config: the flat mlsl int8
                  run, the verify command's twin (`--hier --nodes 1 --local
@@ -82,8 +99,12 @@ Phases, each fatal on failure:
                  --local-size 1 --comm mlsl --wire int8` twin (its plan
                  lines, every bucket two-level), and the default gspmd
                  with LAMB and `--ckpt-dir`, whose checkpoint must restore
-                 bit for bit;
- 11. report   -- the serve cells' numbers, one JSON line with every kernel,
+                 bit for bit; then the observability flags: the train CLI
+                 with `--stats --trace --telemetry --telemetry-sample 1`
+                 (files validate; launches are the steps' plus one quantize
+                 and one dequantize per fusable bucket per replay) and the
+                 serve CLI with `--stats --trace`;
+ 13. report   -- the serve cells' numbers, one JSON line with every kernel,
                  then the device line.
 
 Exits non-zero without the result line when CUDA is absent or any phase
@@ -829,6 +850,253 @@ def cli_phase(torch):
     return {k: totals[k] + served[k] for k in totals}
 
 
+# --------------------------------------------------------------------------
+# 10-11. the observability layer on the main path
+# --------------------------------------------------------------------------
+
+# the kernels-only estimate of B's replay (PERF.md §6): quantize-EF +
+# dequantize at the 262M-element bucket, scaled to B's 11 buckets
+PREDICTED_REPLAY_MS = 6.6
+
+
+def obs_train_phase(torch, cfg, b_step_s):
+    """Cell B through train() with meter, tracer, telemetry (a bucket
+    replay after every step) and monitor; then 3 more timed replays for the
+    table's measured column. Returns the launches and a record."""
+    import tempfile
+    from repro_torch.core import planner as pl
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import train as train_lib
+    from repro_torch.models.transformer import Model
+    from repro_torch.obs import detect, meter as obs_meter, telemetry
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.train import trainer as tr
+    phase("obs train: cell B with meter, tracer, telemetry (replay every "
+          "step) and monitor")
+    batch, seq, steps = 8, 2048, 3
+    comm = tr.CommConfig(mode="mlsl", wire="int8", error_feedback=True,
+                         accum_steps=2)
+    mesh = mesh_lib.make_host_mesh(1, 1)
+    planner = pl.Planner(mesh=mesh, dp_only=True)
+    engine = tr.make_comm_engine(Model(cfg), mesh, planner, comm,
+                                 device="cuda")
+    n_buckets = engine.plan.n_buckets
+    check(n_buckets == 11 and all(engine.plan.fusable),
+          f"obs train: plan {engine.plan.fusable}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        meter = obs_meter.StepMeter(tokens_per_step=batch * seq)
+        tracer = obs_trace.TraceWriter()
+        tel = telemetry.TelemetryWriter(os.path.join(tmp, "telemetry.jsonl"),
+                                        run_info={"source": "chip_smoke"},
+                                        sample_every=1)
+        monitor = detect.HealthMonitor.from_plan(
+            engine.plan, config=detect.DetectorConfig.wallclock())
+        reset_launches()
+        timer = engine.bucket_timer(mesh)
+        recs, _ = train_lib.train(
+            cfg, comm, steps=steps, batch=batch, seq=seq, lr=3e-4,
+            optimizer="adamw", seed=0, device="cuda", mesh=mesh,
+            planner=planner, meter=meter, tracer=tracer, telemetry=tel,
+            monitor=monitor, timer=timer, sample_every=1)
+        measured = timer.sample(iters=3)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        tel.close()
+        peak = torch.cuda.max_memory_allocated()
+        events = telemetry.load_telemetry(tel.path)
+        trace = obs_trace.load_trace(tracer.write(os.path.join(
+            tmp, "trace.json")))
+    st = engine.stats(measured=measured)
+    for line in st.table().splitlines():
+        log("  " + line)
+    replays = 2 + (steps - 1) + 3      # warm-up + one per step, then 3
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(quantize_ef_blocks=22 * steps + n_buckets * replays,
+                dequantize_accumulate_blocks=22 * steps,
+                dequantize_blocks=n_buckets * replays)
+    log(f"  launches {launches} (train steps 66 + 66; replays {replays} x "
+        f"{n_buckets} buckets)")
+    check(launches == want, f"obs train: launches {launches} != {want}")
+    check(len(st.buckets) == 11 and all(
+        math.isfinite(b.t_measured) and b.t_measured > 0
+        for b in st.buckets), "obs train: measured bucket seconds")
+    sampled = [e for e in events if e["kind"] == "bucket_times"]
+    check([e["kind"] for e in events].count("step") == steps
+          and [e["step"] for e in sampled] == list(range(steps)),
+          "obs train: telemetry records")
+    spans = [e["name"] for e in trace["traceEvents"] if e["ph"] == "X"]
+    check(spans == [f"step{i}" for i in range(steps)],
+          f"obs train: trace spans {spans}")
+    check(all(math.isfinite(r.loss) for r in recs), "obs train: loss")
+    steady = sum(r.seconds for r in recs[1:]) / (steps - 1)
+    total_ms = st.t_measured_total * 1e3
+    log(f"  replay of all 11 buckets {total_ms:.4f} ms (predicted "
+        f"{PREDICTED_REPLAY_MS} ms); per sample "
+        + ", ".join(f"{sum(e['measured']) * 1e3:.4f}" for e in sampled)
+        + " ms")
+    log(f"  steady step {steady:.4f} s with the hooks (replays between "
+        f"steps) vs cell B {b_step_s:.4f} s in this run; meter EMA "
+        f"{meter.step_time:.4f} s, {meter.tokens_per_sec:.0f} tok/s; "
+        f"alarms {len(monitor.alarms)}; peak_memory_allocated {peak} B")
+    return launches, {
+        "step_s": steady, "b_step_s": b_step_s, "replay_ms": total_ms,
+        "bucket_ms": [b.t_measured * 1e3 for b in st.buckets],
+        "model_us": [b.t_model * 1e6 for b in st.buckets],
+        "sample_ms": [sum(e["measured"]) * 1e3 for e in sampled],
+        "losses": [r.loss for r in recs], "peak_bytes": peak}
+
+
+def _kernel_events(prof):
+    """(kernel launches, summed kernel microseconds) of a profiler window,
+    read from its Chrome trace (the CUDA kernels have cat "kernel")."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "prof.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            events = json.load(fh).get("traceEvents", [])
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    return len(kernels), sum(float(e.get("dur", 0.0)) for e in kernels)
+
+
+def obs_serve_phase(torch, model, params):
+    """S-A through Engine(meter=, tracer=): a trace with one prefill span
+    and a span per decode step; then the decode step of S-A split into host
+    issue and device kernel time under torch.profiler."""
+    from repro_torch.models.transformer import Batch
+    from repro_torch.obs import meter as obs_meter, trace as obs_trace
+    from repro_torch.serve.engine import Engine, EngineConfig
+    batch, prompt_len, n_new = 8, 2048, 64
+    phase("obs serve: S-A with meter and tracer, then a profiler window")
+    meter, tracer = obs_meter.StepMeter(), obs_trace.TraceWriter()
+    eng = Engine(model, params, EngineConfig(max_seq=prompt_len + n_new + 8),
+                 meter=meter, tracer=tracer)
+    prompts = np.random.default_rng(0).integers(
+        0, model.cfg.vocab, (batch, prompt_len)).astype(np.int32)
+    reset_launches()
+    toks = eng.generate(prompts, n_new)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    obs_trace.validate_trace(tracer.to_json())
+    xs = [e for e in tracer.events if e["ph"] == "X"]
+    check([e["name"] for e in xs] == ["prefill"] + [f"decode/{i}" for i in
+                                                    range(n_new)],
+          "obs serve: trace spans")
+    from repro_torch.kernels import flashattn
+    check(launches["flash_attention"] == N_LAYERS
+          and flashattn.VARIANT_LAUNCHES["wgmma_bf16"] == N_LAYERS,
+          f"obs serve: launches {launches}, flash per kernel "
+          f"{dict(flashattn.VARIANT_LAUNCHES)}")
+    check(toks.shape == (batch, n_new) and bool((toks >= 0).all())
+          and bool((toks < model.cfg.vocab).all()), "obs serve: tokens")
+    decode_ms = [e["dur"] / 1e3 for e in xs[2:]]
+    log(f"  prefill span {xs[0]['dur'] / 1e3:.3f} ms; decode spans after "
+        f"the first: mean {sum(decode_ms) / len(decode_ms):.3f} ms, min "
+        f"{min(decode_ms):.3f}, max {max(decode_ms):.3f}; meter "
+        f"{meter.summary()}")
+    # the decode step split: host issue vs device kernel time
+    prof_steps = 4
+    logits, cache, pos = model.prefill(
+        params, Batch(tokens=torch.as_tensor(prompts, device="cuda")),
+        eng.cfg.max_seq)
+    tok = torch.argmax(logits, dim=-1)
+
+    def step(i):
+        nonlocal cache, tok
+        t0 = time.perf_counter()
+        logits, cache = model.decode_step(params, cache, tok[:, None],
+                                          pos + i)
+        tok = torch.argmax(logits, dim=-1)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return t1 - t0, time.perf_counter() - t0
+
+    bare = [step(i) for i in range(2 + prof_steps)][2:]
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        profiled = [step(2 + prof_steps + i) for i in range(prof_steps)]
+    n_kernels, kernel_us = _kernel_events(prof)
+    rec = {"issue_ms": [a * 1e3 for a, _ in bare],
+           "step_ms": [b * 1e3 for _, b in bare],
+           "profiled_issue_ms": [a * 1e3 for a, _ in profiled],
+           "profiled_step_ms": [b * 1e3 for _, b in profiled],
+           "kernels_per_step": n_kernels / prof_steps,
+           "kernel_ms_per_step": kernel_us / 1e3 / prof_steps}
+    log(f"  decode step (no profiler, {prof_steps} steps): host issue "
+        + ", ".join(f"{v:.3f}" for v in rec["issue_ms"]) + " ms; to the "
+        "synchronized token " + ", ".join(f"{v:.3f}" for v in rec["step_ms"])
+        + " ms")
+    log(f"  decode step (profiler, {prof_steps} steps): host issue "
+        + ", ".join(f"{v:.3f}" for v in rec["profiled_issue_ms"])
+        + " ms; step " + ", ".join(f"{v:.3f}" for v in
+                                   rec["profiled_step_ms"]) + " ms")
+    if n_kernels:
+        busy = rec["kernel_ms_per_step"] / (
+            sum(rec["profiled_step_ms"]) / prof_steps)
+        log(f"  per decode step: {rec['kernels_per_step']:.1f} CUDA kernel "
+            f"launches, {rec['kernel_ms_per_step']:.3f} ms of summed kernel "
+            f"time; device busy {busy:.1%} of the profiled step")
+    else:
+        log("  the profiler recorded no CUDA kernel: no device split")
+    del cache, logits
+    return launches, rec
+
+
+def cli_obs_phase(torch):
+    """The train CLI with --stats --trace --telemetry --telemetry-sample 1
+    and the serve CLI with --stats --trace, on the smoke config."""
+    import tempfile
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.obs import telemetry, trace as obs_trace
+    from repro_torch.train import trainer as tr
+    zero = dict.fromkeys(KERNELS, 0)
+    steps = 2
+    plan = _cli_plan(tr.CommConfig(mode="mlsl", wire="int8",
+                                   error_feedback=True), False)
+    n_f = sum(plan.fusable)
+    # replays: the telemetry samples (a warm-up + one per step) and the
+    # --stats table's (a warm-up + 2)
+    n = n_f * (steps + (1 + steps) + 3)
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["BENCH_DIR"] = tmp
+        d = os.path.join(tmp, "obs")
+        launches, _ = _cli_train(
+            torch, "--stats --trace --telemetry --telemetry-sample 1",
+            ["--arch", "yi-6b", "--comm", "mlsl", "--wire", "int8",
+             "--error-feedback", "--steps", str(steps), "--stats", "--trace",
+             d, "--telemetry", d, "--telemetry-sample", "1"],
+            {**zero, "quantize_ef_blocks": n, "dequantize_blocks": n})
+        tr_ = obs_trace.load_trace(os.path.join(d, "trace.json"))
+        events = telemetry.load_telemetry(os.path.join(d, "telemetry.jsonl"))
+        check([e["step"] for e in events if e["kind"] == "bucket_times"]
+              == list(range(steps)), "cli obs: telemetry samples")
+        check(os.path.exists(os.path.join(
+            tmp, "BENCH_torch_comm_stats.json")), "cli obs: no ledger")
+        log(f"  trace {len(tr_['traceEvents'])} events, telemetry "
+            f"{len(events)} records, ledger BENCH_torch_comm_stats.json")
+        phase("cli: python -m repro_torch.launch.serve --stats --trace "
+              "(smoke config)")
+        cfg = registry.get_smoke_config("yi-6b")
+        reset_launches()
+        rc = serve_lib.main(["--arch", "yi-6b", "--batch", "4",
+                             "--prompt-len", "32", "--new-tokens", "8",
+                             "--stats", "--trace", d])
+        torch.cuda.synchronize()
+        served = read_launches()
+        names = [e["name"] for e in obs_trace.load_trace(os.path.join(
+            d, "trace.json"))["traceEvents"] if e["ph"] == "X"]
+        log(f"  launches {served}; spans {names[:3]}... ({len(names)})")
+        check(rc == 0 and served["flash_attention"] == cfg.n_layers
+              and names == ["prefill"] + [f"decode/{i}" for i in range(8)],
+              f"cli serve obs: rc={rc} launches {served}")
+    del os.environ["BENCH_DIR"]
+    return {k: launches[k] + served[k] for k in launches}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -895,6 +1163,9 @@ def main() -> int:
                                              **kw)
         for k, v in launches.items():
             totals[k] += v
+    launches, serve["obs S-A"] = obs_serve_phase(torch, model, params)
+    for k, v in launches.items():
+        totals[k] += v
     del model, params
     torch.cuda.empty_cache()
     # the hybrid planner at tp = 1: D's route without error feedback, 11
@@ -908,7 +1179,12 @@ def main() -> int:
         totals[k] += v
     check(launches["flash_attention"] == 0,
           "the train step launched the flash kernel")
+    launches, runs["obs B"] = obs_train_phase(torch, cfg, runs["B"]["step_s"])
+    for k, v in launches.items():
+        totals[k] += v
     for k, v in cli_phase(torch).items():
+        totals[k] += v
+    for k, v in cli_obs_phase(torch).items():
         totals[k] += v
     check(all(v > 0 for v in totals.values()),
           f"a kernel was never launched on the main path: {totals}")

@@ -3,7 +3,7 @@
 its data-parallel twin.
 
     python3 scripts/hybrid_cards.py [--nproc 4] [--device cuda]
-                                    [--parts check,cells]
+                                    [--parts check,cells,stats]
 
 Both parts run on --nproc ranks through torchrun, for each mesh (node,
 local) of --meshes (default 1x4 and 2x2), twice: hybrid (the C2C
@@ -36,6 +36,15 @@ dp_only=True)` (every bucket fused, as in the hybrid plan). Prints the
 plan lines, each step's loss and seconds (host clock after the device
 finished, rank 0), the median of steps 1-3 and each rank's peak allocated
 device memory; the losses must agree within rtol 1e-3.
+
+stats (only when asked for: `--parts stats`): the cells' DP twin on the
+(2, 2) mesh, `--hier` int8 without error feedback, through `train()` with
+the observability hooks (a meter, a health monitor and a telemetry stream
+on rank 0, a bucket replay after every step on all ranks), then 5 timed
+replays of every bucket: prints `CommStats.table()` with each bucket's
+measured exchange over the cards' links (the median, then the MAX over
+the ranks) beside the cost model's column, which is model data of the
+paper's Xeon + 10 GbE platform (`hw.CLOUD_10G`), not of these cards.
 
 Writes everything to --out as JSON and exits non-zero if a run fails or a
 pair disagrees. `--device cpu` runs the same on gloo ranks (a rehearsal:
@@ -221,10 +230,36 @@ def cells_part(args, work: pathlib.Path) -> tuple:
     return results, ok
 
 
+def stats_part(args, work: pathlib.Path) -> tuple:
+    out = work / "stats.json"
+    proc = _torchrun(args.nproc, [
+        str(pathlib.Path(__file__).resolve()), "--worker", "stats",
+        "--device", args.device, "--mesh", "2x2", "--wire", "int8",
+        "--cells-config", args.cells_config, "--cells-seq",
+        str(args.cells_seq), "--steps", str(args.steps), "--worker-out",
+        str(out)], args.timeout)
+    r = (json.loads(out.read_text()) if out.exists()
+         else {"plan": [], "steps": []})
+    r["rc"] = proc.returncode
+    _show("stats dp mesh 2x2 wire int8 (--hier)", r)
+    print(r.get("table", ""), flush=True)
+    for s in r.get("samples", []):
+        print(f"  replay after step {s['step']}: "
+              f"{sum(s['measured']) * 1e3:.4f} ms over "
+              f"{len(s['measured'])} buckets", flush=True)
+    ok = proc.returncode == 0 and len(r["steps"]) == args.steps and all(
+        t > 0 for t in r.get("bucket_s", [0.0]))
+    if not ok:
+        print(proc.stdout[-2000:], proc.stderr[-3000:], file=sys.stderr)
+    return r, ok
+
+
 def worker(args) -> int:
-    """One rank of a cells run: train() on the two-level mesh, rank 0
-    writes the plan lines, the step records and every rank's peak."""
+    """One rank of a cells or stats run: train() on the two-level mesh,
+    rank 0 writes the plan lines, the step records and every rank's peak
+    (stats: and the CommStats table with the measured column)."""
     import dataclasses
+    import tempfile
 
     import torch
     import torch.distributed as dist
@@ -232,6 +267,8 @@ def worker(args) -> int:
     from repro_torch.core import planner as pl
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch import train as train_lib
+    from repro_torch.models.transformer import Model
+    from repro_torch.obs import detect, meter as obs_meter, telemetry
     from repro_torch.train import trainer as tr
     nodes, local = (int(v) for v in args.mesh.split("x"))
     dev = mesh_lib.resolve_device(args.device)
@@ -245,26 +282,52 @@ def worker(args) -> int:
     planner = (pl.make_hybrid_planner(mesh, cfg, batch=batch, seq=seq)
                if args.worker == "hybrid"
                else pl.Planner(mesh=mesh, dp_only=True))
+    rank0 = dist.get_rank() == 0
+    hooks, engine, tmp = {}, None, tempfile.mkdtemp()
+    if args.worker == "stats":
+        engine = tr.make_comm_engine(Model(cfg), mesh, planner, comm,
+                                     device=dev)
+        hooks = dict(meter=obs_meter.StepMeter(tokens_per_step=batch * seq),
+                     timer=engine.bucket_timer(mesh), sample_every=1)
+        if rank0:
+            hooks["monitor"] = detect.HealthMonitor.from_plan(
+                engine.plan, config=detect.DetectorConfig.wallclock())
+            hooks["telemetry"] = telemetry.TelemetryWriter(
+                os.path.join(tmp, "telemetry.jsonl"), sample_every=1)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     recs, state = train_lib.train(cfg, comm, steps=args.steps, batch=batch,
                                   seq=seq, lr=3e-4, optimizer="adamw",
                                   seed=0, device=dev, mesh=mesh,
-                                  planner=planner)
+                                  planner=planner, **hooks)
     del state
+    stats = None
+    if engine is not None:
+        stats = engine.stats(measured=hooks["timer"].sample(iters=5,
+                                                            warmup=1))
     peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
             else None)
     peaks = [None] * dist.get_world_size()
     dist.all_gather_object(peaks, peak)
-    if dist.get_rank() == 0:
+    if rank0:
         plan = ([train_lib.plan_line(lp) for lp in planner.hybrid.layers]
                 if planner.hybrid else [])
-        pathlib.Path(args.worker_out).write_text(json.dumps({
-            "config": f"{cfg.name} n_layers={cfg.n_layers} batch {batch} "
-                      f"seq {seq}", "mesh": [], "plan": plan,
-            "steps": [{"step": r.step, "loss": r.loss,
-                       "grad_norm": r.grad_norm, "seconds": r.seconds}
-                      for r in recs], "peak_bytes": peaks}))
+        rec = {"config": f"{cfg.name} n_layers={cfg.n_layers} batch {batch} "
+                         f"seq {seq}", "mesh": [], "plan": plan,
+               "steps": [{"step": r.step, "loss": r.loss,
+                          "grad_norm": r.grad_norm, "seconds": r.seconds}
+                         for r in recs], "peak_bytes": peaks}
+        if stats is not None:
+            hooks["telemetry"].close()
+            rec.update(
+                table=stats.table(),
+                bucket_s=[b.t_measured for b in stats.buckets],
+                model_s=[b.t_model for b in stats.buckets],
+                alarms=[a.describe() for a in hooks["monitor"].alarms],
+                samples=[e for e in telemetry.load_telemetry(
+                    hooks["telemetry"].path) if e["kind"] == "bucket_times"])
+        pathlib.Path(args.worker_out).write_text(json.dumps(rec))
+    shutil.rmtree(tmp, ignore_errors=True)
     dist.destroy_process_group()
     return 0
 
@@ -283,7 +346,8 @@ def main() -> int:
     ap.add_argument("--timeout", type=float, default=600)
     ap.add_argument("--out", default=str(ROOT / "build" /
                                          "hybrid_cards.json"))
-    ap.add_argument("--worker", choices=["hybrid", "dp"], default=None,
+    ap.add_argument("--worker", choices=["hybrid", "dp", "stats"],
+                    default=None,
                     help=argparse.SUPPRESS)
     ap.add_argument("--mesh", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--wire", default=None, help=argparse.SUPPRESS)
@@ -309,6 +373,9 @@ def main() -> int:
         ok = ok and good
     if "cells" in parts:
         report["cells"], good = cells_part(args, work)
+        ok = ok and good
+    if "stats" in parts:
+        report["stats"], good = stats_part(args, work)
         ok = ok and good
     shutil.rmtree(work, ignore_errors=True)
     pathlib.Path(args.out).write_text(json.dumps(report, indent=1))

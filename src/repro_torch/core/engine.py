@@ -113,6 +113,16 @@ class EnginePlan:
     def n_buckets(self) -> int:
         return len(self.buckets.buckets)
 
+    def bucket_bytes_list(self, bytes_per_elem: float = 4.0) -> tuple:
+        return tuple(b.n_elems * bytes_per_elem for b in self.buckets.buckets)
+
+    def describe(self, *, topo=None) -> str:
+        """The MLSL-style per-bucket stats table for this plan (wire bytes
+        per leg, route, modeled service time). Lazy import: repro_torch.obs
+        sits above core, so the plan only reaches it when a human asks."""
+        from repro_torch.obs import stats as obs_stats
+        return obs_stats.CommStats.from_plan(self, topo=topo).table()
+
 
 def build_plan(grad_struct, comm: CommConfig, mesh, data_axes, *,
                device: torch.device | str | None = None,
@@ -383,6 +393,27 @@ class CommEngine:
         """The whole exchange as one call. Returns (reduced_tree,
         new_residuals)."""
         return self.reduce_chained(grads, residuals)
+
+    # -- observability -------------------------------------------------------
+
+    def stats(self, *, measured=None, topo=None):
+        """MLSL-style per-message statistics for this engine's plan
+        (repro_torch.obs.stats.CommStats): per-bucket wire bytes by
+        leg/level, route, modeled service time on `topo` (default: the
+        plan's routing topology), and the measured column when `measured`
+        (per-bucket seconds, e.g. obs.stats.measure_bucket_times) is given.
+        Lazy import keeps core independent of obs."""
+        from repro_torch.obs import stats as obs_stats
+        return obs_stats.CommStats.from_plan(self.plan, measured=measured,
+                                             topo=topo)
+
+    def bucket_timer(self, mesh, *, seed: int = 0):
+        """Build-once per-bucket replay of this engine's reduce path
+        (repro_torch.obs.stats.BucketTimer), a collective every rank builds
+        and samples at the same points. Lazy import keeps core independent
+        of obs."""
+        from repro_torch.obs import stats as obs_stats
+        return obs_stats.BucketTimer(self, mesh, seed=seed)
 
     # -- bucket-layout gradient accumulation (microbatch loop) --------------
 

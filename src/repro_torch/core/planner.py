@@ -1,12 +1,12 @@
 """The DL Layer API: per-parameter partition specs, and the cost model that
 routes each gradient message flat or two-level.
 
-Ports the parameter half, the flat-vs-hierarchical router and the
-executed hybrid plan of `repro/core/planner.py` (`estimate_overlap` waits
-for the simulator). Models declare their parameters as `ParamDef`s with a
-*kind*; the planner owns the kind -> sharding rules. A spec is a tuple with
-one entry per dimension: a mesh axis name, a tuple of names, or None
-(replicated along that dimension).
+Ports the parameter half, the flat-vs-hierarchical router (with
+`estimate_overlap`, the overlap-aware schedule estimate) and the executed
+hybrid plan of `repro/core/planner.py`. Models declare their parameters as
+`ParamDef`s with a *kind*; the planner owns the kind -> sharding rules. A
+spec is a tuple with one entry per dimension: a mesh axis name, a tuple of
+names, or None (replicated along that dimension).
 
 The data-parallel step reads the specs for one thing: which gradient
 buckets may travel fused (only fully replicated leaves may). The hybrid
@@ -177,6 +177,23 @@ def bucket_allreduce_times(buckets, algos, nodes: int, topo: hw.Topology, *,
     return tuple(out)
 
 
+def estimate_overlap(buckets, algos, nodes: int, topo: hw.Topology,
+                     n_micro: int, micro_compute: float, *,
+                     bytes_per_elem: float = 4.0):
+    """Overlap-aware schedule estimate for an engine bucket plan: (blocking,
+    overlapped) simulator.BucketScheduleStats of the engine's
+    per-microbatch exchange, with each bucket's service time from the
+    per-level cost model."""
+    from repro_torch.core import simulator as sim
+    times = bucket_allreduce_times(buckets, algos, nodes, topo,
+                                   bytes_per_elem=bytes_per_elem)
+    off = sim.simulate_bucket_schedule(times, n_micro, micro_compute,
+                                       overlap=False)
+    on = sim.simulate_bucket_schedule(times, n_micro, micro_compute,
+                                      overlap=True)
+    return off, on
+
+
 def choose_allreduce_algo(nbytes: float, nodes: int, topo: hw.Topology,
                           fault=None, *, wire: str = "fp32",
                           ef: bool = False, fused_quant: bool = True) -> str:
@@ -186,14 +203,12 @@ def choose_allreduce_algo(nbytes: float, nodes: int, topo: hw.Topology,
     link) beats the two extra intra-node phases. `wire`/`ef`/`fused_quant`
     add the int8 wire's quantization term to both candidates.
 
-    `fault` (the reference's simulator.FaultSpec) needs the simulator,
-    which is not yet ported: passing one raises."""
-    if fault is not None:
-        raise NotImplementedError(
-            "fault= needs simulator.FaultSpec, which is not yet ported to "
-            "repro_torch")
+    `fault` (simulator.FaultSpec) composes injected degradation onto the
+    topology before costing, so routing re-plans under the degraded model."""
     if topo.local_size <= 1 or nodes <= 1:
         return ALGO_FLAT
+    if fault is not None:
+        topo = fault.apply_to_topology(topo)
     t_flat = hw.flat_allreduce_time(nbytes, nodes, topo, wire=wire, ef=ef,
                                     fused_quant=fused_quant)
     t_hier = hw.hier_allreduce_time(nbytes, nodes, topo, wire_inter=wire,

@@ -159,7 +159,8 @@ def route_buckets(plan: BucketPlan, topo, nodes: int, *,
     (repro_torch.core.hw.Topology) with `nodes` inter-node ranks, one of
     planner.ALGO_FLAT / ALGO_HIER per bucket in plan order. `wire`/`ef`/
     `fused_quant` charge the int8 quantization term on both routes;
-    `fault` raises until the simulator is ported."""
+    `fault` (simulator.FaultSpec) re-routes every bucket under an injected
+    degradation of the topology's links."""
     return tuple(
         planner_lib.choose_allreduce_algo(
             b.n_elems * bytes_per_elem, nodes, topo, fault=fault, wire=wire,

@@ -31,7 +31,8 @@ exchange activations through the f/g collectives over the tp group; the
 engine reduces sharded buckets over the data axes and replicated ones over
 data axes + tp axis; the clip adds the sharded leaves' sum of squares over
 the tp group. LARS and LAMB take per-leaf norms of the local shards there,
-which differ from the dense norms (the reference's do too).
+which differ from the dense norms; the reference's do too, and the two
+agree (tests/test_torch_hybrid.py).
 
 FSDP is not ported; asking for it raises.
 """

@@ -229,6 +229,47 @@ def test_hybrid_step_at_tp_one_runs_the_kernels(cuda):
     assert losses["hybrid"] == losses["dp_only"]
 
 
+@pytest.mark.parametrize("ef", [False, True])
+def test_bucket_replay_launches_one_quantize_and_dequantize(cuda, ef):
+    """The obs hooks on the card: train() with a meter and a BucketTimer
+    sampled after every step launches the steps' kernels plus exactly one
+    quantize and one dequantize per bucket per replay (fresh residuals,
+    its own inputs), and trains bitwise as without the hooks."""
+    from repro_torch.configs import registry
+    from repro_torch.core import planner as pl
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import train as train_lib
+    from repro_torch.models.transformer import Model
+    from repro_torch.obs import meter as obs_meter
+    from repro_torch.train import trainer as tr
+    cfg = registry.get_smoke_config("yi-6b")
+    comm = tr.CommConfig(mode="mlsl", wire="int8", error_feedback=ef)
+    mesh = mesh_lib.make_host_mesh(1, 1, device=cuda)
+    planner = pl.Planner(mesh=mesh, dp_only=True)
+    engine = tr.make_comm_engine(Model(cfg), mesh, planner, comm,
+                                 device=cuda)
+    n = engine.plan.n_buckets
+    runs = {}
+    for hooks in (False, True):
+        kw = (dict(meter=obs_meter.StepMeter(),
+                   timer=engine.bucket_timer(mesh), sample_every=1)
+              if hooks else {})
+        quant8.reset_launches()
+        recs, _ = train_lib.train(cfg, comm, steps=2, batch=4, seq=32,
+                                  device=cuda, mesh=mesh, planner=planner,
+                                  **kw)
+        torch.cuda.synchronize()
+        runs[hooks] = ([r.loss for r in recs], dict(quant8.LAUNCHES))
+    q = "quantize_ef_blocks" if ef else "quantize_blocks"
+    replays = 3                        # a warm-up + one per step
+    assert runs[False][1] == {**dict.fromkeys(quant8.LAUNCHES, 0),
+                              q: 2 * n, "dequantize_blocks": 2 * n}
+    assert runs[True][1] == {**dict.fromkeys(quant8.LAUNCHES, 0),
+                             q: (2 + replays) * n,
+                             "dequantize_blocks": (2 + replays) * n}
+    assert runs[True][0] == runs[False][0]
+
+
 # --- flash attention ------------------------------------------------------------
 
 # (B, H, Sq, Sk, D, causal, window): ragged edges, cross lengths, windows, and

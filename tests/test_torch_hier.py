@@ -469,8 +469,19 @@ def test_routing_takes_both_routes_somewhere():
 
 
 def test_fault_raises_not_yet_ported():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        planner.choose_allreduce_algo(1e6, 2, hw.CLOUD_10G, fault=object())
-    tplan, _ = next(_bucket_plans())
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        scheduler.route_buckets(tplan, hw.CLOUD_10G, 2, fault=object())
+    """`fault=` once raised here; with the simulator ported it composes the
+    fault onto the topology, and routes equal the reference's under the
+    same fault (the full grid is in tests/test_torch_simulator.py)."""
+    from repro.core import simulator as jsim
+    from repro_torch.core import simulator as tsim
+    kw = dict(inter_bw_factor=0.4, intra_latency_factor=2.0)
+    fault, jfault = tsim.FaultSpec(**kw), jsim.FaultSpec(**kw)
+    for nbytes in (1e4, 1e6, 25e6, 1e8):
+        assert planner.choose_allreduce_algo(
+            nbytes, 16, hw.CLOUD_VIRT, fault=fault) == \
+            jplanner.choose_allreduce_algo(nbytes, 16, jhw.CLOUD_VIRT,
+                                           fault=jfault)
+    for tplan, jplan in _bucket_plans():
+        assert scheduler.route_buckets(tplan, hw.CLOUD_VIRT, 16,
+                                       fault=fault) == \
+            jsched.route_buckets(jplan, jhw.CLOUD_VIRT, 16, fault=jfault)

@@ -4,11 +4,13 @@ tests/test_hybrid.py, plus the JAX hybrid trainer itself.
 
 One group of 8 ranks is spawned once for the file (tests/torch_hybrid_ranks.py,
 torch only). It runs the f/g operators around a column-sharded w1 and a
-row-sharded w2, then two SGD steps (lr 0.1, data seed 3, batch 8, seq 16)
-of five cases from converted weights: the smoke config and the
+row-sharded w2, then two steps (lr 0.1, data seed 3, batch 8, seq 16) of
+seven cases from converted weights: with SGD, the smoke config and the
 indivisible-heads config (every layer falls back to DP), each under the
 default planner (DP) and under the hybrid planner, and the smoke config's
-hybrid step on the int8 wire with 2 microbatches.
+hybrid step on the int8 wire with 2 microbatches; and the smoke config's
+hybrid step with LARS and with LAMB (per-leaf norms of the local shards on
+both sides).
 
 Tolerances: the f/g ops against the dense single-rank JAX gradient, atol
 1e-4 (f32, as the reference's test); tp_psum_scatter against tp_psum, rtol
@@ -53,8 +55,8 @@ from repro_torch.optim import optimizers as topt
 from repro_torch.train import trainer as ttr
 
 import torch_spawn
-from torch_hybrid_ranks import (BATCH, CASES, CONFIGS, DATA_SEED, LR, SEQ,
-                                STEPS)
+from torch_hybrid_ranks import (BATCH, CASES, CONFIGS, DATA_SEED, LR,
+                                OPTIMIZERS, SEQ, STEPS)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 WORLD = 8
@@ -121,10 +123,10 @@ def port(inputs, tmp_path_factory):
     return res
 
 
-def _jax_train(mesh, cfg, planner, params, comm_kw):
+def _jax_train(mesh, cfg, planner, params, comm_kw, optimizer="sgd"):
     """tests/test_hybrid.py's _train, from the given weights."""
     model = JModel(cfg)
-    opt = jopt.make_optimizer("sgd", LR)
+    opt = jopt.make_optimizer(optimizer, LR)
     comm = jtr.CommConfig(**comm_kw)
     dcfg = jpipe.DataConfig(vocab=cfg.vocab, seq_len=SEQ, global_batch=BATCH,
                             seed=DATA_SEED)
@@ -150,7 +152,8 @@ def ref(inputs, mesh8):
         cfg = _jcfg(cfg_name)
         planner = (jpl.make_hybrid_planner(mesh8, cfg, batch=BATCH, seq=SEQ)
                    if hybrid else jpl.Planner(mesh=mesh8))
-        out[name] = _jax_train(mesh8, cfg, planner, params[cfg_name], kw)
+        out[name] = _jax_train(mesh8, cfg, planner, params[cfg_name], kw,
+                               OPTIMIZERS.get(name, "sgd"))
     return out
 
 

@@ -60,3 +60,25 @@ def test_forbidden_pattern_catches_reference_imports():
     for line in ("import repro_torch.kernels", "from repro_torch import tree",
                  "# the reference uses jax.random"):
         assert not _FORBIDDEN.search(line), line
+
+
+def test_stats_run_keeps_jax_out(tmp_path):
+    """A CLI run with --stats writes its ledger through benchmarks/common.py
+    (which imports JAX only inside `time_fn`) and leaves `jax` out of
+    sys.modules; the reference package is blocked throughout."""
+    code = ("import sys\n"
+            "sys.modules['repro'] = None\n"
+            "from repro_torch.launch import train\n"
+            "train.main(['--device', 'cpu', '--comm', 'mlsl', '--wire', "
+            "'int8', '--steps', '1', '--seq', '16', '--stats'])\n"
+            "assert 'benchmarks.common' in sys.modules\n"
+            "assert not any(k == 'jax' or k.startswith('jax.') "
+            "for k in sys.modules)\n"
+            "print('ok')\n")
+    env = dict(os.environ, BENCH_DIR=str(tmp_path),
+               PYTHONPATH=os.pathsep.join([str(ROOT / "src"), str(ROOT)]))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.rstrip().endswith("ok")
+    assert os.listdir(tmp_path) == ["BENCH_torch_comm_stats.json"]

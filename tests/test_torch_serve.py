@@ -246,14 +246,77 @@ def test_serve_cli_on_cpu(capsys):
                            "--prompt-len", "90", "--new-tokens", "3"]) == 0
 
 
-def test_serve_cli_defaults_to_cuda():
+def test_serve_cli_defaults_to_cuda(capsys):
     if torch.cuda.is_available():
         assert serve_cli.main(["--new-tokens", "2"]) == 0
     else:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             serve_cli.main(["--new-tokens", "2"])
-    with pytest.raises(NotImplementedError, match="--stats"):
-        serve_cli.main(["--device", "cpu", "--stats"])
+    # --stats, once refused as not ported, runs on the CPU when asked
+    assert serve_cli.main(["--device", "cpu", "--stats", "--new-tokens",
+                           "2"]) == 0
+    assert "decode step 2" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("mode", sorted(ENGINE_CFG))
+def test_engine_hooks_leave_the_tokens_alone(setup, mode, tmp_path):
+    """Engine(meter=, tracer=, telemetry=, monitor=): one prefill span, a
+    span and a meter step per decode step, a rates counter and a telemetry
+    step record per decode step; the tokens equal those of the engine
+    without hooks, which equal the reference's (and the reference's own
+    hooks give the same spans)."""
+    from repro.obs import meter as jmeter, trace as jtrace
+    from repro_torch.obs import detect, meter, telemetry, trace
+    jm, params, tm, tp = setup
+    ecfg = dict(max_seq=MAX_SEQ, **ENGINE_CFG[mode])
+    prompts = _prompts(jm.cfg.vocab, (3, 70), seed=3)
+    plain = tengine.Engine(tm, tp, tengine.EngineConfig(**ecfg)).generate(
+        prompts, 8)
+    hooks = dict(meter=meter.StepMeter(), tracer=trace.TraceWriter(),
+                 monitor=detect.HealthMonitor())
+    with telemetry.TelemetryWriter(str(tmp_path / "t.jsonl"),
+                                   sample_every=0) as tel:
+        got = tengine.Engine(tm, tp, tengine.EngineConfig(**ecfg),
+                             telemetry=tel, **hooks).generate(prompts, 8)
+    np.testing.assert_array_equal(got, plain)
+    jtr = jtrace.TraceWriter()
+    jengine.Engine(jm, params, jengine.EngineConfig(**ecfg),
+                   meter=jmeter.StepMeter(), tracer=jtr).generate(prompts, 8)
+    names = [e["name"] for e in hooks["tracer"].events if e["ph"] == "X"]
+    assert names == ["prefill"] + [f"decode/{i}" for i in range(8)]
+    assert names == [e["name"] for e in jtr.events if e["ph"] == "X"]
+    assert sum(e["ph"] == "C" for e in hooks["tracer"].events) == 8
+    assert hooks["meter"].steps == 8
+    assert hooks["meter"].tokens_per_sec > 0
+    trace.validate_trace(hooks["tracer"].to_json())
+    events = telemetry.load_telemetry(str(tmp_path / "t.jsonl"))
+    assert [e["step"] for e in events[1:]] == list(range(8))
+    with pytest.raises(ValueError, match="need a meter"):
+        tengine.Engine(tm, tp, monitor=detect.HealthMonitor())
+
+
+def test_serve_cli_observability(tmp_path, capsys):
+    """--stats --trace DIR --telemetry DIR: 1 prefill span and new_tokens
+    decode spans in a trace that validates under both packages, one
+    telemetry step record per decode step, the decode meter line, and the
+    tokens of the same run without the flags."""
+    import torch_cli_obs as cli_obs
+    argv = ["--device", "cpu", "--batch", "3", "--prompt-len", "12",
+            "--new-tokens", "5"]
+    assert serve_cli.main(argv) == 0
+    plain = capsys.readouterr().out
+    obs = tmp_path / "obs"
+    assert serve_cli.main(argv + ["--stats", "--trace", str(obs),
+                                  "--telemetry", str(obs)]) == 0
+    out = capsys.readouterr().out
+    reqs = [ln for ln in out.splitlines() if ln.startswith("req")]
+    assert reqs == [ln for ln in plain.splitlines() if ln.startswith("req")]
+    assert "decode step 5" in out and "health: no alarms" in out
+    trace = cli_obs.check_trace(obs / "trace.json")
+    assert cli_obs.spans(trace) == ["prefill"] + [f"decode/{i}"
+                                                  for i in range(5)]
+    events = cli_obs.check_telemetry(obs / "telemetry.jsonl")
+    assert [e["kind"] for e in events] == ["meta"] + ["step"] * 5
 
 
 @pytest.mark.parametrize("mode", sorted(MODES))

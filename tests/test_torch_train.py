@@ -9,6 +9,7 @@ rounding tie can flip one int8 code, which moves one gradient element by one
 scale step.
 """
 
+import json
 import os
 import pathlib
 import subprocess
@@ -257,12 +258,11 @@ def test_cli_defaults_to_cuda_and_raises_without_it():
 
 
 @pytest.mark.parametrize("flags", [["--model-parallel", "2", "--hier"],
-                                   ["--stats"],
-                                   ["--trace", "out"], ["--telemetry", "out"],
-                                   ["--telemetry-sample", "5"],
                                    ["--model-parallel", "2"],
-                                   ["--stats", "--hybrid", "--comm", "mlsl"]])
+                                   ["--model-parallel", "2", "--stats"]])
 def test_cli_unported_flags_raise(flags):
+    """Only --model-parallel > 1 without --hybrid is left unported; the
+    observability flags run (test_cli_observability_on_one_rank)."""
     with pytest.raises(NotImplementedError, match="not yet ported"):
         ttrain.main(flags + ["--device", "cpu", "--steps", "1"])
 
@@ -323,3 +323,82 @@ def test_cli_verify_twin_on_eight_gloo_ranks(tmp_path):
     losses = [float(line.split()[3]) for line in out.splitlines()
               if line.startswith("step")]
     assert len(losses) == 3 and all(np.isfinite(losses)), out
+
+
+OBS_ARGV = ["--arch", "yi-6b", "--comm", "mlsl", "--wire", "int8",
+            "--error-feedback", "--steps", "3", "--seq", "32",
+            "--log-every", "1", "--device", "cpu"]
+
+
+def test_cli_observability_on_one_rank(tmp_path, monkeypatch, capsys):
+    """--stats --trace --telemetry --telemetry-sample 1 on one CPU rank:
+    the trace and the telemetry validate under both packages, the table's
+    byte and modeled columns equal the reference's table for the same
+    arguments, the ledger lands in $BENCH_DIR as
+    BENCH_torch_comm_stats.json, and the run trains exactly as without the
+    flags (bitwise equal final parameters)."""
+    from benchmarks import common as bench_common
+    import torch_cli_obs as cli_obs
+    monkeypatch.setenv("BENCH_DIR", str(tmp_path / "bench"))
+    obs = tmp_path / "obs"
+    recs, state = ttrain.run(OBS_ARGV + [
+        "--stats", "--trace", str(obs), "--telemetry", str(obs),
+        "--telemetry-sample", "1"])
+    out = capsys.readouterr().out
+    plain, plain_state = ttrain.run(OBS_ARGV)
+    assert [r.loss for r in recs] == [r.loss for r in plain]
+    for a, b in zip(tree_lib.leaves(state.params),
+                    tree_lib.leaves(plain_state.params)):
+        assert torch.equal(a, b)
+    # the reference CLI's table for the same arguments
+    mesh = jmesh.make_host_mesh(1, 1)
+    cfg = jreg.get_smoke_config("yi-6b")
+    comm = jtr.CommConfig(mode="mlsl", wire="int8", error_feedback=True)
+    want = jtr.make_comm_engine(JModel(cfg), mesh, JPlanner(mesh=mesh),
+                                comm).stats()
+    got = cli_obs.table_rows(out)
+    assert [r[cli_obs.BYTE_COLUMNS] for r in got] == \
+        [r[cli_obs.BYTE_COLUMNS] for r in cli_obs.ref_table_rows(want)]
+    assert all(float(r[-1]) > 0 for r in got)
+    trace = cli_obs.check_trace(obs / "trace.json")
+    assert cli_obs.spans(trace) == ["step0", "step1", "step2"]
+    assert len(cli_obs.spans(trace, tid=1)) == len(want.buckets)
+    assert any(e["pid"] == 1 and e["ph"] == "X"
+               for e in trace["traceEvents"])           # modeled schedule
+    events = cli_obs.check_telemetry(obs / "telemetry.jsonl")
+    steps = [e for e in events if e["kind"] == "step"]
+    sampled = [e for e in events if e["kind"] == "bucket_times"]
+    assert [e["loss"] for e in steps] == [r.loss for r in recs]
+    assert [e["step"] for e in sampled] == [0, 1, 2]
+    assert all(len(e["measured"]) == len(e["modeled"]) == len(want.buckets)
+               for e in sampled)
+    assert "health: no alarms" in out
+    led = json.loads((tmp_path / "bench" /
+                      "BENCH_torch_comm_stats.json").read_text())
+    bench_common.validate_ledger(led)
+    assert led["module"] == "torch_comm_stats"
+    assert any(m["name"] == "comm_stats/total/total_B" for m in
+               led["metrics"])
+
+
+def test_cli_observability_on_gspmd(tmp_path, monkeypatch, capsys):
+    """gspmd has no bucket messages: --stats says so (its ledger holds the
+    meter alone), the telemetry has step records only (a step-only
+    monitor), the trace its step spans."""
+    import torch_cli_obs as cli_obs
+    monkeypatch.setenv("BENCH_DIR", str(tmp_path / "bench"))
+    obs = tmp_path / "obs"
+    recs, _ = ttrain.run(["--device", "cpu", "--steps", "2", "--seq", "32",
+                          "--stats", "--trace", str(obs), "--telemetry",
+                          str(obs)])
+    out = capsys.readouterr().out
+    assert "per-bucket CommStats need --comm mlsl" in out
+    events = cli_obs.check_telemetry(obs / "telemetry.jsonl")
+    assert [e["kind"] for e in events] == ["meta", "step", "step"]
+    assert cli_obs.spans(cli_obs.check_trace(obs / "trace.json")) == \
+        ["step0", "step1"]
+    assert len(recs) == 2
+    led = json.loads((tmp_path / "bench" /
+                      "BENCH_torch_comm_stats.json").read_text())
+    assert {m["name"] for m in led["metrics"]} == {"meter/step_time_us",
+                                                   "meter/tokens_per_sec"}

@@ -28,6 +28,10 @@ there).
 """
 
 import json
+import os
+import pathlib
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -43,8 +47,11 @@ from repro.models.transformer import Batch as JBatch, Model as JModel
 from repro.optim import optimizers as jopt, schedules as jsched
 from repro.train import trainer as jtr
 
+import torch_cli_obs as cli_obs
 import torch_spawn
 from torch_train_ranks import CASES, SEQ, STEPS
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 WORLD = 8
 INT8 = {"hier_int8_ef_accum2", "topo_virt_int8_ef"}
@@ -176,3 +183,61 @@ def test_cli_planner_fuses_only_the_norm_buckets(port):
     fusable = recs[0]["fusable"]
     assert sum(fusable) == 2 and len(fusable) == 10
     assert all(port["hier_int8_ef_accum2"][0][0]["fusable"])
+
+
+def _torchrun(argv, cwd, **env):
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]),
+        OMP_NUM_THREADS="1", **env)
+    env.pop("JAX_PLATFORMS", None)
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "8", "-m", "repro_torch.launch.train"] + argv,
+        env=env, cwd=cwd, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    return proc.stdout
+
+
+def test_cli_observability_on_eight_torchrun_ranks(tmp_path, mesh8):
+    """The verify command's twin with --stats --trace --telemetry
+    --telemetry-sample 1 through torchrun on 8 gloo ranks: rank 0 alone
+    prints the table and writes the trace, the telemetry and the ledger;
+    the files validate under both packages; the table's byte and modeled
+    columns equal the reference's table for the same arguments on mesh8;
+    and the final parameters equal, bit for bit, those of the same run
+    without the flags (the replay runs between steps, on its own inputs
+    and residuals)."""
+    argv = ["--device", "cpu", "--arch", "yi-6b", "--steps", "3", "--comm",
+            "mlsl", "--wire", "int8", "--error-feedback", "--hier",
+            "--batch", "8", "--seq", "32", "--log-every", "1"]
+    obs = tmp_path / "obs"
+    out = _torchrun(argv + ["--stats", "--trace", str(obs), "--telemetry",
+                            str(obs), "--telemetry-sample", "1",
+                            "--ckpt-dir", str(tmp_path / "ck_obs")],
+                    cwd=ROOT, BENCH_DIR=str(tmp_path / "bench"))
+    _torchrun(argv + ["--ckpt-dir", str(tmp_path / "ck")], cwd=tmp_path)
+    assert out.count("CommStats:") == 1 and "health: no alarms" in out
+    cfg = jreg.get_smoke_config("yi-6b")
+    comm = jtr.CommConfig(mode="mlsl", wire="int8", error_feedback=True,
+                          hier=True)
+    want = jtr.make_comm_engine(JModel(cfg), mesh8, JPlanner(mesh=mesh8),
+                                comm).stats()
+    got = cli_obs.table_rows(out)
+    assert [r[cli_obs.BYTE_COLUMNS] for r in got] == \
+        [r[cli_obs.BYTE_COLUMNS] for r in cli_obs.ref_table_rows(want)]
+    assert all(float(r[-1]) > 0 for r in got)
+    trace = cli_obs.check_trace(obs / "trace.json")
+    assert cli_obs.spans(trace) == ["step0", "step1", "step2"]
+    events = cli_obs.check_telemetry(obs / "telemetry.jsonl")
+    assert [e["step"] for e in events if e["kind"] == "bucket_times"] == \
+        [0, 1, 2]
+    assert sorted(os.listdir(obs)) == ["telemetry.jsonl", "trace.json"]
+    assert os.listdir(tmp_path / "bench") == ["BENCH_torch_comm_stats.json"]
+    like = {"params": jax.tree_util.tree_map(
+        lambda a: jax.ShapeDtypeStruct(a.shape, a.dtype),
+        JModel(cfg).init(jax.random.PRNGKey(0)))}
+    a = jckpt.restore(str(tmp_path / "ck_obs"), like)["params"]
+    b = jckpt.restore(str(tmp_path / "ck"), like)["params"]
+    for x, y in zip(jax.tree_util.tree_leaves(a),
+                    jax.tree_util.tree_leaves(b)):
+        np.testing.assert_array_equal(np.asarray(x), np.asarray(y))

@@ -60,7 +60,13 @@ CASES = {
     "smoke_hybrid_int8_accum2": ("smoke", True,
                                  dict(mode="mlsl", hier=True, wire="int8",
                                       accum_steps=2)),
+    # LARS and LAMB take per-leaf norms of each rank's local shards, as the
+    # reference's optimizer update inside its fully manual region does
+    "smoke_hybrid_lars": ("smoke", True, dict(mode="mlsl", hier=True)),
+    "smoke_hybrid_lamb": ("smoke", True, dict(mode="mlsl", hier=True)),
 }
+# case -> optimizer (make_optimizer name, lr LR); the others train with SGD
+OPTIMIZERS = {"smoke_hybrid_lars": "lars", "smoke_hybrid_lamb": "lamb"}
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
@@ -116,7 +122,7 @@ def run_case(name, mesh, inputs_dir, out_dir, rank):
     params = ckpt.restore(os.path.join(inputs_dir, cfg_name), like,
                           device="cpu", specs=None if specs is None
                           else {"params": specs}, mesh=mesh)["params"]
-    opt = opt_lib.make_optimizer("sgd", LR)
+    opt = opt_lib.make_optimizer(OPTIMIZERS.get(name, "sgd"), LR)
     comm = tr.CommConfig(**kw)
     state = tr.train_state_from_params(params, opt)
     step = tr.make_train_step(model, opt, mesh, planner, comm)
