@@ -73,7 +73,28 @@ Phases, each fatal on failure:
                  optimizer state) on D's two-level route. It runs after
                  the serve cells, so that the serve cells start from the
                  state the train cells A-E leave, as before F existed;
- 10. obs train -- cell B's configuration (dp_only, int8 + EF, 2
+ 10. mp       -- model parallelism (the path of `--model-parallel`) over
+                 the one-rank NCCL "model" group of make_host_mesh(1, 1),
+                 at yi-6b full width cut to 4 layers, bf16, each held
+                 against its dense form on the same inputs: the
+                 vocab-parallel cross-entropy on one microbatch's logits
+                 (4, 2047, 64000) f32 (loss rtol 1e-6, each gradient
+                 element within 1e-5 of the gradient's largest); the
+                 embedding lookup split by vocabulary on the (64000, 4096)
+                 table (output bitwise; the table's gradient within 1e-2
+                 of its largest element: bf16 sums of repeated ids in
+                 another order); the gathered-head attention
+                 (`gqa_gathered`) of yi-6b and of chatglm3-6b (2 KV heads,
+                 half of each head rotated) on (2, 2048, 4096) (output and
+                 the gradients of x and the four projections within 1e-2
+                 of the dense tensor's largest element); the model's loss
+                 (rtol 1e-5) and gradients (each within 1e-4 of its
+                 largest element) through the model-parallel forward, in
+                 f32, batch 2 x 2048. Then train G: cell A's configuration with
+                 `force_model_parallel=True` (the step's collectives over
+                 the one-rank model group); its launches must be A's and
+                 its losses A's (step 0 rtol 1e-5, then rtol 1e-3);
+ 11. obs train -- cell B's configuration (dp_only, int8 + EF, 2
                  microbatches, 3 steps) through `train()` with every
                  observability hook: a StepMeter, a TraceWriter, a
                  TelemetryWriter sampling the bucket replay after every
@@ -84,13 +105,13 @@ Phases, each fatal on failure:
                  launches: the train steps' plus exactly one
                  `quantize_ef_blocks` and one `dequantize_blocks` per bucket
                  per replay; prints the steady step beside B's;
- 11. obs serve -- S-A through `Engine(meter=, tracer=)` (one prefill span
+ 12. obs serve -- S-A through `Engine(meter=, tracer=)` (one prefill span
                  and a span per decode step in a trace that validates, 32
                  flash launches), then a `torch.profiler` window over 4
                  decode steps of S-A: per step, the host time to issue it
                  (with and without the profiler), the summed CUDA kernel
                  time and the kernel launches;
- 12. cli      -- `repro_torch.launch.train.main` and
+ 13. cli      -- `repro_torch.launch.train.main` and
                  `repro_torch.launch.serve.main` (ragged prompts through
                  `serve_requests`) on the smoke config: the flat mlsl int8
                  run, the verify command's twin (`--hier --nodes 1 --local
@@ -104,7 +125,7 @@ Phases, each fatal on failure:
                  (files validate; launches are the steps' plus one quantize
                  and one dequantize per fusable bucket per replay) and the
                  serve CLI with `--stats --trace`;
- 13. report   -- the serve cells' numbers, one JSON line with every kernel,
+ 14. report   -- the serve cells' numbers, one JSON line with every kernel,
                  then the device line.
 
 Exits non-zero without the result line when CUDA is absent or any phase
@@ -595,11 +616,14 @@ def read_launches():
 
 
 def train_phase(torch, label, cfg, comm, *, steps, dp_only, expect,
-                planner=None):
+                planner=None, **train_kw):
     from repro_torch.launch import train as train_lib
     phase(f"train {label}: mode={comm.mode} hier={comm.hier} "
-          f"dp_only={dp_only} hybrid={planner is not None} wire={comm.wire} "
-          f"ef={comm.error_feedback} microbatches={comm.accum_steps}")
+          f"dp_only={dp_only} "
+          f"hybrid={planner is not None and planner.hybrid is not None} "
+          f"model_parallel={train_kw.get('force_model_parallel', False)} "
+          f"wire={comm.wire} ef={comm.error_feedback} "
+          f"microbatches={comm.accum_steps}")
     batch, seq = 8, 2048
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -608,7 +632,7 @@ def train_phase(torch, label, cfg, comm, *, steps, dp_only, expect,
                               lr=3e-4, optimizer="adamw", dp_only=dp_only,
                               seed=0, device="cuda",
                               mesh=None if planner is None else planner.mesh,
-                              planner=planner)
+                              planner=planner, **train_kw)
     torch.cuda.synchronize()
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
@@ -857,6 +881,136 @@ def cli_phase(torch):
 # the kernels-only estimate of B's replay (PERF.md §6): quantize-EF +
 # dequantize at the 262M-element bucket, scaled to B's 11 buckets
 PREDICTED_REPLAY_MS = 6.6
+
+
+def _grads(torch, fn, args, weight=None):
+    """(fn(*args) detached, the gradients of sum(fn(*args) * weight) or of
+    the scalar fn(*args), with respect to every argument)."""
+    args = [a.detach().clone().requires_grad_(True) for a in args]
+    out = fn(*args)
+    loss = out if weight is None else (out.float() * weight).sum()
+    return out.detach(), torch.autograd.grad(loss, args)
+
+
+def _rel_err(torch, got, want) -> float:
+    """max |got - want| over the largest |want|."""
+    scale = float(want.abs().max()) or 1.0
+    return _max_err(torch, got, want) / scale
+
+
+def mp_phase(torch, cfg, a_run, expect):
+    """Model parallelism over a one-rank NCCL model group: the new
+    operators and the model-parallel forward against their dense forms at
+    yi-6b's full width (tolerances in the module docstring), then train G
+    against cell A's run (`a_run`); returns G's launches and record."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import registry
+    from repro_torch.core import planner as pl
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import attention, common
+    from repro_torch.models.transformer import Batch, Model
+    from repro_torch.train import trainer as tr
+    phase("mp: the model-parallel operators over a one-rank NCCL model "
+          "group, yi-6b full width")
+    mesh = mesh_lib.make_host_mesh(1, 1)
+    group = mesh.get_group("model")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale
+                ).to(dtype)
+
+    logits = randn(4, 2047, cfg.vocab, scale=3.0)
+    labels = torch.randint(0, cfg.vocab, (4, 2047), generator=gen,
+                           device="cuda")
+    (l0, (g0,)), (l1, (g1,)) = (
+        _grads(torch, fn, [logits]) for fn in (
+            lambda z: common.softmax_xent(z, labels),
+            lambda z: common.vocab_parallel_xent(z, labels, group)))
+    err = _rel_err(torch, g1, g0)
+    log(f"  vocab_parallel_xent: loss {float(l1):.7f} dense {float(l0):.7f};"
+        f" gradient error {err:.3e} of its largest element")
+    check(math.isclose(float(l1), float(l0), rel_tol=1e-6) and err <= 1e-5,
+          "mp: vocab_parallel_xent differs from softmax_xent")
+    del logits, g0, g1
+    table = randn(cfg.vocab, cfg.d_model, dtype=torch.bfloat16, scale=0.02)
+    ids = torch.randint(0, cfg.vocab, (4, 2048), generator=gen,
+                        device="cuda")
+    w = randn(4, 2048, cfg.d_model)
+    (h0, (t0,)), (h1, (t1,)) = (
+        _grads(torch, fn, [table], w) for fn in (
+            lambda t: t[ids],
+            lambda t: common.embed_lookup(t, ids, group=group, dim=-2)))
+    err = _rel_err(torch, t1, t0)
+    log(f"  embed_lookup by vocabulary: output bitwise {torch.equal(h0, h1)};"
+        f" table gradient error {err:.3e} of its largest element")
+    check(torch.equal(h0, h1) and err <= 1e-2,
+          "mp: embed_lookup differs from the dense lookup")
+    del table, w, t0, t1, h0, h1
+    x = randn(2, 2048, cfg.d_model, dtype=torch.bfloat16)
+    w = randn(2, 2048, cfg.d_model)
+    for arch in ("yi-6b", "chatglm3-6b"):
+        a = registry.get_config(arch).attn
+        d_q, d_kv = a.n_heads * a.head_dim, a.n_kv * a.head_dim
+        p = [randn(cfg.d_model, n, dtype=torch.bfloat16,
+                   scale=cfg.d_model ** -0.5) for n in (d_q, d_kv, d_kv)]
+        p.append(randn(d_q, cfg.d_model, dtype=torch.bfloat16,
+                       scale=d_q ** -0.5))
+
+        def pdict(wq, wk, wv, wo):
+            return {"wq": wq, "wk": wk, "wv": wv, "wo": wo}
+
+        dense = _grads(torch, lambda xx, *ws: attention.gqa_apply(
+            pdict(*ws), xx, a), [x, *p], w)
+        gathered = _grads(torch, lambda xx, *ws: attention.gqa_gathered(
+            pdict(*ws), xx, a, group, attention.HEAD_SHARDED), [x, *p], w)
+        errs = [_rel_err(torch, g, d) for g, d in
+                zip((gathered[0],) + gathered[1], (dense[0],) + dense[1])]
+        log(f"  gqa_gathered {arch} ({a.n_heads} heads on {a.n_kv}, "
+            f"rotary_frac {a.rotary_frac}): errors of y, dx, dwq, dwk, dwv, "
+            f"dwo {['%.3e' % e for e in errs]} of the largest elements")
+        check(max(errs) <= 1e-2, f"mp: gqa_gathered {arch} differs from "
+                                 f"gqa_apply")
+        del dense, gathered, p
+    del x, w
+    # f32, so that the one rounding the two paths do differently (the
+    # cross-entropy's, 1e-6 of the logits' gradient) is not amplified by
+    # bf16 through four layers; train G holds the bf16 path
+    model = Model(dataclasses.replace(cfg, dtype=torch.float32))
+    params = model.init(torch.Generator(device="cuda").manual_seed(5), "cuda")
+    tok = torch.randint(0, cfg.vocab, (2, 2048), generator=gen, device="cuda")
+    batch = Batch(tokens=tok, labels=tok)
+    layout = model.mp_layout(pl.Planner(mesh=mesh))
+    leaves = tree_lib.leaves(params)
+    out = []
+    for kw in ({}, {"tp_axis": group, "layout": layout}):
+        for t in leaves:
+            t.requires_grad_(True)
+        loss = model.loss(params, batch, **kw)
+        out.append((float(loss.detach()), torch.autograd.grad(loss, leaves)))
+        for t in leaves:
+            t.requires_grad_(False)
+        del loss
+    (l0, g0), (l1, g1) = out
+    worst = max(_rel_err(torch, a, b) for a, b in zip(g1, g0))
+    log(f"  model loss through the model-parallel forward {l1:.7f}, dense "
+        f"{l0:.7f}; worst gradient error {worst:.3e} of its largest element")
+    check(math.isclose(l1, l0, rel_tol=1e-5) and worst <= 1e-4,
+          "mp: the model-parallel forward differs from the dense one")
+    del out, g0, g1, params, leaves
+    comm = tr.CommConfig(mode="mlsl", wire="int8", error_feedback=True,
+                         accum_steps=2)
+    launches, run = train_phase(
+        torch, "G", cfg, comm, steps=3, dp_only=False, expect=expect,
+        planner=pl.Planner(mesh=mesh), force_model_parallel=True)
+    log(f"  losses {run['losses']} against A's {a_run['losses']}")
+    check(math.isclose(run["losses"][0], a_run["losses"][0], rel_tol=1e-5)
+          and all(math.isclose(g, a, rel_tol=1e-3) for g, a in
+                  zip(run["losses"], a_run["losses"])),
+          "train G: losses differ from cell A's")
+    log(f"  steady step {run['step_s']:.4f} s against A's "
+        f"{a_run['step_s']:.4f} s")
+    return launches, run
 
 
 def obs_train_phase(torch, cfg, b_step_s):
@@ -1179,6 +1333,13 @@ def main() -> int:
         totals[k] += v
     check(launches["flash_attention"] == 0,
           "the train step launched the flash kernel")
+    # model parallelism at one rank: A's exchange (the 2 norm buckets on
+    # the EF int8 wire), 2 buckets x 2 microbatches x 3 steps
+    launches, runs["G"] = mp_phase(
+        torch, cfg, runs["A"], {**zero, "quantize_ef_blocks": 12,
+                                "dequantize_accumulate_blocks": 12})
+    for k, v in launches.items():
+        totals[k] += v
     launches, runs["obs B"] = obs_train_phase(torch, cfg, runs["B"]["step_s"])
     for k, v in launches.items():
         totals[k] += v

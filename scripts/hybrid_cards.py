@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Hybrid data x model parallelism across the cards of one host, against
-its data-parallel twin.
+"""Hybrid data x model parallelism, and plain model parallelism, across
+the cards of one host, against the data-parallel twin.
 
     python3 scripts/hybrid_cards.py [--nproc 4] [--device cuda]
-                                    [--parts check,cells,stats]
+                                    [--parts check,cells,stats,mp]
 
 Both parts run on --nproc ranks through torchrun, for each mesh (node,
 local) of --meshes (default 1x4 and 2x2), twice: hybrid (the C2C
@@ -45,6 +45,25 @@ replays of every bucket: prints `CommStats.table()` with each bucket's
 measured exchange over the cards' links (the median, then the MAX over
 the ranks) beside the cost model's column, which is model data of the
 paper's Xeon + 10 GbE platform (`hw.CLOUD_10G`), not of these cards.
+
+mp (only when asked for: `--parts mp`): plain model parallelism
+(`--model-parallel`, `Planner(mesh)` with the model axis on every matrix)
+on the meshes of --mp-meshes, (data, model) = (1, 4) and (2, 2) and the
+two-level ("node", "local", "model") = (1, 2, 2), each against the
+data-parallel twin (4, 1) on the same weights and data, mlsl:
+  * the train CLI on the smoke config, fp32 wire, SGD at 0.1, 4 steps
+    (the check part's setting and bounds: losses within 5e-4, gradient
+    norms within 1e-3, the parameters after the last step within 1e-4;
+    the model-parallel runs save the full tensors gathered over the model
+    group);
+  * chatglm3-6b at full width cut to 4 layers (its 2 KV heads split over 4
+    ranks: the gathered-head attention) at (1, 4), and yi-6b at the train
+    cells' configuration (cell A's: int8 wire with error feedback, 2
+    microbatches, AdamW with warmup-cosine at 3e-4, global batch 8, seq
+    2048, 4 steps) on every mesh of --mp-meshes, through `train()`: each
+    step's loss and seconds, the median of steps 1-3 and each rank's peak
+    allocated device memory; the losses must agree with the twin's within
+    rtol 1e-3.
 
 Writes everything to --out as JSON and exits non-zero if a run fails or a
 pair disagrees. `--device cpu` runs the same on gloo ranks (a rehearsal:
@@ -254,8 +273,118 @@ def stats_part(args, work: pathlib.Path) -> tuple:
     return r, ok
 
 
+def _mp_flags(mesh: str) -> list:
+    """CLI flags of a --mp-meshes entry: "DxM" (data x model) or "hNxLxM"
+    (node x local x model, two-level)."""
+    if mesh.startswith("h"):
+        n, l, m = mesh[1:].split("x")
+        return ["--hier", "--nodes", n, "--local-size", l,
+                "--model-parallel", m]
+    d, m = mesh.split("x")
+    return ["--data-parallel", d, "--model-parallel", m]
+
+
+def _compare_fp32(pair: dict, work: pathlib.Path, names: tuple) -> dict:
+    """The check part's bounds between two fp32 CLI runs: every step's loss
+    and gradient norm, and the parameters of their checkpoints."""
+    a, b = (pair[n]["steps"] for n in names)
+    res = {"max_loss_diff": None, "max_gnorm_diff": None,
+           "max_param_diff": float("inf")}
+    agree = bool(a) and len(a) == len(b)
+    if agree:
+        res["max_loss_diff"] = max(abs(x["loss"] - y["loss"])
+                                   for x, y in zip(a, b))
+        res["max_gnorm_diff"] = max(abs(x["grad_norm"] - y["grad_norm"])
+                                    for x, y in zip(a, b))
+    try:
+        pa, pb = (load_params(str(work / n)) for n in names)
+        if pa.keys() == pb.keys():
+            res["max_param_diff"] = max(float(np.max(np.abs(pa[k] - pb[k])))
+                                        for k in pb)
+    except OSError as e:
+        print(f"  no checkpoint: {e}", file=sys.stderr)
+    res["agree"] = (agree and res["max_loss_diff"] <= LOSS_ATOL
+                    and res["max_gnorm_diff"] <= GNORM_ATOL
+                    and res["max_param_diff"] <= PARAM_ATOL)
+    print(f"  max |{names[0]} - {names[1]}|: loss {res['max_loss_diff']} "
+          f"(bound {LOSS_ATOL}), gnorm {res['max_gnorm_diff']} (bound "
+          f"{GNORM_ATOL}), parameters {res['max_param_diff']:.3g} (bound "
+          f"{PARAM_ATOL}): {'agree' if res['agree'] else 'DISAGREE'}",
+          flush=True)
+    return res
+
+
+def _run_worker(args, mode: str, mesh: str, out: pathlib.Path,
+                arch: str) -> dict:
+    proc = _torchrun(args.nproc, [
+        str(pathlib.Path(__file__).resolve()), "--worker", mode,
+        "--device", args.device, "--mesh", mesh, "--wire", "int8",
+        "--arch", arch, "--cells-config",
+        args.cells_config, "--cells-seq", str(args.cells_seq), "--steps",
+        str(args.steps), "--worker-out", str(out)], args.timeout)
+    r = (json.loads(out.read_text()) if out.exists()
+         else {"plan": [], "steps": []})
+    r["rc"] = proc.returncode
+    steady = [s["seconds"] for s in r["steps"][1:]]
+    r["median_step_s"] = statistics.median(steady) if steady else None
+    if proc.returncode != 0 or len(r["steps"]) != args.steps:
+        print(proc.stdout[-2000:], proc.stderr[-3000:], file=sys.stderr)
+    return r
+
+
+def mp_part(args, work: pathlib.Path) -> tuple:
+    results, ok = {"check": [], "cells": []}, True
+    meshes = args.mp_meshes.split(",")
+    common = ["--device", args.device, "--comm", "mlsl", "--wire", "fp32",
+              "--steps", str(args.steps), "--batch", "8", "--seq", "64",
+              "--log-every", "1", "--optimizer", "sgd", "--lr", "0.1"]
+    runs = {}
+    for name, flags in [("twin", ["--data-parallel", str(args.nproc)])] + [
+            (m, _mp_flags(m)) for m in meshes]:
+        r = run_cli(args.nproc, flags + common + [
+            "--ckpt-dir", str(work / f"mp_{name}")], args.timeout)
+        runs[f"mp_{name}"] = r
+        _show(f"mp cli {name}", r)
+        if r["rc"] != 0 or len(r["steps"]) != args.steps:
+            ok = False
+            print(r["stderr"], file=sys.stderr)
+    for m in meshes:
+        res = {"mesh": m, **_compare_fp32(runs, work, (f"mp_{m}",
+                                                       "mp_twin"))}
+        ok = ok and res["agree"]
+        results["check"].append(res)
+    twin_mesh = f"{args.nproc}x1"
+    for arch, mps in (("chatglm3-6b", [meshes[0]]), ("yi-6b", meshes)):
+        twin = _run_worker(args, "mp", twin_mesh,
+                           work / f"mp_{arch}_twin.json", arch)
+        _show(f"mp cells {arch} twin {twin_mesh}", twin)
+        print(f"  median of steps 1-{args.steps - 1}: "
+              f"{twin['median_step_s']} s", flush=True)
+        ok = ok and twin["rc"] == 0 and len(twin["steps"]) == args.steps
+        for m in mps:
+            r = _run_worker(args, "mp", m, work / f"mp_{arch}_{m}.json", arch)
+            _show(f"mp cells {arch} mesh {m}", r)
+            print(f"  median of steps 1-{args.steps - 1}: "
+                  f"{r['median_step_s']} s", flush=True)
+            hy, dp = r["steps"], twin["steps"]
+            agree = (r["rc"] == 0 and bool(hy) and len(hy) == len(dp)
+                     and all(abs(a["loss"] - b["loss"])
+                             <= LOSS_RTOL * abs(b["loss"])
+                             for a, b in zip(hy, dp)))
+            diff = (max(abs(a["loss"] - b["loss"]) for a, b in zip(hy, dp))
+                    if hy and dp else None)
+            print(f"  max |loss({m}) - loss(twin)| {diff} (bound rtol "
+                  f"{LOSS_RTOL}): {'agree' if agree else 'DISAGREE'}",
+                  flush=True)
+            ok = ok and agree
+            results["cells"].append({"arch": arch, "mesh": m, "twin": twin,
+                                     "mp": r, "max_loss_diff": diff,
+                                     "agree": agree})
+    return results, ok
+
+
 def worker(args) -> int:
-    """One rank of a cells or stats run: train() on the two-level mesh,
+    """One rank of a cells, stats or mp run: train() on the run's mesh,
     rank 0 writes the plan lines, the step records and every rank's peak
     (stats: and the CommStats table with the measured column)."""
     import dataclasses
@@ -270,18 +399,30 @@ def worker(args) -> int:
     from repro_torch.models.transformer import Model
     from repro_torch.obs import detect, meter as obs_meter, telemetry
     from repro_torch.train import trainer as tr
-    nodes, local = (int(v) for v in args.mesh.split("x"))
     dev = mesh_lib.resolve_device(args.device)
-    cfg = (dataclasses.replace(registry.get_config("yi-6b"), n_layers=4)
+    cfg = (dataclasses.replace(registry.get_config(args.arch), n_layers=4)
            if args.cells_config == "cells"
-           else registry.get_smoke_config("yi-6b"))
+           else registry.get_smoke_config(args.arch))
     batch, seq = 8, args.cells_seq
-    mesh = mesh_lib.make_hier_mesh(nodes, local, device=dev)
-    comm = tr.CommConfig(mode="mlsl", wire=args.wire, accum_steps=2,
-                         hier=True)
-    planner = (pl.make_hybrid_planner(mesh, cfg, batch=batch, seq=seq)
-               if args.worker == "hybrid"
-               else pl.Planner(mesh=mesh, dp_only=True))
+    if args.worker == "mp":
+        # plain model parallelism or its data-parallel twin (model 1): the
+        # CLI's Planner(mesh), cell A's exchange
+        hier = args.mesh.startswith("h")
+        sizes = [int(v) for v in args.mesh.lstrip("h").split("x")]
+        mesh = (mesh_lib.make_hier_mesh(*sizes, device=dev) if hier
+                else mesh_lib.make_host_mesh(*sizes, device=dev))
+        comm = tr.CommConfig(mode="mlsl", wire=args.wire,
+                             error_feedback=args.wire == "int8",
+                             accum_steps=2, hier=hier)
+        planner = pl.Planner(mesh=mesh)
+    else:
+        nodes, local = (int(v) for v in args.mesh.split("x"))
+        mesh = mesh_lib.make_hier_mesh(nodes, local, device=dev)
+        comm = tr.CommConfig(mode="mlsl", wire=args.wire, accum_steps=2,
+                             hier=True)
+        planner = (pl.make_hybrid_planner(mesh, cfg, batch=batch, seq=seq)
+                   if args.worker == "hybrid"
+                   else pl.Planner(mesh=mesh, dp_only=True))
     rank0 = dist.get_rank() == 0
     hooks, engine, tmp = {}, None, tempfile.mkdtemp()
     if args.worker == "stats":
@@ -313,7 +454,9 @@ def worker(args) -> int:
         plan = ([train_lib.plan_line(lp) for lp in planner.hybrid.layers]
                 if planner.hybrid else [])
         rec = {"config": f"{cfg.name} n_layers={cfg.n_layers} batch {batch} "
-                         f"seq {seq}", "mesh": [], "plan": plan,
+                         f"seq {seq}",
+               "mesh": [f"mesh={pl.mesh_shape(mesh)} wire={comm.wire} "
+                        f"ef={comm.error_feedback}"], "plan": plan,
                "steps": [{"step": r.step, "loss": r.loss,
                           "grad_norm": r.grad_norm, "seconds": r.seconds}
                          for r in recs], "peak_bytes": peaks}
@@ -343,12 +486,14 @@ def main() -> int:
     ap.add_argument("--cells-config", default="cells",
                     choices=["cells", "smoke"])
     ap.add_argument("--cells-seq", type=int, default=2048)
+    ap.add_argument("--mp-meshes", default="1x4,2x2,h1x2x2")
     ap.add_argument("--timeout", type=float, default=600)
     ap.add_argument("--out", default=str(ROOT / "build" /
                                          "hybrid_cards.json"))
-    ap.add_argument("--worker", choices=["hybrid", "dp", "stats"],
+    ap.add_argument("--worker", choices=["hybrid", "dp", "stats", "mp"],
                     default=None,
                     help=argparse.SUPPRESS)
+    ap.add_argument("--arch", default="yi-6b", help=argparse.SUPPRESS)
     ap.add_argument("--mesh", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--wire", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--worker-out", default=None, help=argparse.SUPPRESS)
@@ -376,6 +521,9 @@ def main() -> int:
         ok = ok and good
     if "stats" in parts:
         report["stats"], good = stats_part(args, work)
+        ok = ok and good
+    if "mp" in parts:
+        report["mp"], good = mp_part(args, work)
         ok = ok and good
     shutil.rmtree(work, ignore_errors=True)
     pathlib.Path(args.out).write_text(json.dumps(report, indent=1))

@@ -9,6 +9,8 @@ from repro_torch.configs.base import ModelConfig, reduce_for_smoke
 # only architectures whose every block kind is ported
 _MODULES = {
     "yi-6b": "yi_6b",
+    "chatglm3-6b": "chatglm3_6b",
+    "deepseek-7b": "deepseek_7b",
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -8,8 +8,9 @@ in both packages (the stacked `blocks/...` leaves included), so the
 conversion is a copy; bfloat16 arrays (numpy's ml_dtypes extension type)
 are reinterpreted bit for bit.
 
-Under a hybrid plan each rank holds only its shard of a model-sharded
-parameter. `shard_params` cuts a full tree (numpy arrays or tensors) into
+Under a hybrid plan or model parallelism each rank holds only its shard of
+a model-sharded parameter (on a flat or a ("node", "local", "model")
+mesh). `shard_params` cuts a full tree (numpy arrays or tensors) into
 one rank's shards by the planner's specs; `gather_params` is its inverse
 over the ranks of a mesh, collective on every rank. A spec's entry per
 dimension names the mesh axis that dimension splits over (None: not

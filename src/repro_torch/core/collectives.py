@@ -17,7 +17,9 @@ same order. Every call goes through
   * the mean folds into the scale vector, and an accumulator folds into the
     gather-side dequantize;
   * the tensor-parallel f/g activation pair (`tp_replicate`, `tp_psum`,
-    `tp_psum_scatter`) with explicit backward rules, and `TPComm`.
+    `tp_psum_scatter`) and the column exchange of model parallelism
+    (`tp_all_gather`, `tp_split`, and `tp_max` outside autograd), with
+    explicit backward rules, and `TPComm`.
 """
 
 from __future__ import annotations
@@ -356,6 +358,71 @@ def tp_psum_scatter(x: torch.Tensor, groups) -> torch.Tensor:
     `tp_psum`'s value, with each rank combining 1/p of the trailing
     dimension, which must divide by the group size p (else ValueError)."""
     return _PsumScatter.apply(x, _group_list(groups))
+
+
+# Column exchange for a model group whose ranks hold column shards of one
+# activation (model parallelism where a head or the model dimension is
+# split): `tp_all_gather` concatenates the shards along the last dimension
+# in rank order and keeps only this rank's slice of the cotangent on the
+# way back (the cotangent of the gathered tensor is the same on every rank
+# of the group); `tp_split` is its conjugate, this rank's slice forward and
+# the gathered cotangent backward. `tp_max` is an all-reduce MAX outside
+# autograd (a softmax's shift, whose gradient cancels). `group` is one
+# process group.
+
+def _gather_last(x: torch.Tensor, group) -> torch.Tensor:
+    return _all_gather(x.movedim(-1, 0), group).movedim(0, -1).contiguous()
+
+
+def _own_slice(x: torch.Tensor, group) -> torch.Tensor:
+    p = dist.get_world_size(group)
+    if x.shape[-1] % p:
+        raise ValueError(f"the last dimension {x.shape[-1]} does not split "
+                         f"over the group size {p}")
+    n = x.shape[-1] // p
+    r = dist.get_rank(group)
+    return x[..., r * n:(r + 1) * n].contiguous()
+
+
+class _GatherLast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _gather_last(x, group)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _own_slice(ct, ctx.group), None
+
+
+class _SplitLast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _own_slice(x, group)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _gather_last(ct, ctx.group), None
+
+
+def tp_all_gather(x: torch.Tensor, group) -> torch.Tensor:
+    """All-gather along the last dimension over `group`, in rank order;
+    the backward keeps this rank's slice of the cotangent."""
+    return _GatherLast.apply(x, group)
+
+
+def tp_split(x: torch.Tensor, group) -> torch.Tensor:
+    """This rank's slice of the last dimension (which must divide by the
+    group size); the backward all-gathers the cotangent over `group`."""
+    return _SplitLast.apply(x, group)
+
+
+def tp_max(x: torch.Tensor, group) -> torch.Tensor:
+    """Element-wise MAX over `group`, with no gradient."""
+    out = x.detach().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+    return out
 
 
 @dataclasses.dataclass(frozen=True)

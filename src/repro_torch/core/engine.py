@@ -105,9 +105,20 @@ class EnginePlan:
     # the hw.TOPOLOGIES name the buckets were routed against (None: no
     # cost-model routing)
     topo: Optional[str] = None
+    # model parallelism: the plan is the reference's, on the global leaf
+    # shapes, but each rank reduces its local shard of a model-sharded
+    # leaf; per bucket, its leaves' shapes on this rank (() when they are
+    # the global shapes)
+    local_shapes: tuple = ()
 
     def axes_for(self, bi: int) -> tuple:
         return self.bucket_axes[bi] if self.bucket_axes else self.data_axes
+
+    def shapes_for(self, bi: int) -> tuple:
+        """Bucket `bi`'s leaf shapes as this rank holds them."""
+        if self.local_shapes:
+            return self.local_shapes[bi]
+        return self.buckets.buckets[bi].shapes
 
     @property
     def n_buckets(self) -> int:
@@ -130,8 +141,8 @@ def build_plan(grad_struct, comm: CommConfig, mesh, data_axes, *,
                group_key: Callable[[tuple], object] | None = None,
                leaf_replicated: Callable[[tuple], bool] | None = None,
                tp_axis: Optional[str] = None,
-               leaf_sharded: Callable[[tuple], bool] | None = None
-               ) -> EnginePlan:
+               leaf_sharded: Callable[[tuple], bool] | None = None,
+               local_struct=None) -> EnginePlan:
     """Compile CommConfig + gradient structure + mesh into an EnginePlan.
 
     `grad_struct` is a nested dict of tensors with the gradients' shapes
@@ -149,7 +160,13 @@ def build_plan(grad_struct, comm: CommConfig, mesh, data_axes, *,
     `leaf_sharded(path)` marks leaves whose parameter is model-sharded over
     `tp_axis`. Sharded buckets reduce over the data axes only, on the flat
     route; replicated buckets reduce over data axes + tp_axis, on the route
-    the plan picks. Every leaf is a local tensor, so all buckets fuse."""
+    the plan picks. Every leaf is a local tensor, so all buckets fuse.
+
+    `local_struct` (model parallelism: `grad_struct`'s tree with each
+    leaf's shape on this rank) keeps the plan on the global shapes, as the
+    reference's, and records the local ones for what a rank allocates per
+    leaf (`EnginePlan.shapes_for`). Only replicated leaves fuse, and their
+    local shapes are the global ones."""
     if layer_index is None:
         layer_index = scheduler.default_layer_index
     plan = scheduler.plan_buckets(grad_struct, layer_index,
@@ -193,6 +210,17 @@ def build_plan(grad_struct, comm: CommConfig, mesh, data_axes, *,
         bucket_axes = tuple(tuple(data_axes) if sh else full
                             for sh in sharded_buckets)
         fusable = tuple(True for _ in plan.buckets)
+
+    local_shapes = ()
+    if local_struct is not None:
+        local = [tuple(t.shape) for t in tree_lib.leaves(local_struct)]
+        local_shapes = tuple(tuple(local[i] for i in b.leaf_ids)
+                             for b in plan.buckets)
+        for bi, b in enumerate(plan.buckets):
+            if fusable[bi] and local_shapes[bi] != b.shapes:
+                raise ValueError(f"bucket {bi} fuses leaves whose local "
+                                 f"shapes {local_shapes[bi]} differ from "
+                                 f"the global {b.shapes}")
 
     hier_spec = None
     n_node, n_local = 1, dp
@@ -241,7 +269,7 @@ def build_plan(grad_struct, comm: CommConfig, mesh, data_axes, *,
                       skip_reduce=comm.skip_reduce, tp_axis=tp_axis, tp=tp,
                       bucket_axes=bucket_axes, quant_backend=qb,
                       fused_quant=comm.fused_quant, quant_pad=quant_pad,
-                      topo=comm.topo)
+                      topo=comm.topo, local_shapes=local_shapes)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -425,7 +453,7 @@ class CommEngine:
             torch.zeros((b.n_elems,), dtype=torch.float32, device=device)
             if p.fusable[bi]
             else tuple(torch.zeros(shape, dtype=torch.float32, device=device)
-                       for shape in b.shapes)
+                       for shape in p.shapes_for(bi))
             for bi, b in enumerate(p.buckets.buckets))
 
     def reduce_accum_chained(self, grads, acc, residuals):

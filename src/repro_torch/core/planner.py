@@ -10,8 +10,12 @@ names, or None (replicated along that dimension).
 
 The data-parallel step reads the specs for one thing: which gradient
 buckets may travel fused (only fully replicated leaves may). The hybrid
-step (`make_hybrid_planner`) also cuts each rank's parameter shards by them
-(`convert.shard_params`). The rules are the reference's exactly, including
+step (`make_hybrid_planner`) and the model-parallel step (a model axis of
+more than one rank) also cut each rank's parameter shards by them
+(`convert.shard_params`), and the model-parallel step lays out its
+activation collectives by `model_dims`. The activation specs
+(`tokens_spec`, `logits_spec`, ...) are the reference's, as tuples. The
+rules are the reference's exactly, including
 one of its quirks: outside `dp_only` and without `model_paths`, every
 matrix kind gets the model axis when its dimension divides the model size,
 even when that size is 1 or the mesh has no model axis at all. Under the
@@ -149,6 +153,62 @@ class Planner:
             ok = self.model_paths(path) if self.model_paths else True
             return self.spec_for(pd, stacked=st, model_ok=ok)
         return tree_lib.map_with_path(one, defs_tree)
+
+    def model_dims(self, defs_tree,
+                   *, stacked_paths: Callable[[tuple], bool] | None = None):
+        """ParamDef tree -> tree of each leaf's model-sharded dimension, or
+        None where the spec does not name the model axis. The dimension is
+        counted from the end (-1: the last), so it is the same for a stacked
+        leaf and for one layer's slice of it."""
+        def one(_, spec):
+            for d, ax in enumerate(spec):
+                if ax == self.model_axis:
+                    return d - len(spec)
+            return None
+        return tree_lib.map_with_path(
+            one, self.tree_specs(defs_tree, stacked_paths=stacked_paths))
+
+    # -- activations ----------------------------------------------------------
+
+    def _axes_size(self, axes) -> int:
+        shape = mesh_shape(self.mesh)
+        return math.prod(shape[a] for a in axes)
+
+    def batch_spec_axes(self, batch: int) -> tuple:
+        """Largest batch-axis group that evenly divides `batch`."""
+        for axes in (self.batch_axes, self.batch_axes[-1:], ()):
+            if axes == () or _divides(batch, self._axes_size(axes)):
+                return axes
+        return ()
+
+    def _lead(self, batch: int):
+        axes = self.batch_spec_axes(batch)
+        return axes if len(axes) > 1 else (axes[0] if axes else None)
+
+    def tokens_spec(self, batch: int, extra_dims: int = 1) -> tuple:
+        return (self._lead(batch),) + (None,) * extra_dims
+
+    def logits_spec(self, batch: int, vocab: int) -> tuple:
+        v = self.model_axis if _divides(vocab, self.model_size) else None
+        return (self._lead(batch), None, v)
+
+    def kv_cache_spec(self, batch: int, seq: int, n_kv: int) -> tuple:
+        """(B, S, n_kv, head_dim) cache: batch over data axes; if the KV-head
+        count does not split over the model axis, shard the sequence
+        instead (distributed 'flash-decoding' layout)."""
+        lead = self._lead(batch)
+        if self.dp_only:
+            return (lead, None, None, None)
+        if _divides(n_kv, self.model_size):
+            return (lead, None, self.model_axis, None)
+        if _divides(seq, self.model_size):
+            return (lead, self.model_axis, None, None)
+        return (lead, None, None, None)
+
+    def state_spec(self, batch: int, dim: int) -> tuple:
+        """(B, dim, ...) recurrent state: dim over model if divisible."""
+        d = self.model_axis if _divides(dim, self.model_size) else None
+        return (self._lead(batch), d)
 
 
 # --- flat vs hierarchical collective choice (machine-hierarchy planning) -----

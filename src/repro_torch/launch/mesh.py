@@ -3,7 +3,8 @@
 Ports `repro/launch/mesh.py`. A mesh is a `torch.distributed` DeviceMesh;
 each dimension's process group is what the collectives run over. Meshes:
 ("data", "model") for flat data parallelism (`make_host_mesh`) and
-("node", "local") for the two-level collectives (`make_hier_mesh`).
+("node", "local") for the two-level collectives (`make_hier_mesh`), or
+("node", "local", "model") when the two-level mesh also has a model axis.
 
 A process runs one rank. Under torchrun (`RANK`, `WORLD_SIZE` and
 `LOCAL_RANK` set) the default process group starts from that environment
@@ -14,6 +15,7 @@ never shrunk to fit. Nothing here is done at import time.
 
 from __future__ import annotations
 
+import math
 import os
 import tempfile
 
@@ -102,13 +104,16 @@ def make_host_mesh(data: int = 1, model: int = 1,
                             mesh_dim_names=("data", "model"))
 
 
-def make_hier_mesh(node: int = 2, local: int = 4,
+def make_hier_mesh(node: int = 2, local: int = 4, model: int = 1,
                    device: torch.device | str | None = None) -> DeviceMesh:
     """Factored data-parallel mesh for the two-level collectives: "node" is
     the inter-node (fabric) dimension, "local" the intra-node one; rank r
     sits at (r // local, r % local), the order of the reference's
-    make_hier_mesh."""
+    make_hier_mesh. `model` > 1 adds a trailing "model" axis: rank r sits
+    at (r // (local * model), r // model % local, r % model)."""
     dev = resolve_device(device)
-    _ensure_world(dev, node * local)
-    return init_device_mesh(dev.type, (node, local),
-                            mesh_dim_names=("node", "local"))
+    shape, names = (node, local), ("node", "local")
+    if model > 1:
+        shape, names = (node, local, model), ("node", "local", "model")
+    _ensure_world(dev, math.prod(shape))
+    return init_device_mesh(dev.type, shape, mesh_dim_names=names)

@@ -24,9 +24,18 @@ the "local" axis of `make_hier_mesh(nodes, local)` for the layers the
 chooser sends model-parallel, data parallelism across "node"; it prints one
 `plan ...` line per layer, implies `--hier` and needs `--comm mlsl`. With
 `--ckpt-dir` it saves the full parameters gathered over the tp group.
-`--model-parallel` above 1 without `--hybrid` (the reference's GSPMD
-model axis, which needs a vocab-parallel embedding, head and loss) is not
-yet ported and raises.
+
+`--model-parallel N` (N > 1, without `--hybrid`) is the reference's model
+axis on every matrix: `make_host_mesh(data, N)`, or with `--hier`
+`make_hier_mesh(nodes, local, N)`, under `Planner(mesh)`, on gspmd or
+mlsl; e.g. on 8 gloo ranks of the CPU
+
+  python -m torch.distributed.run --standalone --nproc-per-node 8 \\
+      -m repro_torch.launch.train --device cpu --data-parallel 4 \\
+      --model-parallel 2 --comm mlsl --batch 8 --seq 32
+
+With `--ckpt-dir` it saves the full parameters gathered over the model
+group.
 
 Observability (repro_torch.obs), as in the reference: `--stats` prints the
 per-bucket CommStats table with each bucket's measured replay time beside
@@ -81,15 +90,19 @@ def train(cfg: ModelConfig, comm: tr.CommConfig, *, steps: int, batch: int,
           planner: pl.Planner | None = None, ckpt_dir: str | None = None,
           log_every: int = 0, meter=None, tracer=None, telemetry=None,
           monitor=None, timer=None,
-          sample_every: int = obs_telemetry.DEFAULT_SAMPLE_EVERY) -> tuple:
+          sample_every: int = obs_telemetry.DEFAULT_SAMPLE_EVERY,
+          force_model_parallel: bool = False) -> tuple:
     """Train `cfg` for `steps` steps and return (a StepRecord per step, the
     final TrainState). Weights are random from `seed`; data is the seeded
     synthetic stream. `mesh` defaults to one rank: `make_hier_mesh(1, 1)`
     with `comm.hier`, else `make_host_mesh(1, 1)`. `planner` defaults to
     `Planner(mesh, dp_only=dp_only)`; under a hybrid planner
-    (`make_hybrid_planner`) every rank draws the full weights and keeps its
-    shards, and the state holds shards. With `ckpt_dir`, rank 0 saves
-    {"params": ...} there after the last step, the full tensors.
+    (`make_hybrid_planner`) or model parallelism (a planner whose model
+    axis has more than one rank, or `force_model_parallel`:
+    `trainer.make_train_step`) every rank draws the full weights and keeps
+    its shards, and the state holds shards; LARS and LAMB then take the
+    norms of whole tensors. With `ckpt_dir`, rank 0 saves {"params": ...}
+    there after the last step, the full tensors.
 
     Observability hooks (repro_torch.obs), each optional: `meter`
     (StepMeter) takes every step's synchronized time, loss and gradient
@@ -112,14 +125,22 @@ def train(cfg: ModelConfig, comm: tr.CommConfig, *, steps: int, batch: int,
         raise ValueError("tracer, telemetry and monitor need a meter")
     model = Model(cfg)
     sched = schedules.warmup_cosine(lr, max(steps // 10, 1), steps)
-    opt = opt_lib.make_optimizer(optimizer, sched)
+    mp = force_model_parallel or tr.model_parallel(planner)
+    opt_kw = {}
+    if mp and optimizer in opt_lib.LAYERWISE:
+        opt_kw = dict(sharded=tr.sharded_flags(model, planner,
+                                               planner.model_axis),
+                      group=mesh.get_group(planner.model_axis))
+    opt = opt_lib.make_optimizer(optimizer, sched, **opt_kw)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    specs = tr.param_specs(model, planner) if planner.hybrid else None
+    specs = (tr.param_specs(model, planner) if planner.hybrid or mp
+             else None)
     params = model.init(gen, dev)
     if specs is not None:
         params = convert.shard_params(params, specs, mesh)
     state = tr.train_state_from_params(params, opt)
-    step_fn = tr.make_train_step(model, opt, mesh, planner, comm, device=dev)
+    step_fn = tr.make_train_step(model, opt, mesh, planner, comm, device=dev,
+                                 force_model_parallel=force_model_parallel)
     dcfg = pipeline.DataConfig(vocab=cfg.vocab, seq_len=seq,
                                global_batch=batch, seed=seed)
     # the cost model's per-bucket seconds: the modeled exposed-comm share
@@ -268,11 +289,6 @@ def run(argv=None) -> tuple:
     """The CLI without the exit code: parse `argv`, train, and return (the
     StepRecords, the final TrainState)."""
     args = _parser().parse_args(argv)
-    if args.model_parallel > 1 and not args.hybrid:
-        raise NotImplementedError(
-            f"--model-parallel {args.model_parallel} (the GSPMD model axis "
-            "needs a vocab-parallel embedding, head and cross-entropy): not "
-            "yet ported to repro_torch")
     if args.hybrid and args.comm != "mlsl":
         raise SystemExit("--hybrid needs --comm mlsl (the activation "
                          "f/g collectives run in the explicit data path)")
@@ -286,7 +302,8 @@ def run(argv=None) -> tuple:
         for lp in planner.hybrid.layers:
             _log(plan_line(lp))
     else:
-        mesh = (mesh_lib.make_hier_mesh(args.nodes, args.local, device=dev)
+        mesh = (mesh_lib.make_hier_mesh(args.nodes, args.local,
+                                        args.model_parallel, device=dev)
                 if args.hier else
                 mesh_lib.make_host_mesh(args.data_parallel,
                                         args.model_parallel, device=dev))

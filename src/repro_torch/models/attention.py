@@ -7,6 +7,11 @@ of `gqa_prefill_cache`: it returns the attention's output with the cache,
 built from the K/V the attention computed, where the reference projects
 them again.
 
+Under model parallelism `gqa_apply` takes the layout of its projections
+(`Planner.model_dims`): whole heads per rank run sharded, as under a hybrid
+plan; a shard holding part of a head (the smoke yi-6b's 4 heads of 32 over
+8 ranks, chatglm3-6b's 2 KV heads over 4) runs `gqa_gathered`.
+
 Which attention `gqa_apply` runs:
   * the flash kernel (`kernels.flashattn.gqa_flash_attention`) when the mask
     is the plain causal/window mask that `gqa_apply` builds itself
@@ -25,10 +30,10 @@ and returns the same tensors; the reference returns updated copies.
 
 from __future__ import annotations
 
-import dataclasses
 import math
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import AttnConfig
 from repro_torch.core import collectives as cl
@@ -73,16 +78,22 @@ def _repeat_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
     return torch.repeat_interleave(k, n_heads // k.shape[-2], dim=-2)
 
 
-def _attend(p: dict, x: torch.Tensor, a: AttnConfig, *, pos0: int,
-            window: int | None, mask: torch.Tensor | None):
-    """`gqa_apply`'s attention; also returns the roped K and V it attended
-    to, (B, S, KV, hd) each, from which the prefill builds its cache."""
-    B, S, _ = x.shape
-    H, KV, hd = a.n_heads, a.n_kv, a.head_dim
-    q = _split_heads(x @ p["wq"], H, hd)
-    k = _split_heads(x @ p["wk"], KV, hd)
-    v = _split_heads(x @ p["wv"], KV, hd)
-    positions = torch.arange(S, device=x.device) + pos0
+def _project(p: dict, x: torch.Tensor) -> tuple:
+    return x @ p["wq"], x @ p["wk"], x @ p["wv"]
+
+
+def _attend(q, k, v, a: AttnConfig, *, pos0: int, window: int | None,
+            mask: torch.Tensor | None):
+    """`gqa_apply`'s attention over the projections q (B, S, H * hd) and
+    k, v (B, S, KV * hd), the head counts read from their widths. Returns
+    the attention output (B, S, H * hd), before the out-projection, and
+    the roped K and V it attended to, (B, S, KV, hd) each, from which the
+    prefill builds its cache."""
+    B, S, _ = q.shape
+    hd = a.head_dim
+    H, KV = q.shape[-1] // hd, k.shape[-1] // hd
+    q, k, v = (_split_heads(t, t.shape[-1] // hd, hd) for t in (q, k, v))
+    positions = torch.arange(S, device=q.device) + pos0
     q = common.apply_rope(q, positions, rotary_frac=a.rotary_frac,
                           theta=a.rope_theta)
     k = common.apply_rope(k, positions, rotary_frac=a.rotary_frac,
@@ -93,14 +104,27 @@ def _attend(p: dict, x: torch.Tensor, a: AttnConfig, *, pos0: int,
     else:
         if mask is None and a.causal:
             mask = common.causal_mask(S, S, q_offset=0, window=w,
-                                      device=x.device)
+                                      device=q.device)
         o = _sdpa(q, _repeat_kv(k, H), _repeat_kv(v, H), mask)
-    return o.reshape(B, S, H * hd) @ p["wo"], k, v
+    return o.reshape(B, S, H * hd), k, v
+
+
+# the layout of a head-sharded attention: each projection split by output
+# column, the out-projection by input row
+HEAD_SHARDED = {"wq": -1, "wk": -1, "wv": -1, "wo": -2}
+
+
+def head_aligned(layout: dict, a: AttnConfig, size: int) -> bool:
+    """Does `layout` (a model-sharded dimension or None per projection,
+    `Planner.model_dims`) give each of `size` ranks whole query and KV
+    heads?"""
+    return (layout == HEAD_SHARDED and a.n_heads % size == 0
+            and a.n_kv % size == 0)
 
 
 def gqa_apply(p: dict, x: torch.Tensor, a: AttnConfig, *, pos0: int = 0,
               window: int | None = None, mask: torch.Tensor | None = None,
-              tp_axis=None) -> torch.Tensor:
+              tp_axis=None, layout: dict | None = None) -> torch.Tensor:
     """Full causal self-attention over a sequence (training and prefill).
 
     tp_axis (a process group): head-sharded tensor parallelism -- the
@@ -109,15 +133,42 @@ def gqa_apply(p: dict, x: torch.Tensor, a: AttnConfig, *, pos0: int = 0,
     forward, all-reduce backward) and the out-projection's partial sum
     leaves through g (all-reduce forward, identity backward):
     collectives.tp_replicate / tp_psum. Rope and softmax are per head, so
-    the sharded math is exact."""
+    the sharded math is exact.
+
+    layout (with tp_axis; model parallelism): each projection's
+    model-sharded dimension or None (`Planner.model_dims`). A head-aligned
+    layout runs as above; any other (a shard holding part of a head) goes
+    through `gqa_gathered`."""
+    if layout is not None and not head_aligned(
+            layout, a, dist.get_world_size(tp_axis)):
+        return gqa_gathered(p, x, a, tp_axis, layout, pos0=pos0,
+                            window=window, mask=mask)
     if tp_axis is not None:
-        a = dataclasses.replace(a, n_heads=p["wq"].shape[-1] // a.head_dim,
-                                n_kv=p["wk"].shape[-1] // a.head_dim)
         x = cl.tp_replicate(x, tp_axis)
-    y = _attend(p, x, a, pos0=pos0, window=window, mask=mask)[0]
+    o = _attend(*_project(p, x), a, pos0=pos0, window=window, mask=mask)[0]
+    y = o @ p["wo"]
     if tp_axis is not None:
         y = cl.tp_psum(y, tp_axis)
     return y
+
+
+def gqa_gathered(p: dict, x: torch.Tensor, a: AttnConfig, group,
+                 layout: dict, *, pos0: int = 0, window: int | None = None,
+                 mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Attention whose projections' column shards need not hold whole
+    heads: each column-sharded projection of x (entering through
+    `tp_replicate`) is gathered over `group` (`tp_all_gather`), every rank
+    attends over the full heads (rope on whole heads), and a row-sharded
+    out-projection takes this rank's columns of the attention output
+    (`tp_split`) and sums the partial products (`tp_psum`). Replicated
+    projections use x and the full output as they are."""
+    xr = cl.tp_replicate(x, group)
+    q, k, v = (cl.tp_all_gather(xr @ p[n], group) if layout[n] == -1
+               else x @ p[n] for n in ("wq", "wk", "wv"))
+    o = _attend(q, k, v, a, pos0=pos0, window=window, mask=mask)[0]
+    if layout["wo"] == -2:
+        return cl.tp_psum(cl.tp_split(o, group) @ p["wo"], group)
+    return o @ p["wo"]
 
 
 # --- serving caches ------------------------------------------------------------
@@ -159,7 +210,8 @@ def gqa_prefill(p: dict, x: torch.Tensor, a: AttnConfig, *,
     """`gqa_apply` over the whole prompt, and the cache of the K/V it
     attended to (ring-compacted if windowed): returns (y, cache). The
     reference's `gqa_prefill_cache` projects K/V a second time."""
-    y, k, v = _attend(p, x, a, pos0=0, window=window, mask=None)
+    o, k, v = _attend(*_project(p, x), a, pos0=0, window=window, mask=None)
+    y = o @ p["wo"]
     S = x.shape[1]
     if window and S > window:
         # keep the last `window` positions, position p at ring slot

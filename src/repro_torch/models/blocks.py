@@ -2,8 +2,8 @@
 
 Ports the "attn" block kind of `repro/models/blocks.py` (causal
 self-attention + dense MLP): full-sequence apply, with head/feature-sharded
-tensor parallelism under a hybrid plan, serving caches and one-token
-decode (unsharded, as in the reference). The other kinds come with their
+tensor parallelism under a hybrid plan or model parallelism, serving caches
+and one-token decode (unsharded, as in the reference). The other kinds come with their
 slices.
 """
 
@@ -56,22 +56,40 @@ class BlockCtx:
     cfg: ModelConfig
     window_override: Optional[int] = None  # force SWA on full-attn blocks
     kv_dtype: str = "native"               # int8: quantized GQA KV cache
-    # hybrid execution: the activation-exchange group (process group) of
-    # tensor-parallel blocks. Whether a given block actually runs sharded is
-    # detected from its shard shapes (attn_tp / mlp_tp) -- the per-layer
-    # hybrid plan leaves fallback layers replicated, and putting f/g around
-    # full-size weights would multiply their output by the group size.
+    # the activation-exchange group (process group) of model-sharded
+    # blocks. Under a hybrid plan whether a given block actually runs
+    # sharded is detected from its shard shapes (attn_tp / mlp_tp) -- the
+    # per-layer plan leaves fallback layers replicated, and putting f/g
+    # around full-size weights would multiply their output by the group
+    # size.
     tp_axis: object = None
+    # model parallelism: this block's model-sharded dimension per leaf
+    # (Planner.model_dims), which shard shapes cannot tell (a shard of
+    # half a head has a shape a whole head could have)
+    layout: Optional[dict] = None
 
     def attn_tp(self, p_attn: dict, a):
         if self.tp_axis is None:
             return None
+        if self.layout is not None:
+            return self.tp_axis if self.attn_layout() else None
         sharded = p_attn["wo"].shape[-2] != a.n_heads * a.head_dim
         return self.tp_axis if sharded else None
+
+    def attn_layout(self) -> Optional[dict]:
+        """The attention's layout when any projection is model-sharded."""
+        if self.layout is None:
+            return None
+        dims = self.layout["attn"]
+        return dims if any(d is not None for d in dims.values()) else None
 
     def mlp_tp(self, p_mlp: dict):
         if self.tp_axis is None:
             return None
+        if self.layout is not None:
+            dims = self.layout["mlp"]
+            return self.tp_axis if any(d is not None
+                                       for d in dims.values()) else None
         return self.tp_axis if p_mlp["w2"].shape[-2] != self.cfg.d_ff else None
 
     def window_for(self, kind: str) -> Optional[int]:
@@ -99,7 +117,8 @@ def block_apply(kind: str, p: dict, h: torch.Tensor,
     x = norm_apply(p["ln1"], h, cfg)
     h = h + attn_mod.gqa_apply(p["attn"], x, cfg.attn,
                                window=ctx.window_for(kind),
-                               tp_axis=ctx.attn_tp(p["attn"], cfg.attn))
+                               tp_axis=ctx.attn_tp(p["attn"], cfg.attn),
+                               layout=ctx.attn_layout())
     return _mlp_residual(p, h, cfg, ctx.mlp_tp(p["mlp"]))
 
 

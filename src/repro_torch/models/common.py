@@ -1,7 +1,11 @@
 """Shared model building blocks: init, norms, rotary embeddings, losses.
 
 Ports the dense-model half of `repro/models/common.py`. Parameters are
-nested dicts of tensors keyed like the reference's pytrees.
+nested dicts of tensors keyed like the reference's pytrees. Under model
+parallelism the embedding lookup and the cross-entropy also run on this
+rank's shard of the table or of the logits (`embed_lookup`,
+`vocab_parallel_xent`), with their collectives explicit where the
+reference's partitioner inserts them.
 """
 
 from __future__ import annotations
@@ -10,9 +14,11 @@ import math
 from typing import Any
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch import tree as tree_lib
+from repro_torch.core import collectives as cl
 from repro_torch.core.planner import ParamDef
 
 
@@ -103,11 +109,60 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
     logits = logits.to(torch.float32)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    nll = logz - gold
+    return _nll_mean(logz - gold, mask)
+
+
+def _nll_mean(nll: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
     if mask is not None:
         mask = mask.to(torch.float32)
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
     return torch.mean(nll)
+
+
+def _owned(ids: torch.Tensor, n: int, group):
+    """(ids local to this rank's block of n rows, whether it owns each)."""
+    local = ids.long() - dist.get_rank(group) * n
+    own = (local >= 0) & (local < n)
+    return torch.where(own, local, torch.zeros_like(local)), own
+
+
+def vocab_parallel_xent(logits: torch.Tensor, labels: torch.Tensor, group,
+                        mask: torch.Tensor | None = None) -> torch.Tensor:
+    """`softmax_xent` of logits whose vocabulary is split over `group` in
+    rank order: `logits` (..., V / p) is this rank's block of columns. The
+    running max is MAX-reduced over the group (no gradient: the shift
+    cancels), the sum of exponentials and the gold logit (taken on the rank
+    that owns the label, zero elsewhere) are summed over it with `tp_psum`,
+    so the loss is the same on every rank and the backward gives each rank
+    only its own columns."""
+    logits = logits.to(torch.float32)
+    m = cl.tp_max(torch.amax(logits, dim=-1), group)
+    sumexp = cl.tp_psum(torch.sum(torch.exp(logits - m[..., None]), dim=-1),
+                        group)
+    logz = torch.log(sumexp) + m
+    local, own = _owned(labels, logits.shape[-1], group)
+    gold = torch.gather(logits, -1, local[..., None])[..., 0]
+    gold = cl.tp_psum(torch.where(own, gold, torch.zeros_like(gold)), group)
+    return _nll_mean(logz - gold, mask)
+
+
+def embed_lookup(table: torch.Tensor, ids: torch.Tensor, *, group=None,
+                 dim: int | None = None) -> torch.Tensor:
+    """`table[ids]`. With `group`, `table` is this rank's shard of the
+    (vocab, d) embedding split along `dim`: -2 by vocabulary (ids this rank
+    does not own look up zeros, so their rows get no gradient, and the
+    ranks' partial lookups are summed with `tp_psum`), -1 by the model
+    dimension (the local columns, then `tp_all_gather`)."""
+    if group is None or dim is None:
+        return table[ids.long()]
+    if dim == -2:
+        local, own = _owned(ids, table.shape[0], group)
+        h = table[local]
+        return cl.tp_psum(torch.where(own[..., None], h, torch.zeros_like(h)),
+                          group)
+    if dim == -1:
+        return cl.tp_all_gather(table[ids.long()], group)
+    raise ValueError(f"an embedding split along dimension {dim}")
 
 
 def causal_mask(q_len: int, kv_len: int, *, q_offset: int = 0,

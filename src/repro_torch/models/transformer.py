@@ -9,6 +9,13 @@ reference scans. With `cfg.remat`, each pattern repeat runs under
 `torch.utils.checkpoint` (the reference's `jax.checkpoint` of the scan
 body) when autograd records.
 
+Under model parallelism (`forward(..., tp_axis=group, layout=...)`, the
+layout from `mp_layout`) the parameters are this rank's shards and every
+collective the reference's partitioner would insert is explicit: a
+vocab- or column-split embedding, head-sharded or gathered attention,
+feature-sharded MLPs, a vocab- or row-parallel head and the vocab-parallel
+cross-entropy.
+
 The serving cache has the reference's tree, `cache["blocks"]["p0_attn"]["k"]`
 with the leading `pattern_repeats` dimension. `prefill` and `decode_step`
 run under `torch.inference_mode()`; `decode_step` writes into the cache's
@@ -23,7 +30,9 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import tree as tree_lib
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import collectives as cl
 from repro_torch.core import planner as pl
 from repro_torch.models import blocks, common
 
@@ -81,29 +90,69 @@ class Model:
 
     # ---------------- forward ----------------
 
+    def mp_layout(self, planner: pl.Planner) -> dict:
+        """The model-sharded dimension of every parameter under `planner`
+        (`Planner.model_dims`), checked against the layouts the
+        model-parallel forward runs; any other raises, naming the leaf and
+        its spec. Nothing is replicated in place of a layout it cannot
+        run."""
+        defs = self.param_defs()
+        dims = planner.model_dims(defs, stacked_paths=Model.stacked_path)
+        specs = planner.tree_specs(defs, stacked_paths=Model.stacked_path)
+        allowed = {"embed": (-2, -1), "head": (-1, -2), "wq": (-1,),
+                   "wk": (-1,), "wv": (-1,), "w1": (-1,), "w3": (-1,),
+                   "wo": (-2,), "w2": (-2,)}
+        for (path, d), spec in zip(tree_lib.leaves_with_paths(dims),
+                                   tree_lib.leaves(specs)):
+            if d is not None and d not in allowed.get(path[-1], ()):
+                raise ValueError(
+                    f"model parallelism cannot run {'/'.join(path)} with "
+                    f"spec {spec}")
+        for name, blk in dims.get("blocks", {}).items():
+            if len({d is None for d in blk["mlp"].values()}) > 1:
+                raise ValueError(
+                    f"model parallelism cannot run blocks/{name}/mlp with "
+                    f"some matrices sharded and some not: {blk['mlp']}")
+            if (blk["attn"]["wo"] is None) != (blk["attn"]["wq"] is None):
+                raise ValueError(
+                    f"model parallelism cannot run blocks/{name}/attn with "
+                    f"wq and wo sharded differently: {blk['attn']}")
+        return dims
+
     def _ctx(self, window_override: Optional[int] = None,
              kv_dtype: str = "native", tp_axis=None) -> blocks.BlockCtx:
         return blocks.BlockCtx(cfg=self.cfg, window_override=window_override,
                                kv_dtype=kv_dtype, tp_axis=tp_axis)
 
-    def _embed(self, params: dict, batch: Batch) -> torch.Tensor:
-        h = params["embed"][batch.tokens.long()]
+    def _embed(self, params: dict, batch: Batch, *, group=None,
+               layout: Optional[dict] = None) -> torch.Tensor:
+        h = common.embed_lookup(params["embed"], batch.tokens, group=group,
+                                dim=None if layout is None
+                                else layout["embed"])
         if self.cfg.embed_scale:
             h = h * torch.sqrt(torch.tensor(self.cfg.d_model, dtype=h.dtype,
                                             device=h.device))
         return h
 
     def _run_blocks(self, params: dict, h: torch.Tensor,
-                    ctx: blocks.BlockCtx) -> torch.Tensor:
+                    ctx: blocks.BlockCtx,
+                    layout: Optional[dict] = None) -> torch.Tensor:
         cfg = self.cfg
+
+        def block_ctx(part: str, key: str) -> blocks.BlockCtx:
+            if layout is None:
+                return ctx
+            return dataclasses.replace(ctx, layout=layout[part][key])
+
         if cfg.pattern_repeats > 0:
-            stacked = [params["blocks"][f"p{i}_{k}"]
-                       for i, k in enumerate(cfg.block_pattern)]
+            keys = [f"p{i}_{k}" for i, k in enumerate(cfg.block_pattern)]
+            stacked = [params["blocks"][key] for key in keys]
+            ctxs = [block_ctx("blocks", key) for key in keys]
 
             def body(hh, r):
-                for kind, ps in zip(cfg.block_pattern, stacked):
+                for kind, ps, c in zip(cfg.block_pattern, stacked, ctxs):
                     pslice = _slice_tree(ps, r)
-                    hh = blocks.block_apply(kind, pslice, hh, ctx)
+                    hh = blocks.block_apply(kind, pslice, hh, c)
                 return hh
 
             for r in range(cfg.pattern_repeats):
@@ -112,36 +161,65 @@ class Model:
                 else:
                     h = body(h, r)
         for i, kind in enumerate(cfg.tail_layers):
-            h = blocks.block_apply(kind, params["tail"][f"t{i}_{kind}"], h,
-                                   ctx)
+            key = f"t{i}_{kind}"
+            h = blocks.block_apply(kind, params["tail"][key], h,
+                                   block_ctx("tail", key))
         return h
 
-    def _head(self, params: dict, h: torch.Tensor) -> torch.Tensor:
+    def _head_dim(self, layout: Optional[dict]) -> Optional[int]:
+        """The (d, vocab) head's model-sharded dimension: -1 by vocabulary,
+        -2 by the model dimension (a tied head is the embedding's
+        transpose)."""
+        if layout is None:
+            return None
+        if not self.cfg.tie_embeddings:
+            return layout["head"]
+        return {-2: -1, -1: -2, None: None}[layout["embed"]]
+
+    def _head(self, params: dict, h: torch.Tensor, *, group=None,
+              layout: Optional[dict] = None) -> torch.Tensor:
         cfg = self.cfg
         h = blocks.norm_apply(params["ln_f"], h, cfg)
         w = params["embed"].T if cfg.tie_embeddings else params["head"]
-        logits = h @ w
+        dim = self._head_dim(layout)
+        if dim == -1:               # this rank's vocabulary columns
+            logits = cl.tp_replicate(h, group) @ w
+        elif dim == -2:             # row-parallel over the model dimension
+            logits = cl.tp_psum(cl.tp_split(h, group) @ w, group)
+        else:
+            logits = h @ w
         if cfg.logit_softcap:
             c = cfg.logit_softcap
             logits = torch.tanh(logits / c) * c
         return logits
 
-    def forward(self, params: dict, batch: Batch, *,
-                tp_axis=None) -> torch.Tensor:
+    def forward(self, params: dict, batch: Batch, *, tp_axis=None,
+                layout: Optional[dict] = None) -> torch.Tensor:
         """Full-sequence logits (training / evaluation). `tp_axis` (a
         process group): blocks whose weights are head/feature shards run
-        tensor-parallel over it; replicated blocks ignore it."""
-        ctx = self._ctx(tp_axis=tp_axis)
-        h = self._embed(params, batch)
-        h = self._run_blocks(params, h, ctx)
-        return self._head(params, h)
+        tensor-parallel over it; replicated blocks ignore it.
 
-    def loss(self, params: dict, batch: Batch, *,
-             tp_axis=None) -> torch.Tensor:
-        logits = self.forward(params, batch, tp_axis=tp_axis)
-        return common.softmax_xent(
-            logits[:, :-1], batch.labels[:, 1:],
-            None if batch.mask is None else batch.mask[:, 1:])
+        `layout` (with `tp_axis`: model parallelism over that group):
+        every parameter's model-sharded dimension (`mp_layout`); `params`
+        holds this rank's shards. The embedding, every block and the head
+        place their collectives by it, and the logits come back as this
+        rank's block of vocabulary columns when the head is split by
+        vocabulary (the full logits when it is split by the model
+        dimension or not at all)."""
+        ctx = self._ctx(tp_axis=tp_axis)
+        h = self._embed(params, batch, group=tp_axis, layout=layout)
+        h = self._run_blocks(params, h, ctx, layout)
+        return self._head(params, h, group=tp_axis, layout=layout)
+
+    def loss(self, params: dict, batch: Batch, *, tp_axis=None,
+             layout: Optional[dict] = None) -> torch.Tensor:
+        logits = self.forward(params, batch, tp_axis=tp_axis, layout=layout)
+        labels = batch.labels[:, 1:]
+        mask = None if batch.mask is None else batch.mask[:, 1:]
+        if self._head_dim(layout) == -1:
+            return common.vocab_parallel_xent(logits[:, :-1], labels,
+                                              tp_axis, mask)
+        return common.softmax_xent(logits[:, :-1], labels, mask)
 
     # ---------------- serving ----------------
 

@@ -357,6 +357,10 @@ class BucketTimer:
     kernel work are what is being measured, not the values: standard
     normal f32 drawn from a ``torch.Generator`` seeded by `seed`, and fresh
     zero residuals (``engine.init_residuals``), never the training state's.
+    Under model parallelism a non-fusable bucket's leaves are this rank's
+    shards (``EnginePlan.shapes_for``) and every bucket reduces over the
+    data axes, so the ranks of a model group replay in lockstep with
+    their data-parallel peers.
 
     The replay is a collective: every rank of the plan's groups must build
     the timer and call ``sample`` at the same points, and gets the same
@@ -383,7 +387,7 @@ class BucketTimer:
                     lambda f=flat, r=res, b=bi: engine._reduce_bucket(f, r, b))
             else:
                 vals = [torch.randn(shape, generator=gen, device=self.device)
-                        for shape in bucket.shapes]
+                        for shape in p.shapes_for(bi)]
                 self._cases.append(
                     lambda v=vals, b=bi: engine._reduce_leafwise(v, b))
 

@@ -14,6 +14,15 @@ reference returns new parameter and state trees, `update` writes them in
 place under `torch.no_grad()` (it saves one copy of the model and of the
 moments) and returns the same trees. The arithmetic is the reference's, op
 by op in f32.
+
+LARS and LAMB take per-leaf norms for their trust ratios. Under model
+parallelism a rank holds shards of some leaves, and the reference's
+automatic model axis takes the norms of the whole tensors: `sharded` (a
+bool per leaf, in tree order) and `group` (the model group's process
+group) say which leaves are split and over which ranks, and their sums of
+squares are all-reduced over `group`. Without them every norm is the
+leaf's own, as under a hybrid plan, whose reference takes the norms of
+the local shards.
 """
 
 from __future__ import annotations
@@ -21,6 +30,7 @@ from __future__ import annotations
 from typing import Callable, NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import tree as tree_lib
 
@@ -94,7 +104,8 @@ def _adam_moments(g, m, v, b1, b2):
     return m_new, v_new
 
 
-def _adam_update(lr, b1, b2, eps, weight_decay, trust: bool):
+def _adam_update(lr, b1, b2, eps, weight_decay, trust: bool, sharded=None,
+                 group=None):
     """AdamW's update, and with `trust` LAMB's (the step scaled by the
     layer's trust ratio)."""
     @torch.no_grad()
@@ -103,14 +114,15 @@ def _adam_update(lr, b1, b2, eps, weight_decay, trust: bool):
         lr_t = _lr_at(lr, step).to(dev)
         t = torch.tensor(step + 1, dtype=torch.float32, device=dev)
         c1, c2 = 1 - b1 ** t, 1 - b2 ** t
-        for g, m, v, p in zip(tree_lib.leaves(grads),
-                              tree_lib.leaves(state["m"]),
-                              tree_lib.leaves(state["v"]),
-                              tree_lib.leaves(params)):
+        for g, m, v, p, ng in zip(tree_lib.leaves(grads),
+                                  tree_lib.leaves(state["m"]),
+                                  tree_lib.leaves(state["v"]),
+                                  tree_lib.leaves(params),
+                                  _norm_groups(params, sharded, group)):
             m_new, v_new = _adam_moments(g, m, v, b1, b2)
             upd = (m_new / c1) / (torch.sqrt(v_new / c2) + eps)
             upd = upd + weight_decay * p.to(torch.float32)
-            step_t = lr_t * _trust_ratio(p, upd) * upd if trust \
+            step_t = lr_t * _trust_ratio(p, upd, group=ng) * upd if trust \
                 else lr_t * upd
             p.copy_((p.to(torch.float32) - step_t).to(p.dtype))
             m.copy_(m_new)
@@ -133,28 +145,50 @@ def adamw(lr, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
                      state_bytes_per_param=2 * _itemsize(state_dtype))
 
 
-def _trust_ratio(p, upd, eps: float = 1e-9) -> torch.Tensor:
-    """||p|| / (||upd|| + eps) where both norms are positive, else 1."""
-    wn = torch.linalg.vector_norm(p.to(torch.float32).reshape(-1))
-    un = torch.linalg.vector_norm(upd.reshape(-1))
+def _norm_groups(params, sharded, group) -> list:
+    """Per leaf, the group its norms are summed over (None: its own)."""
+    n = len(tree_lib.leaves(params))
+    if sharded is None:
+        return [None] * n
+    if len(sharded) != n:
+        raise ValueError(f"{len(sharded)} sharded flags for {n} leaves")
+    return [group if s else None for s in sharded]
+
+
+def _trust_ratio(p, upd, eps: float = 1e-9, group=None) -> torch.Tensor:
+    """||p|| / (||upd|| + eps) where both norms are positive, else 1. With
+    `group`, p and upd are shards and the norms are of the whole tensors:
+    the sums of squares all-reduced over the group."""
+    if group is None:
+        wn = torch.linalg.vector_norm(p.to(torch.float32).reshape(-1))
+        un = torch.linalg.vector_norm(upd.reshape(-1))
+    else:
+        sq = torch.stack([torch.sum(torch.square(p.to(torch.float32))),
+                          torch.sum(torch.square(upd))])
+        dist.all_reduce(sq, op=dist.ReduceOp.SUM, group=group)
+        wn, un = torch.sqrt(sq)
     return torch.where((wn > 0) & (un > 0), wn / (un + eps),
                        torch.ones((), dtype=torch.float32, device=wn.device))
 
 
 def lars(lr, momentum: float = 0.9, weight_decay: float = 1e-4,
-         trust_coeff: float = 0.001, state_dtype=torch.float32) -> Optimizer:
-    """Layerwise Adaptive Rate Scaling (You et al.) for large-batch SGD."""
+         trust_coeff: float = 0.001, state_dtype=torch.float32,
+         sharded=None, group=None) -> Optimizer:
+    """Layerwise Adaptive Rate Scaling (You et al.) for large-batch SGD.
+    `sharded`/`group`: whole-tensor norms of split leaves (module
+    docstring)."""
     def init(params):
         return {"mu": _zeros_like_tree(params, state_dtype)}
 
     @torch.no_grad()
     def update(grads, state, params, step):
         lr_t = _lr_at(lr, step).to(_device(params))
-        for g, mu, p in zip(tree_lib.leaves(grads),
-                            tree_lib.leaves(state["mu"]),
-                            tree_lib.leaves(params)):
+        for g, mu, p, ng in zip(tree_lib.leaves(grads),
+                                tree_lib.leaves(state["mu"]),
+                                tree_lib.leaves(params),
+                                _norm_groups(params, sharded, group)):
             g = g.to(torch.float32) + weight_decay * p.to(torch.float32)
-            local = trust_coeff * _trust_ratio(p, g)
+            local = trust_coeff * _trust_ratio(p, g, group=ng)
             mu_new = momentum * mu.to(torch.float32) + local * lr_t * g
             p.copy_((p.to(torch.float32) - mu_new).to(p.dtype))
             mu.copy_(mu_new)
@@ -165,11 +199,14 @@ def lars(lr, momentum: float = 0.9, weight_decay: float = 1e-4,
 
 
 def lamb(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-6,
-         weight_decay: float = 0.01, state_dtype=torch.float32) -> Optimizer:
+         weight_decay: float = 0.01, state_dtype=torch.float32,
+         sharded=None, group=None) -> Optimizer:
     """LAMB (You et al.): layerwise-adaptive AdamW for large-batch
-    training."""
+    training. `sharded`/`group`: whole-tensor norms of split leaves (module
+    docstring)."""
     return Optimizer(_adam_init(state_dtype),
-                     _adam_update(lr, b1, b2, eps, weight_decay, True),
+                     _adam_update(lr, b1, b2, eps, weight_decay, True,
+                                  sharded, group),
                      state_bytes_per_param=2 * _itemsize(state_dtype))
 
 
@@ -178,6 +215,8 @@ def _device(params) -> torch.device:
 
 
 OPTIMIZERS = {"sgd": sgd_momentum, "adamw": adamw, "lars": lars, "lamb": lamb}
+# the optimizers whose update takes per-leaf norms
+LAYERWISE = ("lars", "lamb")
 
 
 def make_optimizer(name: str, lr, *, state_dtype=torch.float32,

@@ -34,6 +34,22 @@ the tp group. LARS and LAMB take per-leaf norms of the local shards there,
 which differ from the dense norms; the reference's do too, and the two
 agree (tests/test_torch_hybrid.py).
 
+Plain model parallelism (`Planner(mesh)` with a model axis of more than one
+rank, gspmd or mlsl): the reference's planner puts the model axis on every
+matrix and its partitioner inserts the collectives; here they are
+explicit. The ranks of one model group see the same rows; parameters and
+optimizer state are each rank's shards (`convert.shard_params` of the full
+tree), laid out by `Model.mp_layout`; the embedding, the blocks (whole
+heads per rank, or the gathered-head attention when a shard splits a
+head), the head and the vocab-parallel cross-entropy exchange activations
+over the model group. gspmd all-reduces each leaf's local shard over the
+data axes; mlsl keeps the reference's bucket plan on the global shapes
+(only the replicated leaves fuse) and reduces each rank's shards over the
+data axes. The clip adds the sharded leaves' sum of squares over the
+model group, and LARS and LAMB take norms of the whole tensors
+(`optimizers` with `sharded`/`group`, which `launch.train.train` passes),
+as the reference's automatic model axis does.
+
 FSDP is not ported; asking for it raises.
 """
 
@@ -90,12 +106,32 @@ def param_specs(model: Model, planner: Planner):
                               stacked_paths=Model.stacked_path)
 
 
+def model_parallel(planner: Planner) -> bool:
+    """Does `planner` split parameters over a model axis of more than one
+    rank outside a hybrid plan (the reference's `Planner(mesh)` with its
+    model axis on every matrix)?"""
+    return planner.hybrid is None and planner.model_size > 1
+
+
+def _local_struct(grad_struct, specs, axis: str, size: int):
+    """`grad_struct` with each leaf split `size` ways along its `axis`
+    dimension: what one rank holds."""
+    def one(_, leaf, spec):
+        shape = [n // size if ax == axis else n
+                 for n, ax in zip(leaf.shape, spec)]
+        return torch.empty(shape, dtype=leaf.dtype, device="meta")
+    return tree_lib.map_with_path(one, grad_struct, specs)
+
+
 def make_comm_engine(model: Model, mesh, planner: Planner,
                      comm: CommConfig, *, device=None) -> CommEngine:
     """The model's CommEngine: bucket plan from its parameter structure and
     sharding groups. Only buckets of fully replicated leaves may fuse,
     except under a hybrid plan, where the engine plans on each rank's local
-    shards and every bucket fuses."""
+    shards and every bucket fuses. Under model parallelism
+    (`model_parallel(planner)`) the plan is the reference's, on the global
+    shapes, and each rank reduces its local shards of the leafwise buckets
+    over the data axes."""
     specs = param_specs(model, planner)
     spec_by_path = dict(tree_lib.leaves_with_paths(specs))
 
@@ -108,25 +144,32 @@ def make_comm_engine(model: Model, mesh, planner: Planner,
     grad_struct = _grad_struct(model)
     hybrid = planner.hybrid
     if hybrid is None:
+        local = None
+        if model_parallel(planner):
+            local = _local_struct(grad_struct, specs, planner.model_axis,
+                                  planner.model_size)
         return CommEngine.create(grad_struct, comm, mesh, planner.batch_axes,
                                  device=device,
                                  layer_index=scheduler.default_layer_index,
                                  group_key=group_key,
-                                 leaf_replicated=leaf_replicated)
+                                 leaf_replicated=leaf_replicated,
+                                 local_struct=local)
 
     # model-sharded leaves shrink to their local 1/tp shard
-    def shard_struct(path, leaf):
-        shape = [n // hybrid.tp if ax == hybrid.tp_axis else n
-                 for n, ax in zip(leaf.shape, spec_by_path.get(path, ()))]
-        return torch.empty(shape, dtype=leaf.dtype, device="meta")
-
-    return CommEngine.create(tree_lib.map_with_path(shard_struct, grad_struct),
+    return CommEngine.create(_local_struct(grad_struct, specs, hybrid.tp_axis,
+                                           hybrid.tp),
                              comm, mesh, hybrid.data_axes, device=device,
                              layer_index=scheduler.default_layer_index,
                              group_key=group_key,
                              leaf_replicated=leaf_replicated,
                              tp_axis=hybrid.tp_axis,
                              leaf_sharded=lambda p: not leaf_replicated(p))
+
+
+def sharded_flags(model: Model, planner: Planner, axis: str) -> list:
+    """Per parameter leaf, in tree order: is it split over `axis`?"""
+    return [axis in spec for spec in tree_lib.leaves(param_specs(model,
+                                                                 planner))]
 
 
 def _data_rank(mesh, data_axes) -> int:
@@ -141,12 +184,16 @@ def _data_rank(mesh, data_axes) -> int:
 
 def make_train_step(model: Model, optimizer: opt_lib.Optimizer, mesh,
                     planner: Planner, comm: CommConfig, *,
-                    grad_clip: float = 1.0, device=None):
+                    grad_clip: float = 1.0, device=None,
+                    force_model_parallel: bool = False):
     """Returns train_step(state, batch) -> (state, metrics).
 
     `batch` is the global batch; each rank trains on its slice over the
     data axes. `device` (default: the mesh's) is where the state lives.
-    Under a hybrid planner the state holds this rank's local shards."""
+    Under a hybrid planner or model parallelism the state holds this
+    rank's local shards. `force_model_parallel` runs the model-parallel
+    step over the planner's model axis even when it has one rank (its
+    collectives then run over a group of one)."""
     if comm.mode not in ("gspmd", "mlsl"):
         raise ValueError(f"unknown comm mode {comm.mode!r}")
     hybrid = planner.hybrid
@@ -159,6 +206,10 @@ def make_train_step(model: Model, optimizer: opt_lib.Optimizer, mesh,
         raise ValueError("CommConfig(overlap=True) needs the explicit mlsl "
                          "data path; gspmd reduces each leaf after the "
                          "backward and cannot be pipelined")
+    mp = force_model_parallel or model_parallel(planner)
+    if mp and hybrid is not None:
+        raise ValueError("a hybrid plan has its own model-parallel layers; "
+                         "force_model_parallel does not apply")
     if device is None:
         device = torch.device(mesh.device_type)
     data_axes = planner.batch_axes
@@ -177,13 +228,22 @@ def make_train_step(model: Model, optimizer: opt_lib.Optimizer, mesh,
     # see full-size (replicated) weights and ignore it
     tp = None if engine is None else engine.tp
     tp_group = None if tp is None else tp.group
+    # model parallelism: every block, the embedding and the head place
+    # their collectives over the model group by the planner's layout
+    layout = shard_axis = None
+    if hybrid is not None:
+        shard_axis = hybrid.tp_axis
+    elif mp:
+        shard_axis = planner.model_axis
+        tp_group = mesh.get_group(shard_axis)
+        layout = model.mp_layout(planner)
 
     def value_and_grad(params, batch: Batch):
         leaves = tree_lib.leaves(params)
         with torch.enable_grad():
             for p in leaves:
                 p.requires_grad_(True)
-            loss = model.loss(params, batch, tp_axis=tp_group)
+            loss = model.loss(params, batch, tp_axis=tp_group, layout=layout)
             grads = torch.autograd.grad(loss, leaves)
             for p in leaves:
                 p.requires_grad_(False)
@@ -208,12 +268,10 @@ def make_train_step(model: Model, optimizer: opt_lib.Optimizer, mesh,
         return lsum / n, tree_lib.tree_map(
             lambda g, p: (g / n).to(p.dtype), gsum, params)
 
-    if hybrid is None:
+    if shard_axis is None:
         clip_grads = opt_lib.clip_by_global_norm
     else:
-        sharded_flags = [any(ax == hybrid.tp_axis for ax in spec)
-                         for spec in tree_lib.leaves(param_specs(model,
-                                                                 planner))]
+        flags = sharded_flags(model, planner, shard_axis)
 
         def clip_grads(grads, max_norm):
             """clip_by_global_norm with the model-sharded leaves' sum of
@@ -223,10 +281,10 @@ def make_train_step(model: Model, optimizer: opt_lib.Optimizer, mesh,
             parameters keep taking identical updates."""
             z = torch.zeros((), dtype=torch.float32, device=device)
             sq = [(torch.sum(g.to(torch.float32) ** 2), sh) for g, sh
-                  in zip(tree_lib.leaves(grads), sharded_flags)]
+                  in zip(tree_lib.leaves(grads), flags)]
             sq_sh = sum((v for v, sh in sq if sh), z)
             sq_rep = sum((v for v, sh in sq if not sh), z)
-            gn = torch.sqrt(sq_rep + cl.allreduce(sq_sh, [tp.group]))
+            gn = torch.sqrt(sq_rep + cl.allreduce(sq_sh, [tp_group]))
             return opt_lib.clip_by_global_norm(grads, max_norm,
                                                global_norm=gn)
 

@@ -261,16 +261,22 @@ def test_cli_defaults_to_cuda_and_raises_without_it():
                                    ["--model-parallel", "2"],
                                    ["--model-parallel", "2", "--stats"]])
 def test_cli_unported_flags_raise(flags):
-    """Only --model-parallel > 1 without --hybrid is left unported; the
-    observability flags run (test_cli_observability_on_one_rank)."""
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    """No flag of the reference's CLI is left unported: --model-parallel 2
+    without --hybrid builds the reference's mesh (with --hier the 3-axis
+    one of 2 x 4 x 2 ranks), whose size must match the world, here one
+    process, so it raises naming both sizes (tests/test_torch_mp.py runs
+    it on 8 ranks)."""
+    with pytest.raises(RuntimeError, match="the mesh needs (16|2) ranks but "
+                                           "the world has 1"):
         ttrain.main(flags + ["--device", "cpu", "--steps", "1"])
 
 
 def test_cli_model_parallel_without_hybrid_names_the_cause():
-    with pytest.raises(NotImplementedError,
-                       match="needs a vocab-parallel embedding, head and "
-                             "cross-entropy"):
+    """A model axis larger than the world is not shrunk to fit: the error
+    says how to start enough ranks."""
+    with pytest.raises(RuntimeError,
+                       match="the mesh needs 2 ranks but the world has 1; "
+                             "start one process per rank"):
         ttrain.main(["--model-parallel", "2", "--device", "cpu"])
 
 

@@ -1,0 +1,293 @@
+"""Rank body for tests/test_torch_mp.py: one gloo rank of the port's plain
+model parallelism (`Planner(mesh)` with a model axis of more than one rank)
+on meshes of 8 ranks. Imports torch and repro_torch only, so the spawned
+ranks never import JAX.
+
+    python torch_mp_ranks.py RANK WORLD STORE_DIR INPUTS_DIR OUT_DIR
+
+INPUTS_DIR holds ops.npz (the operators' inputs) and one checkpoint of
+{"params": ...} per config of CONFIGS. Writes OUT_DIR/ops/m<M>/rank<RANK>.npz
+(each operator's output and gradients at model size M), OUT_DIR/engine/
+rank<RANK>.json (the leafwise-bucket and replay checks) and, per case of
+CASES, OUT_DIR/<case>/rank<RANK>.json (losses, gradient norms, local
+shapes, whether the final checkpoint restores this rank's shards bit for
+bit) and, from rank 0, the final parameters gathered over the model group
+as a checkpoint in OUT_DIR/<case>/ckpt.
+"""
+
+import dataclasses
+import json
+import os
+import sys
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch import convert, tree as tree_lib
+from repro_torch.checkpoint import ckpt
+from repro_torch.configs import registry
+from repro_torch.configs.base import AttnConfig
+from repro_torch.core import collectives as cl
+from repro_torch.core import planner as pl
+from repro_torch.data import pipeline
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.models import attention, common
+from repro_torch.models.transformer import Batch, Model
+from repro_torch.optim import optimizers as opt_lib
+from repro_torch.train import trainer as tr
+
+STEPS, SEQ, BATCH, DATA_SEED, LR = 3, 16, 8, 3, 0.1
+# the operators' attention: 4 query heads on 2 KV heads of 8, half of each
+# head rotated (as chatglm3-6b); a KV shard at model size 4 is half a head
+OPS_ATTN = AttnConfig(n_heads=4, n_kv=2, head_dim=8, rotary_frac=0.5)
+OPS_SIZES = (2, 4)
+
+
+def smoke_config():
+    return registry.get_smoke_config("yi-6b")
+
+
+def odd_vocab_config():
+    """A vocabulary of 510 does not split over 4 ranks: the embedding is
+    split by the model dimension and the head is row-parallel."""
+    return dataclasses.replace(smoke_config(), vocab=510)
+
+
+def chatglm3_config():
+    """2 KV heads of 32 over 4 ranks: every KV shard is half a head."""
+    return registry.get_smoke_config("chatglm3-6b")
+
+
+CONFIGS = {"smoke": smoke_config, "odd_vocab": odd_vocab_config,
+           "chatglm3": chatglm3_config}
+# mesh name -> ("host", data, model) | ("hier", node, local, model)
+MESHES = {"4x2": ("host", 4, 2), "2x4": ("host", 2, 4), "1x8": ("host", 1, 8),
+          "2x2x2": ("hier", 2, 2, 2)}
+# case -> (config, mesh, CommConfig kwargs, optimizer); SGD at LR, the
+# setting of tests/test_torch_hybrid.py (AdamW's normalized step would blow
+# rounding in near-zero gradients up to its step size)
+CASES = {
+    **{f"{mode}_{m}": ("smoke", m, dict(mode=mode), "sgd")
+       for m in ("4x2", "2x4", "1x8") for mode in ("mlsl", "gspmd")},
+    "mlsl_hier_2x2x2": ("smoke", "2x2x2", dict(mode="mlsl", hier=True),
+                        "sgd"),
+    "gspmd_hier_2x2x2_lamb": ("smoke", "2x2x2", dict(mode="gspmd"), "lamb"),
+    "lars_2x4": ("smoke", "2x4", dict(mode="mlsl"), "lars"),
+    "lamb_2x4": ("smoke", "2x4", dict(mode="mlsl"), "lamb"),
+    "odd_vocab_2x4": ("odd_vocab", "2x4", dict(mode="mlsl"), "sgd"),
+    "chatglm3_2x4": ("chatglm3", "2x4", dict(mode="mlsl"), "sgd"),
+    "accum2_overlap_4x2": ("smoke", "4x2",
+                           dict(mode="mlsl", accum_steps=2, overlap=True),
+                           "sgd"),
+    # from the checkpoint that mlsl_2x4 saves, on the other mesh
+    "resume_4x2": ("smoke", "4x2", dict(mode="mlsl"), "sgd"),
+    # the lossy wires, which the reference cannot run under a model axis
+    "int8_ef_4x2": ("smoke", "4x2",
+                    dict(mode="mlsl", wire="int8", error_feedback=True),
+                    "sgd"),
+    "bf16_4x2": ("smoke", "4x2", dict(mode="mlsl", wire="bf16"), "sgd"),
+}
+RESUME_FROM = {"resume_4x2": "mlsl_2x4"}
+
+
+def make_mesh(name: str):
+    kind, *sizes = MESHES[name]
+    if kind == "hier":
+        return mesh_lib.make_hier_mesh(*sizes, device="cpu")
+    return mesh_lib.make_host_mesh(*sizes, device="cpu")
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().numpy()
+
+
+def _cols(x, r, m):
+    n = x.shape[-1] // m
+    return x[..., r * n:(r + 1) * n]
+
+
+def _rows(x, r, m):
+    n = x.shape[0] // m
+    return x[r * n:(r + 1) * n]
+
+
+def _grad(fn, args, weight=None):
+    """(fn(*args), the gradients of sum(fn(*args) * weight), or of the
+    scalar fn(*args) without a weight, with respect to every argument)."""
+    args = [a.clone().requires_grad_(True) for a in args]
+    out = fn(*args)
+    loss = out if weight is None else torch.sum(out * weight)
+    return out, torch.autograd.grad(loss, args)
+
+
+def ops(mesh, data: dict, out_dir: str, m: int):
+    """Each new operator at model size m, forward and backward, on this
+    rank's shards; the test holds them to their dense forms."""
+    group = mesh.get_group("model")
+    r = mesh.get_local_rank("model")
+    T = {k: torch.from_numpy(v) for k, v in data.items()}
+    out = {}
+    y, (g,) = _grad(lambda x: cl.tp_all_gather(x, group),
+                    [_cols(T["x"], r, m)], T["w_gather"])
+    out.update(gather_y=y, gather_g=g)
+    y, (g,) = _grad(lambda x: cl.tp_split(x, group), [T["x"]],
+                    _cols(T["w_gather"], r, m))
+    out.update(split_y=y, split_g=g)
+    mx = cl.tp_max((T["x"] * (1.0 + r)).requires_grad_(True), group)
+    out.update(max_y=mx, max_requires_grad=np.array(mx.requires_grad))
+    ids = T["ids"]
+    for name, dim, shard in (("embed_vocab", -2, _rows(T["table"], r, m)),
+                             ("embed_dim", -1, _cols(T["table"], r, m))):
+        y, (g,) = _grad(lambda t, d=dim: common.embed_lookup(
+            t, ids, group=group, dim=d), [shard], T["w_embed"])
+        out.update({f"{name}_y": y, f"{name}_g": g})
+    for name, mask in (("xent", None), ("xent_mask", T["mask"])):
+        y, (g,) = _grad(lambda z, k=mask: common.vocab_parallel_xent(
+            z, T["labels"], group, k), [_cols(T["logits"], r, m)])
+        out.update({f"{name}_y": y, f"{name}_g": g})
+    layout = attention.HEAD_SHARDED
+    shards = [T["xa"], _cols(T["wq"], r, m), _cols(T["wk"], r, m),
+              _cols(T["wv"], r, m), _rows(T["wo"], r, m)]
+
+    def apply(x, wq, wk, wv, wo):
+        return attention.gqa_apply({"wq": wq, "wk": wk, "wv": wv, "wo": wo},
+                                   x, OPS_ATTN, tp_axis=group, layout=layout)
+
+    def gathered(x, wq, wk, wv, wo):
+        return attention.gqa_gathered(
+            {"wq": wq, "wk": wk, "wv": wv, "wo": wo}, x, OPS_ATTN, group,
+            layout)
+
+    for name, fn in (("attn_apply", apply), ("attn_gathered", gathered)):
+        y, grads = _grad(fn, shards, T["w_attn"])
+        out[f"{name}_y"] = y
+        for k, g in zip(("x", "wq", "wk", "wv", "wo"), grads):
+            out[f"{name}_g{k}"] = g
+    out["aligned"] = np.array(attention.head_aligned(layout, OPS_ATTN, m))
+    path = os.path.join(out_dir, "ops", f"m{m}")
+    os.makedirs(path, exist_ok=True)
+    np.savez(os.path.join(path, f"rank{dist.get_rank()}.npz"),
+             **{k: _np(v) if isinstance(v, torch.Tensor) else v
+                for k, v in out.items()})
+
+
+def engine_checks(out_dir: str, rank: int):
+    """At (4, 2), int8 wire with error feedback: each leafwise bucket's
+    output is collectives.allreduce of the leaf's local shard over the data
+    group (bf16 wire, mean), bit for bit; the fused norm buckets reduce over
+    the data group; the bucket replay runs on the local shapes. And each
+    rank's coordinates on make_hier_mesh(2, 2, 2)."""
+    mesh = make_mesh("4x2")
+    model = Model(smoke_config())
+    planner = pl.Planner(mesh=mesh)
+    comm = tr.CommConfig(mode="mlsl", wire="int8", error_feedback=True)
+    engine = tr.make_comm_engine(model, mesh, planner, comm, device="cpu")
+    p = engine.plan
+    gen = torch.Generator().manual_seed(100 + rank)
+    local = tree_lib.leaves(convert.shard_params(
+        tree_lib.tree_map(lambda pd: torch.zeros(pd.shape),
+                          model.param_defs()),
+        tr.param_specs(model, planner), mesh))
+    grads = tree_lib.unflatten(list(p.buckets.paths),
+                               [torch.randn(t.shape, generator=gen)
+                                for t in local])
+    out, _ = engine.reduce(grads, engine.init_residuals("cpu"))
+    leaves, reduced = tree_lib.leaves(grads), tree_lib.leaves(out)
+    data = [mesh.get_group("data")]
+    rec = {"leafwise_equal": [], "fused_equal": [],
+           "fusable": list(p.fusable)}
+    for bi, b in enumerate(p.buckets.buckets):
+        if p.fusable[bi]:
+            flat = cl.allreduce_ef(
+                torch.cat([leaves[i].reshape(-1) for i in b.leaf_ids]),
+                engine.init_residuals("cpu")[bi], data, mean=True)[0]
+            rec["fused_equal"].append(torch.equal(
+                torch.cat([reduced[i].reshape(-1) for i in b.leaf_ids]),
+                flat))
+            continue
+        rec["leafwise_equal"].append(all(
+            torch.equal(reduced[i], cl.allreduce(leaves[i], data,
+                                                 wire="bf16", mean=True))
+            for i in b.leaf_ids))
+    rec["replay"] = list(engine.bucket_timer(mesh).sample())
+    hier = make_mesh("2x2x2")
+    coords = [None] * dist.get_world_size()
+    dist.all_gather_object(coords, [hier.get_local_rank(a)
+                                    for a in ("node", "local", "model")])
+    rec["hier_coords"] = coords
+    rec["local_shapes"] = [[list(s) for s in p.shapes_for(bi)]
+                           for bi in range(p.n_buckets)]
+    os.makedirs(os.path.join(out_dir, "engine"), exist_ok=True)
+    with open(os.path.join(out_dir, "engine", f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def run_case(name, inputs_dir, out_dir, rank):
+    cfg_name, mesh_name, kw, optimizer = CASES[name]
+    cfg = CONFIGS[cfg_name]()
+    mesh = make_mesh(mesh_name)
+    model = Model(cfg)
+    planner = pl.Planner(mesh=mesh)
+    specs = {"params": tr.param_specs(model, planner)}
+    like = {"params": tree_lib.tree_map(
+        lambda pd: torch.empty(pd.shape, dtype=pd.dtype, device="meta"),
+        model.param_defs())}
+    src = (os.path.join(out_dir, RESUME_FROM[name], "ckpt")
+           if name in RESUME_FROM else os.path.join(inputs_dir, cfg_name))
+    params = ckpt.restore(src, like, device="cpu", specs=specs,
+                          mesh=mesh)["params"]
+    opt_kw = {}
+    if optimizer in opt_lib.LAYERWISE:
+        opt_kw = dict(sharded=tr.sharded_flags(model, planner, "model"),
+                      group=mesh.get_group("model"))
+    opt = opt_lib.make_optimizer(optimizer, LR, **opt_kw)
+    state = tr.train_state_from_params(params, opt)
+    step = tr.make_train_step(model, opt, mesh, planner,
+                              tr.CommConfig(**kw))
+    rec = {"loss": [], "grad_norm": []}
+    dcfg = pipeline.DataConfig(vocab=cfg.vocab, seq_len=SEQ,
+                               global_batch=BATCH, seed=DATA_SEED)
+    for raw in pipeline.iterate(dcfg, STEPS):
+        state, m = step(state, Batch(tokens=torch.from_numpy(raw["tokens"]),
+                                     labels=torch.from_numpy(raw["labels"])))
+        rec["loss"].append(float(m["loss"]))
+        rec["grad_norm"].append(float(m["grad_norm"]))
+    full = convert.gather_params(state.params, specs["params"], mesh)
+    case_dir = os.path.join(out_dir, name)
+    if rank == 0:
+        os.makedirs(case_dir, exist_ok=True)
+        ckpt.save(os.path.join(case_dir, "ckpt"), {"params": full},
+                  step=STEPS)
+    dist.barrier()
+    back = ckpt.restore(os.path.join(case_dir, "ckpt"), like, device="cpu",
+                        specs=specs, mesh=mesh)["params"]
+    rec["restores_bitwise"] = all(
+        a.dtype == b.dtype and torch.equal(a, b) for a, b in
+        zip(tree_lib.leaves(state.params), tree_lib.leaves(back)))
+    rec["local_shapes"] = [list(t.shape)
+                           for t in tree_lib.leaves(state.params)]
+    with open(os.path.join(case_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def run(rank: int, world: int, store_dir: str, inputs_dir: str,
+        out_dir: str):
+    torch.set_num_threads(1)
+    mesh_lib.init_process_group("cpu", rank=rank, world_size=world,
+                                store_dir=store_dir)
+    try:
+        data = dict(np.load(os.path.join(inputs_dir, "ops.npz")))
+        for m in OPS_SIZES:
+            ops(mesh_lib.make_host_mesh(world // m, m, device="cpu"), data,
+                out_dir, m)
+        engine_checks(out_dir, rank)
+        for name in CASES:
+            run_case(name, inputs_dir, out_dir, rank)
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    r, w, store, inp, out_dir = sys.argv[1:]
+    run(int(r), int(w), store, inp, out_dir)
