@@ -23,22 +23,35 @@ Phases, each fatal on failure:
                  (1, 8192, 32 on 4, 128) bf16 causal window 4096 (compared
                  on the first 4 heads: the plain version's scores for 32
                  heads would take 8.6 GB), and a ragged f32 case (2, 1000,
-                 3 on 1, 32) causal window 100; both wrappers, the model's
-                 (B, S, H, D) layout with KV heads read through strides and
-                 the reference's (B, H, S, D) with heads repeated; scores of
+                 3 on 1, 32) causal window 100, and the attention family's
+                 prefill: whisper-small's encoder W-enc (16, 1500, 12 on
+                 12, 64) bf16 non-causal, its decoder's self-attention
+                 W-dec (16, 32, 12 on 12, 64) causal on serve cell W-A's
+                 32-token prompt and its cross-attention W-cross (those 32
+                 queries on 1500 keys) non-causal on the mma.sync kernel
+                 (`mma_bf16`),
+                 llava's V-A (8, 2048, 32 on 8, 128) bf16 causal window
+                 4096; both wrappers, the model's (B, S, H, D) layout with
+                 KV heads read through strides and the reference's (B, H,
+                 S, D) with heads repeated; scores of
                  standard deviation 1. Tolerance (FLASH_TOL), per element,
                  rtol |plain| + atol x the RMS of the plain output's row:
                  bf16 1.6e-2 and 2e-2, f32 2e-5 and 2e-5; a control with 64
-                 keys' scores zeroed must fail it; the per-kernel counts
-                 must show S-A and S-B on the Hopper kernel (`wgmma_bf16`)
-                 and the ragged case on the FMA kernel. Times kernel, plain
-                 version and the one PyTorch call that computes the same
-                 function (`torch.mul`, `torch.addcmul` for the dequantize
-                 kernels, `scaled_dot_product_attention` for flash, at S-B
-                 with a boolean causal-and-window mask; no single call
-                 quantizes) with CUDA events, and prints each flash time's
+                 keys' scores zeroed (W-dec: its last 16) must fail it; the
+                 per-kernel counts must show S-A, S-B and V-A on the Hopper
+                 kernel (`wgmma_bf16`), W-enc, W-dec and W-cross on
+                 `mma_bf16` and the
+                 ragged case on the FMA kernel. Times kernel, plain version
+                 and the one PyTorch call that computes the same function
+                 (`torch.mul`, `torch.addcmul` for the dequantize kernels,
+                 `scaled_dot_product_attention` for flash, at S-B with a
+                 boolean causal-and-window mask, non-causal at W-enc and
+                 W-cross; no single call quantizes) with CUDA events, and
+                 prints each flash time's
                  share of its bound and its ratio to the library call;
-  4. model    -- the smoke model on the card against the CPU, same weights:
+  4. model    -- the smoke models of yi-6b, llava-next-mistral-7b,
+                 whisper-small and minicpm3-4b (standard-normal patch and
+                 frame embeddings) on the card against the CPU, same weights:
                  loss and gradients (loss rtol 1e-5, gradients 1e-4 of their
                  norm), prefill logits and one decode step (atol 1e-4, f32);
                  and the tensor-parallel f/g Functions (tp_replicate with
@@ -125,7 +138,28 @@ Phases, each fatal on failure:
                  (files validate; launches are the steps' plus one quantize
                  and one dequantize per fusable bucket per replay) and the
                  serve CLI with `--stats --trace`;
- 14. report   -- the serve cells' numbers, one JSON line with every kernel,
+ 14. family serve -- the attention family at full width and depth, random
+                 weights from a seed, through `Engine.generate`, greedy, 64
+                 new tokens: V-A llava-next-mistral-7b, batch 8 x (576
+                 standard-normal patch embeddings + 1472 tokens); W-A
+                 whisper-small, batch 16 x 1500 standard-normal frame
+                 embeddings, decoder prompt 32; M-A minicpm3-4b, batch 8 x
+                 2048. Each checks its flash launches per prefill (32 on
+                 `wgmma_bf16` / 36 on `mma_bf16` / 0), finite logits and
+                 tokens in the vocabulary, and prints prefill, first-token
+                 and decode times and peak memory; then one prefill and 3
+                 decode steps under torch.profiler: kernels, their summed
+                 time against the wall time, the top kernels by time;
+ 15. train H  -- cell A's configuration on llava-next-mistral-7b at full
+                 width cut to 4 layers, 576 zero patch embeddings + 1472
+                 tokens per row (the CLI's stub); its plan fuses the norms,
+                 `ln_f` and `img_proj`; finite losses and the quant8
+                 launches of its 3 fused buckets;
+ 16. family cli -- the train CLI (mlsl int8 + EF) and the serve CLI on the
+                 three smoke configs; the whisper serve CLI (no frame
+                 embeddings, as the reference's) must stop with the
+                 ValueError naming them;
+ 17. report   -- the serve cells' numbers, one JSON line with every kernel,
                  then the device line.
 
 Exits non-zero without the result line when CUDA is absent or any phase
@@ -161,12 +195,30 @@ KERNELS = {   # wrapper -> the TPU kernel it replaces (file:line)
 }
 QUANT8 = tuple(KERNELS)[:4]
 N_LAYERS = 32                   # yi-6b, served at full depth
-# flash_attention shapes (B, S, H, KV, D, dtype, window, heads compared):
-# the prefill of serve cells S-A and S-B (yi-6b's 32 query heads on 4 KV
-# heads), and a ragged f32 case at D 32 with 3 query heads on one KV head
-FLASH_SHAPES = {"S-A": (8, 2048, 32, 4, 128, "bfloat16", None, 32),
-                "S-B": (1, 8192, 32, 4, 128, "bfloat16", 4096, 4),
-                "ragged": (2, 1000, 3, 1, 32, "float32", 100, 3)}
+# flash_attention shapes (B, Sq, Sk, H, KV, D, dtype, window, causal,
+# heads compared, the kernel it must run on): the prefill of serve cells
+# S-A and S-B (yi-6b's 32 query heads on 4 KV heads), a ragged f32 case at
+# D 32 with 3 query heads on one KV head, and the attention family's
+# prefill: whisper-small's encoder (W-enc, 1500 frames, non-causal), its
+# decoder's causal self-attention on serve cell W-A's 32-token prompt
+# (W-dec: half of one 64-row query tile) and its cross-attention (W-cross,
+# those 32 queries on the 1500 encoder keys), all at D 64 on the mma.sync
+# kernel, and llava-next-mistral-7b's (V-A,
+# 32 query heads on 8 KV heads, window 4096)
+FLASH_SHAPES = {
+    "S-A": (8, 2048, 2048, 32, 4, 128, "bfloat16", None, True, 32,
+            "wgmma_bf16"),
+    "S-B": (1, 8192, 8192, 32, 4, 128, "bfloat16", 4096, True, 4,
+            "wgmma_bf16"),
+    "ragged": (2, 1000, 1000, 3, 1, 32, "float32", 100, True, 3, "fma_f32"),
+    "W-enc": (16, 1500, 1500, 12, 12, 64, "bfloat16", None, False, 12,
+              "mma_bf16"),
+    "W-dec": (16, 32, 32, 12, 12, 64, "bfloat16", None, True, 12,
+              "mma_bf16"),
+    "W-cross": (16, 32, 1500, 12, 12, 64, "bfloat16", None, False, 12,
+                "mma_bf16"),
+    "V-A": (8, 2048, 2048, 32, 8, 128, "bfloat16", 4096, True, 32,
+            "wgmma_bf16")}
 # flash_attention tolerance (rtol, atol as a share of the RMS of the plain
 # output's row): |out - plain| <= rtol |plain| + atol rms(row). bf16: both
 # sides round the output to bf16 (rtol, two bf16 ulps), and the kernel
@@ -419,37 +471,39 @@ def _window_mask(torch, s, window, dev):
 
 
 def flash_phase(torch):
-    """Both wrappers against the plain version at the three shapes: the
-    main path's `gqa_flash_attention` on (B, S, H, D) q and (B, S, KV, D)
-    k/v, and the reference's layout `flash_attention` on the transposed
-    copies with the KV heads repeated. q, k and v are standard normal, so
-    the scores q.k/sqrt(D) have a standard deviation of 1. A control (the
-    plain version with the scores of 64 keys set to 0) must fall outside
-    the tolerance. The per-kernel counts must show S-A and S-B on the
-    Hopper kernel (`wgmma_bf16`) and the ragged f32 case on the FMA kernel.
-    Times at every shape, with the bound's share and the ratio to
-    `scaled_dot_product_attention` (S-A: is_causal; S-B: a boolean causal-
-    and-window mask); S-A's go into the report."""
+    """Both wrappers against the plain version at every shape of
+    FLASH_SHAPES: the main path's `gqa_flash_attention` on (B, Sq, H, D) q
+    and (B, Sk, KV, D) k/v, and the reference's layout `flash_attention` on
+    the transposed copies with the KV heads repeated. q, k and v are
+    standard normal, so the scores q.k/sqrt(D) have a standard deviation of
+    1. A control (the plain version with the scores of 64 keys, or of
+    keys S/2.. where S < 128, set to 0)
+    must fall outside the tolerance. The per-kernel counts must show each
+    shape on its kernel (FLASH_SHAPES' last entry). Times at every shape,
+    with the bound's share and the ratio to `scaled_dot_product_attention`
+    (causal without a window or with one no row reaches: is_causal;
+    non-causal: no mask; S-B: a boolean causal-and-window mask); S-A's go
+    into the report."""
     phase("kernels: flash_attention")
     from repro_torch.kernels import flashattn, ref
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     res = {"max_abs_err": 0.0}
-    for label, (B, S, H, KV, D, dname, window, heads) in FLASH_SHAPES.items():
+    for label, (B, Sq, S, H, KV, D, dname, window, causal, heads,
+                variant) in FLASH_SHAPES.items():
         dtype, tol = getattr(torch, dname), FLASH_TOL[dname]
-        q = torch.randn((B, S, H, D), generator=gen, device=dev).to(dtype)
+        q = torch.randn((B, Sq, H, D), generator=gen, device=dev).to(dtype)
         k, v = (torch.randn((B, S, KV, D), generator=gen, device=dev)
                 .to(dtype) for _ in range(2))
         qt = q.transpose(1, 2).contiguous()
         kt, vt = (t.repeat_interleave(H // KV, dim=2).transpose(1, 2)
                   .contiguous() for t in (k, v))
-        kw = dict(causal=True, window=window)
+        kw = dict(causal=causal, window=window)
         flashattn.reset_launches()
         outs = {"gqa_flash_attention":
                 flashattn.gqa_flash_attention(q, k, v, **kw).transpose(1, 2),
                 "flash_attention": flashattn.flash_attention(qt, kt, vt, **kw)}
         torch.cuda.synchronize()
-        variant = "fma_f32" if label == "ragged" else "wgmma_bf16"
         variants = dict(flashattn.VARIANT_LAUNCHES)
         log(f"  {label}: launches per kernel {variants}")
         check(variants == {**dict.fromkeys(flashattn.VARIANTS, 0), variant: 2},
@@ -459,8 +513,9 @@ def flash_phase(torch):
         for name, out in outs.items():
             excess = flash_excess(torch, out[:, :heads], plain, tol)
             err = _max_err(torch, out[:, :heads], plain)
-            log(f"  {name:19s} {label:6s} B={B} S={S} H={H} KV={KV} D={D} "
-                f"{dname} window={window}: max abs err {err:.3e}, "
+            log(f"  {name:19s} {label:7s} B={B} Sq={Sq} Sk={S} H={H} KV={KV} "
+                f"D={D} {dname} causal={causal} window={window}: max abs err "
+                f"{err:.3e}, "
                 f"{excess:.3f} of the tolerance {tol} on {heads} heads")
             check(excess <= 1, f"{name} {label}: differs from the plain "
                                f"version ({excess:.3f} of the tolerance)")
@@ -470,15 +525,16 @@ def flash_phase(torch):
         k_ctrl[:, :, lo:lo + 64] = 0
         ctrl = flash_excess(torch, ref.flash_attention(sub[0], k_ctrl, sub[2],
                                                        **kw), plain, tol)
-        log(f"  control {label:6s} (keys {lo}..{lo + 63} scored 0): "
+        log(f"  control {label:7s} (keys {lo}..{min(lo + 64, S) - 1} "
+            f"scored 0): "
             f"{ctrl:.3f} of the tolerance")
         check(ctrl > 1, f"flash {label}: the check passes a wrong result")
         del outs, k_ctrl
         library = None
-        if label == "S-A":
+        if label != "ragged" and (window is None or window >= S):
             def library():
                 return torch.nn.functional.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True)
+                    qt, kt, vt, is_causal=causal)
         elif label == "S-B":
             mask = _window_mask(torch, S, window, dev)
 
@@ -489,17 +545,17 @@ def flash_phase(torch):
             # the yardstick computes the same function: its agreement with
             # the plain version, for the record
             lib_excess = flash_excess(torch, library()[:, :heads], plain, tol)
-            log(f"  library {label:6s} {lib_excess:.3f} of the tolerance on "
+            log(f"  library {label:7s} {lib_excess:.3f} of the tolerance on "
                 f"{heads} heads")
         del plain
-        iters = 10 if S * B > 4096 else 50
+        iters = 10 if Sq * S * B > 2 ** 24 else 50
         ms = _time_ms(torch, lambda: flashattn.gqa_flash_attention(
             q, k, v, **kw), iters)
         public_ms = _time_ms(torch, lambda: flashattn.flash_attention(
             qt, kt, vt, **kw), iters)
         plain_ms = _time_ms(torch, lambda: ref.flash_attention(*sub, **kw), 2)
-        flops = 4 * D * H * B * _visible_pairs(S, S, True, window)
-        bytes_ = 2 * _nbytes(q, k)         # q, k, v and o, v like k
+        flops = 4 * D * H * B * _visible_pairs(Sq, S, causal, window)
+        bytes_ = 2 * _nbytes(q, k)         # q, k, v and o: o like q, v like k
         bound_ms, bound_by = max(
             (bytes_ / HBM_BYTES_PER_S * 1e3, "bytes"),
             (flops / (BF16_OPS_PER_S if dtype == torch.bfloat16
@@ -509,7 +565,7 @@ def flash_phase(torch):
         lib = ("null" if library_ms is None else
                f"{library_ms:.4f} ms (kernel / library "
                f"{ms / library_ms:.3f})")
-        log(f"  flash {label:6s} {variant} gqa_flash_attention {ms:.4f} ms, "
+        log(f"  flash {label:7s} {variant} gqa_flash_attention {ms:.4f} ms, "
             f"flash_attention {public_ms:.4f} ms  bound {bound_ms:.4f} ms "
             f"({bound_by}, {flops} FLOP, {bytes_} B)  share of the bound "
             f"{bound_ms / ms:.1%}  plain {plain_ms:.4f} ms on {heads} heads  "
@@ -526,45 +582,73 @@ def flash_phase(torch):
 # 4. the model on the card against the CPU
 # --------------------------------------------------------------------------
 
+MODEL_ARCHS = ("yi-6b", "llava-next-mistral-7b", "whisper-small",
+               "minicpm3-4b")
+
+
+def normal_embeds(torch, cfg, batch, gen):
+    """Standard-normal patch (VLM) or frame (encoder-decoder) embeddings
+    from `gen` on the CPU, f32, as the Batch fields of the model's stub
+    frontend."""
+    kw = {}
+    if cfg.vlm_img_tokens:
+        kw["img_embeds"] = torch.randn(
+            (batch, cfg.vlm_img_tokens, cfg.vlm_d_vision), generator=gen)
+    if cfg.encoder is not None:
+        kw["frame_embeds"] = torch.randn(
+            (batch, cfg.encoder.n_frames, cfg.encoder.d_input), generator=gen)
+    return kw
+
+
 def model_phase(torch):
-    """The yi-6b smoke model's loss and gradients, prefill logits and one
-    decode step on the card against the same computation on the CPU (which
-    tests/test_torch_model.py and test_torch_serve.py hold to the JAX
-    reference), on the same weights and batch, in f32. Tolerance: loss rtol
-    1e-5, each gradient within 1e-4 of its norm, logits atol 1e-4 (the sums
-    are taken in another order; TF32 is off for matmuls by default)."""
+    """Each smoke model of MODEL_ARCHS: loss and gradients, prefill logits
+    and one decode step on the card against the same computation on the
+    CPU (which tests/test_torch_model.py, test_torch_serve.py and
+    test_torch_archs.py hold to the JAX reference), on the same weights,
+    tokens and patch / frame embeddings, in f32. Tolerance: loss rtol 1e-5,
+    each gradient within 1e-4 of its norm, logits atol 1e-4 (the sums are
+    taken in another order; TF32 is off for matmuls by default)."""
     from repro_torch import tree as tree_lib
     from repro_torch.configs import registry
     from repro_torch.models.transformer import Batch, Model
-    phase("model: smoke config on cuda vs cpu, same weights")
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on")
-    model = Model(registry.get_smoke_config("yi-6b"))
-    params = model.init(torch.Generator().manual_seed(0), "cpu")
-    tok = torch.randint(0, model.cfg.vocab, (4, 64),
-                        generator=torch.Generator().manual_seed(1))
-    out = {}
-    for dev in ("cpu", "cuda"):
-        p = tree_lib.tree_map(lambda t: t.to(dev).requires_grad_(True),
-                              params)
-        loss = model.loss(p, Batch(tokens=tok.to(dev), labels=tok.to(dev)))
-        grads = torch.autograd.grad(loss, tree_lib.leaves(p))
-        p = tree_lib.tree_map(lambda t: t.detach(), p)
-        logits, cache, pos = model.prefill(p, Batch(tokens=tok.to(dev)), 72)
-        step, _ = model.decode_step(p, cache, tok[:, :1].to(dev), pos)
-        out[dev] = (float(loss.detach()), [g.cpu() for g in grads],
-                    logits.cpu(), step.cpu())
-    (l_cpu, g_cpu, *s_cpu), (l_gpu, g_gpu, *s_gpu) = out["cpu"], out["cuda"]
-    for name, a, b in zip(("prefill", "decode_step"), s_cpu, s_gpu):
-        err = float((a - b).abs().max())
-        log(f"  {name} logits: max abs err {err:.3e} cuda vs cpu")
-        check(bool(torch.isfinite(b).all()) and err <= 1e-4,
-              f"model: {name} logits differ")
-    worst = max(float((a - b).abs().max() / a.norm())
-                for a, b in zip(g_cpu, g_gpu))
-    log(f"  loss cpu {l_cpu:.7f} cuda {l_gpu:.7f}; worst gradient error "
-        f"{worst:.3e} of its norm")
-    check(math.isclose(l_gpu, l_cpu, rel_tol=1e-5), "model: loss differs")
-    check(worst <= 1e-4, "model: gradients differ")
+    for arch in MODEL_ARCHS:
+        phase(f"model: {arch} smoke config on cuda vs cpu, same weights")
+        model = Model(registry.get_smoke_config(arch))
+        params = model.init(torch.Generator().manual_seed(0), "cpu")
+        tok = torch.randint(0, model.cfg.vocab, (4, 64),
+                            generator=torch.Generator().manual_seed(1))
+        stub = normal_embeds(torch, model.cfg, 4,
+                             torch.Generator().manual_seed(3))
+        out = {}
+        for dev in ("cpu", "cuda"):
+            p = tree_lib.tree_map(lambda t: t.to(dev).requires_grad_(True),
+                                  params)
+            kw = {k: v.to(dev) for k, v in stub.items()}
+            loss = model.loss(p, Batch(tokens=tok.to(dev),
+                                       labels=tok.to(dev), **kw))
+            grads = torch.autograd.grad(loss, tree_lib.leaves(p))
+            p = tree_lib.tree_map(lambda t: t.detach(), p)
+            logits, cache, pos = model.prefill(
+                p, Batch(tokens=tok.to(dev), **kw),
+                72 + model.cfg.vlm_img_tokens)
+            step, _ = model.decode_step(p, cache, tok[:, :1].to(dev), pos)
+            out[dev] = (float(loss.detach()), [g.cpu() for g in grads],
+                        logits.cpu(), step.cpu())
+        (l_cpu, g_cpu, *s_cpu), (l_gpu, g_gpu, *s_gpu) = (out["cpu"],
+                                                          out["cuda"])
+        for name, a, b in zip(("prefill", "decode_step"), s_cpu, s_gpu):
+            err = float((a - b).abs().max())
+            log(f"  {name} logits: max abs err {err:.3e} cuda vs cpu")
+            check(bool(torch.isfinite(b).all()) and err <= 1e-4,
+                  f"model {arch}: {name} logits differ")
+        worst = max(float((a - b).abs().max() / a.norm())
+                    for a, b in zip(g_cpu, g_gpu))
+        log(f"  loss cpu {l_cpu:.7f} cuda {l_gpu:.7f}; worst gradient error "
+            f"{worst:.3e} of its norm")
+        check(math.isclose(l_gpu, l_cpu, rel_tol=1e-5),
+              f"model {arch}: loss differs")
+        check(worst <= 1e-4, f"model {arch}: gradients differ")
     fg_check(torch)
 
 
@@ -616,7 +700,9 @@ def read_launches():
 
 
 def train_phase(torch, label, cfg, comm, *, steps, dp_only, expect,
-                planner=None, **train_kw):
+                planner=None, seq=2048, **train_kw):
+    """One train cell through `train()`: global batch 8 of `seq` tokens
+    (a VLM adds its image positions; tok/s counts positions)."""
     from repro_torch.launch import train as train_lib
     phase(f"train {label}: mode={comm.mode} hier={comm.hier} "
           f"dp_only={dp_only} "
@@ -624,7 +710,8 @@ def train_phase(torch, label, cfg, comm, *, steps, dp_only, expect,
           f"model_parallel={train_kw.get('force_model_parallel', False)} "
           f"wire={comm.wire} ef={comm.error_feedback} "
           f"microbatches={comm.accum_steps}")
-    batch, seq = 8, 2048
+    batch = 8
+    positions = seq + cfg.vlm_img_tokens
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -638,16 +725,17 @@ def train_phase(torch, label, cfg, comm, *, steps, dp_only, expect,
     peak = torch.cuda.max_memory_allocated()
     for rec in recs:
         log(f"  step {rec.step} loss {rec.loss:.4f} gnorm {rec.grad_norm:.4f} "
-            f"step_s {rec.seconds:.3f} tok/s {batch * seq / rec.seconds:.0f}")
+            f"step_s {rec.seconds:.3f} tok/s "
+            f"{batch * positions / rec.seconds:.0f}")
     steady = [r.seconds for r in recs[1:]] or [recs[0].seconds]
     step_s = sum(steady) / len(steady)
     log(f"  launches {launches}")
     log(f"  peak_memory_allocated {peak} B ({peak / 2**30:.2f} GiB); "
-        f"steady step {step_s:.3f} s, {batch * seq / step_s:.0f} tok/s")
+        f"steady step {step_s:.3f} s, {batch * positions / step_s:.0f} tok/s")
     check(all(math.isfinite(r.loss) for r in recs), f"{label}: non-finite loss")
     check(launches == expect, f"{label}: launches {launches} != {expect}")
     return launches, {"step_s": step_s, "first_step_s": recs[0].seconds,
-                      "tokens_per_s": batch * seq / step_s,
+                      "tokens_per_s": batch * positions / step_s,
                       "peak_bytes": peak, "losses": [r.loss for r in recs]}
 
 
@@ -700,32 +788,64 @@ def hybrid_planner(cfg, comm, *, batch, seq, n_buckets):
 
 
 def serve_phase(torch, model, params, label, *, batch, prompt_len, n_new,
-                repeat=1, **engine_kw):
-    """One serve cell through Engine.generate at full yi-6b; `repeat` runs
+                repeat=1, flash=(N_LAYERS, "wgmma_bf16"), profile=False,
+                **engine_kw):
+    """One serve cell through Engine.generate at full width; `repeat` runs
     it that many times on the same prompts (the greedy tokens must agree).
     Then one prefill and one decode step on the same prompts check that the
-    logits are finite."""
+    logits are finite. `flash`: the flash launches each prefill makes and
+    the kernel they all run on. A VLM's prompt is its standard-normal patch
+    embeddings, then `prompt_len` tokens; an encoder-decoder's encoder
+    takes standard-normal frame embeddings; both drawn from a seed. With
+    `profile`, that prefill and 3 decode steps after it run under
+    torch.profiler: kernels, summed kernel time against the wall time and
+    the top kernels by time."""
     from repro_torch.models.transformer import Batch
     from repro_torch.serve.engine import Engine, EngineConfig
-    phase(f"serve {label}: batch {batch}, prompt {prompt_len}, {n_new} new "
-          f"tokens, {engine_kw or 'native cache'}")
+    phase(f"serve {label} ({model.cfg.name}): batch {batch}, prompt "
+          f"{prompt_len}, {n_new} new tokens, {engine_kw or 'native cache'}")
+    positions = prompt_len + model.cfg.vlm_img_tokens
     eng = Engine(model, params, EngineConfig(
-        max_seq=prompt_len + n_new + 8, **engine_kw))
+        max_seq=positions + n_new + 8, **engine_kw))
     prompts = np.random.default_rng(0).integers(
         0, model.cfg.vocab, (batch, prompt_len)).astype(np.int32)
+    stub = {k: v.numpy() for k, v in normal_embeds(
+        torch, model.cfg, batch, torch.Generator().manual_seed(6)).items()}
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     runs = []
     for _ in range(repeat):
         t = {}
-        toks = eng.generate(prompts, n_new, timings=t)
+        toks = eng.generate(prompts, n_new, timings=t, **stub)
         runs.append((toks, t))
-    logits, cache, pos = model.prefill(
-        params, Batch(tokens=torch.as_tensor(prompts, device=eng.device)),
-        eng.cfg.max_seq, **eng.ctx_kw)
-    step, _ = model.decode_step(params, cache, torch.as_tensor(
-        runs[0][0][:, :1], device=eng.device), pos, **eng.ctx_kw)
+    def prefill():
+        return model.prefill(
+            params, Batch(tokens=torch.as_tensor(prompts, device=eng.device),
+                          **{k: torch.as_tensor(v, device=eng.device)
+                             for k, v in stub.items()}),
+            eng.cfg.max_seq, **eng.ctx_kw)
+
+    def decode(n):
+        out = None
+        for i in range(n):
+            out, _ = model.decode_step(params, cache, torch.as_tensor(
+                runs[0][0][:, i:i + 1], device=eng.device), pos + i,
+                **eng.ctx_kw)
+        return out
+
+    split = {}
+    if profile:
+        (logits, cache, pos), split["prefill"] = profiled(torch, prefill)
+        step, split["decode_3"] = profiled(torch, lambda: decode(3))
+        for k, v in split.items():
+            log(f"  profiled {k}: {v['kernels']} kernels, {v['kernel_ms']:.3f}"
+                f" ms of kernel time in {v['wall_ms']:.3f} ms wall; top "
+                + "; ".join(f"{n} {ms:.3f} ms x{c}" for n, ms, c in v["top"]))
+    else:
+        logits, cache, pos = prefill()
+        step = decode(1)
+    check(pos == positions, f"serve {label}: prefill length {pos}")
     torch.cuda.synchronize()
     launches = read_launches()
     from repro_torch.kernels import flashattn
@@ -733,14 +853,15 @@ def serve_phase(torch, model, params, label, *, batch, prompt_len, n_new,
     peak = torch.cuda.max_memory_allocated()
     del cache
     prefills = repeat + 1
+    per_prefill, variant = flash
     log(f"  launches {launches} over {prefills} prefills; flash per kernel "
         f"{variants}")
-    check(launches["flash_attention"] == N_LAYERS * prefills,
+    check(launches["flash_attention"] == per_prefill * prefills,
           f"serve {label}: {launches['flash_attention']} flash launches, "
-          f"expected {N_LAYERS} per prefill")
-    check(variants["wgmma_bf16"] == N_LAYERS * prefills,
+          f"expected {per_prefill} per prefill")
+    check(variants.get(variant, 0) == per_prefill * prefills,
           f"serve {label}: flash ran {variants}, expected every launch on "
-          f"the Hopper kernel")
+          f"{variant}")
     check(bool(torch.isfinite(logits).all()) and
           bool(torch.isfinite(step).all()), f"serve {label}: logits not finite")
     for toks, _ in runs:
@@ -754,17 +875,18 @@ def serve_phase(torch, model, params, label, *, batch, prompt_len, n_new,
         steady = t["decode_s"][1:] or t["decode_s"]
         step_s = sum(steady) / len(steady)
         rec = {"prefill_s": t["prefill_s"],
-               "prefill_tok_s": batch * prompt_len / t["prefill_s"],
+               "prefill_tok_s": batch * positions / t["prefill_s"],
                "ttft_s": t["first_token_s"], "decode_step_s": step_s,
                "decode_tok_s": batch / step_s}
         log("  " + "  ".join(f"{k} {v:.6g}" for k, v in rec.items()))
         out.append(rec)
     log(f"  peak_memory_allocated {peak} B ({peak / 2**30:.2f} GiB)")
     return launches, {"batch": batch, "prompt_len": prompt_len,
-                      "new_tokens": n_new, "runs": out, "peak_bytes": peak}
+                      "positions": positions, "new_tokens": n_new,
+                      "runs": out, "peak_bytes": peak, **split}
 
 
-def _cli_plan(comm, hier: bool):
+def _cli_plan(comm, hier: bool, arch: str = "yi-6b"):
     """The plan the CLI builds for the smoke config (default planner)."""
     from repro_torch.configs import registry
     from repro_torch.core import planner as pl
@@ -773,7 +895,7 @@ def _cli_plan(comm, hier: bool):
     from repro_torch.train import trainer as tr
     mesh = (mesh_lib.make_hier_mesh(1, 1) if hier
             else mesh_lib.make_host_mesh(1, 1))
-    return tr.make_comm_engine(Model(registry.get_smoke_config("yi-6b")),
+    return tr.make_comm_engine(Model(registry.get_smoke_config(arch)),
                                mesh, pl.Planner(mesh=mesh), comm).plan
 
 
@@ -1102,17 +1224,45 @@ def obs_train_phase(torch, cfg, b_step_s):
         "losses": [r.loss for r in recs], "peak_bytes": peak}
 
 
-def _kernel_events(prof):
-    """(kernel launches, summed kernel microseconds) of a profiler window,
-    read from its Chrome trace (the CUDA kernels have cat "kernel")."""
+def _kernels(prof) -> list:
+    """The CUDA kernel events of a profiler window, read from its Chrome
+    trace (the CUDA kernels have cat "kernel")."""
     import tempfile
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "prof.json")
         prof.export_chrome_trace(path)
         with open(path) as fh:
             events = json.load(fh).get("traceEvents", [])
-    kernels = [e for e in events if e.get("cat") == "kernel"]
+    return [e for e in events if e.get("cat") == "kernel"]
+
+
+def _kernel_events(prof):
+    """(kernel launches, summed kernel microseconds) of a profiler window."""
+    kernels = _kernels(prof)
     return len(kernels), sum(float(e.get("dur", 0.0)) for e in kernels)
+
+
+def profiled(torch, fn, top=5):
+    """fn() under torch.profiler, synchronized: (its result, {wall_ms (with
+    the profiler's own cost), kernels, kernel_ms summed, top: the `top`
+    kernel names by summed time, each [name, ms, launches]})."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = {}
+    kernels = _kernels(prof)
+    for e in kernels:
+        ms, n = by_name.get(e.get("name", "?"), (0.0, 0))
+        by_name[e.get("name", "?")] = (ms + float(e.get("dur", 0.0)) / 1e3,
+                                       n + 1)
+    names = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return out, {"wall_ms": wall * 1e3, "kernels": len(kernels),
+                 "kernel_ms": sum(ms for ms, _ in by_name.values()),
+                 "top": [[k[:90], ms, n] for k, (ms, n) in names]}
 
 
 def obs_serve_phase(torch, model, params):
@@ -1251,6 +1401,129 @@ def cli_obs_phase(torch):
     return {k: launches[k] + served[k] for k in launches}
 
 
+# --------------------------------------------------------------------------
+# 14-16. the attention-family workloads
+# --------------------------------------------------------------------------
+
+# serve cells of the attention family, full width: (label, arch, shape,
+# (flash launches per prefill, the kernel they run on))
+FAMILY_SERVE = (
+    ("V-A", "llava-next-mistral-7b",
+     dict(batch=8, prompt_len=1472, n_new=64), (32, "wgmma_bf16")),
+    ("W-A", "whisper-small", dict(batch=16, prompt_len=32, n_new=64),
+     (36, "mma_bf16")),
+    ("M-A", "minicpm3-4b", dict(batch=8, prompt_len=2048, n_new=64),
+     (0, None)))
+
+
+def family_serve_phase(torch):
+    """V-A, W-A and M-A: each model at full width and depth from seeded
+    random weights, through `serve_phase`. V-A's 576 patch embeddings and
+    1472 tokens fill 2048 positions (32 launches of `wgmma_bf16`, D 128, 32
+    query heads on 8 KV heads); W-A's encoder takes 1500 frame embeddings
+    per request (36 launches of `mma_bf16`, D 64: 12 encoder non-causal, 12
+    decoder causal, 12 cross non-causal on 1500 keys); M-A's MLA attention
+    is plain PyTorch (no launch)."""
+    from repro_torch.configs import registry
+    from repro_torch.models.transformer import Model
+    totals, serve = {}, {}
+    for label, arch, kw, flash in FAMILY_SERVE:
+        model = Model(registry.get_config(arch))
+        params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                            "cuda")
+        log(f"{arch}: {model.n_params():,} parameters on the card")
+        launches, serve[label] = serve_phase(torch, model, params, label,
+                                             flash=flash, profile=True, **kw)
+        serve[label]["n_params"] = model.n_params()
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+        del model, params
+        torch.cuda.empty_cache()
+    return totals, serve
+
+
+def train_h_phase(torch, zero):
+    """Train H: cell A's configuration (default planner, mlsl int8 + EF, 2
+    microbatches, 3 steps, global batch 8) on llava-next-mistral-7b at full
+    width cut to 4 layers, each row 576 zero patch embeddings (the CLI's
+    stub) and 1472 tokens. Its plan fuses the norms, `ln_f` and the new
+    `img_proj` leaf; one quantize_ef and one dequantize_accumulate per
+    fused bucket and microbatch."""
+    from repro_torch.configs import registry
+    from repro_torch.core import planner as pl
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models.transformer import Model
+    from repro_torch.train import trainer as tr
+    cfg = dataclasses.replace(registry.get_config("llava-next-mistral-7b"),
+                              n_layers=4)
+    comm = tr.CommConfig(mode="mlsl", wire="int8", error_feedback=True,
+                         accum_steps=2)
+    mesh = mesh_lib.make_host_mesh(1, 1)
+    plan = tr.make_comm_engine(Model(cfg), mesh, pl.Planner(mesh=mesh),
+                               comm).plan
+    fused = [plan.buckets.paths[i] for b, f in zip(plan.buckets.buckets,
+                                                  plan.fusable) if f
+             for i in b.leaf_ids]
+    log(f"train H plan: {plan.n_buckets} buckets, {sum(plan.fusable)} "
+        f"fused: {['/'.join(p) for p in fused]}")
+    check(("img_proj",) in fused, "train H: img_proj is not a fused bucket")
+    n = sum(plan.fusable) * 2 * 3
+    return train_phase(torch, "H", cfg, comm, steps=3, dp_only=False,
+                       seq=1472, expect={**zero, "quantize_ef_blocks": n,
+                                         "dequantize_accumulate_blocks": n})
+
+
+def family_cli_phase(torch):
+    """The train CLI (flat mlsl int8 + EF, 2 steps) and the serve CLI on
+    the attention family's smoke configs. The serve CLI passes no frame
+    embeddings, as the reference's does: whisper-small must stop with the
+    ValueError naming them."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.train import trainer as tr
+    zero = dict.fromkeys(KERNELS, 0)
+    totals = dict(zero)
+    steps = 2
+    comm = tr.CommConfig(mode="mlsl", wire="int8", error_feedback=True)
+    for _, arch, _, _ in FAMILY_SERVE:
+        n = sum(_cli_plan(comm, False, arch).fusable) * steps
+        launches, _ = _cli_train(
+            torch, f"--arch {arch}",
+            ["--arch", arch, "--comm", "mlsl", "--wire", "int8",
+             "--error-feedback", "--steps", str(steps)],
+            {**zero, "quantize_ef_blocks": n, "dequantize_blocks": n})
+        for k, v in launches.items():
+            totals[k] += v
+    for _, arch, _, _ in FAMILY_SERVE:
+        phase(f"cli: python -m repro_torch.launch.serve --arch {arch} "
+              f"(smoke config)")
+        cfg = registry.get_smoke_config(arch)
+        argv = ["--arch", arch, "--batch", "4", "--prompt-len", "32",
+                "--new-tokens", "8"]
+        reset_launches()
+        if cfg.encoder is not None:
+            try:
+                serve_lib.main(argv)
+            except ValueError as e:
+                log(f"  refused as expected: {e}")
+                check("frame embeddings" in str(e),
+                      f"cli serve {arch}: {e}")
+            else:
+                raise Fail(f"cli serve {arch}: ran without frame embeddings")
+            continue
+        rc = serve_lib.main(argv)
+        torch.cuda.synchronize()
+        served = read_launches()
+        want = cfg.n_layers if "attn" in cfg.block_pattern else 0
+        log(f"  launches {served}")
+        check(rc == 0 and served["flash_attention"] == want,
+              f"cli serve {arch}: rc={rc} launches {served}, expected "
+              f"{want} flash launches")
+        for k, v in served.items():
+            totals[k] += v
+    return totals
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1346,6 +1619,15 @@ def main() -> int:
     for k, v in cli_phase(torch).items():
         totals[k] += v
     for k, v in cli_obs_phase(torch).items():
+        totals[k] += v
+    launches, family = family_serve_phase(torch)
+    serve.update(family)
+    for k, v in launches.items():
+        totals[k] += v
+    launches, runs["H"] = train_h_phase(torch, zero)
+    for k, v in launches.items():
+        totals[k] += v
+    for k, v in family_cli_phase(torch).items():
         totals[k] += v
     check(all(v > 0 for v in totals.values()),
           f"a kernel was never launched on the main path: {totals}")

@@ -2,7 +2,9 @@
 
 Ports `repro/configs/base.py` with torch dtypes. Every ported architecture
 is a `ModelConfig` in repro_torch/configs/<id>.py; the registry
-(repro_torch.configs.registry) resolves `--arch <id>` strings.
+(repro_torch.configs.registry) resolves `--arch <id>` strings. The MoE,
+SSM and RG-LRU configs, and their terms in `param_count_estimate`, come
+with their slices.
 """
 
 from __future__ import annotations
@@ -25,20 +27,48 @@ class AttnConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head Latent Attention (DeepSeek-V2 / MiniCPM3)."""
+
+    n_heads: int
+    q_lora_rank: int
+    kv_lora_rank: int
+    qk_nope_dim: int
+    qk_rope_dim: int
+    v_head_dim: int
+    rope_theta: float = 1e4
+
+
+@dataclasses.dataclass(frozen=True)
+class EncoderConfig:
+    """Whisper-style encoder consuming precomputed frame embeddings (the
+    conv + mel frontend is a stub, as in the reference)."""
+
+    n_layers: int
+    n_frames: int = 1500
+    d_input: int = 768             # frontend output dim (== d_model for whisper)
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    arch_type: str                 # dense (the only ported type)
+    arch_type: str                 # dense | audio | vlm (the ported types)
     n_layers: int
     d_model: int
     vocab: int
-    block_pattern: Tuple[str, ...]  # cycled over layers: attn
+    block_pattern: Tuple[str, ...]  # cycled over layers: attn | mla | cross
     d_ff: int = 0
     mlp_act: str = "silu"
     mlp_gated: bool = True
     attn: Optional[AttnConfig] = None
+    mla: Optional[MLAConfig] = None
+    encoder: Optional[EncoderConfig] = None
+    vlm_img_tokens: int = 0        # >0: prepend this many projected patch embeds
+    vlm_d_vision: int = 1024
     norm: str = "rmsnorm"          # rmsnorm | layernorm
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
+    learned_positions: int = 0     # >0 (whisper): learned abs positions
     embed_scale: bool = False      # multiply embeddings by sqrt(d)
     logit_softcap: float = 0.0
     dtype: torch.dtype = torch.bfloat16
@@ -57,6 +87,9 @@ class ModelConfig:
         r = self.n_layers % len(self.block_pattern)
         return self.block_pattern[:r]
 
+    def layer_kind(self, i: int) -> str:
+        return self.block_pattern[i % len(self.block_pattern)]
+
 
 def reduce_for_smoke(cfg: ModelConfig, *, d_model: int = 256,
                      n_layers: int | None = None, vocab: int = 512,
@@ -72,7 +105,49 @@ def reduce_for_smoke(cfg: ModelConfig, *, d_model: int = 256,
         window = None if cfg.attn.window is None else 64
         kw["attn"] = dataclasses.replace(cfg.attn, n_heads=n_heads, n_kv=n_kv,
                                          head_dim=32, window=window)
+    if cfg.mla is not None:
+        kw["mla"] = dataclasses.replace(cfg.mla, n_heads=4, q_lora_rank=64,
+                                        kv_lora_rank=32, qk_nope_dim=16,
+                                        qk_rope_dim=8, v_head_dim=16)
+    if cfg.encoder is not None:
+        kw["encoder"] = dataclasses.replace(cfg.encoder, n_layers=2,
+                                            n_frames=16, d_input=d_model)
+    if cfg.vlm_img_tokens:
+        kw["vlm_img_tokens"] = 8
+        kw["vlm_d_vision"] = 64
+    if cfg.learned_positions:
+        kw["learned_positions"] = 4096
     return dataclasses.replace(
         cfg, name=cfg.name + "-smoke", d_model=d_model, n_layers=n_layers,
         vocab=vocab, d_ff=d_ff, dtype=torch.float32, remat=False,
         long_context_window=64, **kw)
+
+
+def param_count_estimate(cfg: ModelConfig) -> float:
+    """Rough N for FSDP decisions and 6ND math (the exact count comes from
+    the parameter definitions): the reference's terms for the ported
+    kinds."""
+    d = cfg.d_model
+    n = 2.0 * cfg.vocab * d
+    for i in range(cfg.n_layers):
+        k = cfg.layer_kind(i)
+        if k == "attn":
+            a = cfg.attn
+            n += d * (a.n_heads + 2 * a.n_kv + a.n_heads) * a.head_dim
+            n += (3 if cfg.mlp_gated else 2) * d * cfg.d_ff
+        elif k == "mla":
+            m = cfg.mla
+            n += (d * m.q_lora_rank
+                  + m.q_lora_rank * m.n_heads * (m.qk_nope_dim
+                                                 + m.qk_rope_dim))
+            n += d * (m.kv_lora_rank + m.qk_rope_dim)
+            n += m.kv_lora_rank * m.n_heads * (m.qk_nope_dim + m.v_head_dim)
+            n += m.n_heads * m.v_head_dim * d
+            n += (3 if cfg.mlp_gated else 2) * d * cfg.d_ff
+    if cfg.encoder is not None:
+        a = cfg.attn
+        per = d * 4 * a.n_heads * a.head_dim + 2 * d * cfg.d_ff
+        n += cfg.encoder.n_layers * per
+        # decoder cross-attention
+        n += cfg.n_layers * d * 4 * a.n_heads * a.head_dim
+    return float(n)

@@ -9,7 +9,10 @@ from repro_torch.configs.base import ModelConfig, reduce_for_smoke
 # only architectures whose every block kind is ported
 _MODULES = {
     "yi-6b": "yi_6b",
+    "llava-next-mistral-7b": "llava_next_mistral_7b",
+    "minicpm3-4b": "minicpm3_4b",
     "chatglm3-6b": "chatglm3_6b",
+    "whisper-small": "whisper_small",
     "deepseek-7b": "deepseek_7b",
 }
 

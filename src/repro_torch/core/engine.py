@@ -67,6 +67,9 @@ class CommConfig:
     fused_quant: bool = True
     # benchmark ablation: skip gradient reduction entirely
     skip_reduce: bool = False
+    # >0: the train forward's attention runs online-softmax over chunks of
+    # this many keys (models.attention.chunked_sdpa)
+    kv_chunk: int = 0
 
 
 @dataclasses.dataclass(frozen=True)

@@ -94,8 +94,10 @@ def train(cfg: ModelConfig, comm: tr.CommConfig, *, steps: int, batch: int,
           force_model_parallel: bool = False) -> tuple:
     """Train `cfg` for `steps` steps and return (a StepRecord per step, the
     final TrainState). Weights are random from `seed`; data is the seeded
-    synthetic stream. `mesh` defaults to one rank: `make_hier_mesh(1, 1)`
-    with `comm.hier`, else `make_host_mesh(1, 1)`. `planner` defaults to
+    synthetic stream (`seq` tokens; a VLM adds its image positions), with
+    zero image or frame embeddings (`stub_embeds`). `mesh` defaults to one
+    rank: `make_hier_mesh(1, 1)` with `comm.hier`, else
+    `make_host_mesh(1, 1)`. `planner` defaults to
     `Planner(mesh, dp_only=dp_only)`; under a hybrid planner
     (`make_hybrid_planner`) or model parallelism (a planner whose model
     axis has more than one rank, or `force_model_parallel`:
@@ -151,7 +153,8 @@ def train(cfg: ModelConfig, comm: tr.CommConfig, *, steps: int, batch: int,
     sampled_once = False
     for s, raw in enumerate(pipeline.iterate(dcfg, steps)):
         b = Batch(tokens=torch.from_numpy(raw["tokens"]).to(dev),
-                  labels=torch.from_numpy(raw["labels"]).to(dev))
+                  labels=torch.from_numpy(raw["labels"]).to(dev),
+                  **stub_embeds(cfg, batch, dev))
         span = (contextlib.nullcontext() if tracer is None
                 else tracer.span(f"step{s}", cat="step"))
         with span:
@@ -187,6 +190,19 @@ def train(cfg: ModelConfig, comm: tr.CommConfig, *, steps: int, batch: int,
             ckpt.save(ckpt_dir, {"params": full}, step=steps)
             _log(f"checkpoint -> {ckpt_dir}")
     return out, state
+
+
+def stub_embeds(cfg: ModelConfig, batch: int, device) -> dict:
+    """The modality stubs' inputs the reference's CLI trains on: zero patch
+    embeddings (VLM) and zero frame embeddings (encoder-decoder), f32."""
+    kw = {}
+    if cfg.vlm_img_tokens:
+        kw["img_embeds"] = torch.zeros(
+            (batch, cfg.vlm_img_tokens, cfg.vlm_d_vision), device=device)
+    if cfg.encoder is not None:
+        kw["frame_embeds"] = torch.zeros(
+            (batch, cfg.encoder.n_frames, cfg.encoder.d_input), device=device)
+    return kw
 
 
 def _observe_step(s, rec, meter, tracer, telemetry, monitor, t_model,

@@ -1,10 +1,14 @@
-"""GQA/MHA attention: full-sequence apply, serving caches and decode.
+"""Attention mixers: GQA/MHA (full, sliding-window, bidirectional and
+cross) and multi-head latent attention (MLA).
 
-Ports `gqa_defs`, `_split_heads`, `_sdpa`, `_repeat_kv`, `gqa_apply`,
-`_kv_quant`, `_kv_dequant`, `gqa_init_cache`, `gqa_prefill_cache` and
-`gqa_decode` of `repro/models/attention.py`. `gqa_prefill` takes the place
-of `gqa_prefill_cache`: it returns the attention's output with the cache,
-built from the K/V the attention computed, where the reference projects
+Ports `repro/models/attention.py`: `gqa_defs`, `_split_heads`, `_sdpa`,
+`_repeat_kv`, `chunked_sdpa`, `gqa_apply` (with `kv_chunk`; the
+reference's `kv_override` is `gqa_cross`), `gqa_cross_kv`, `_kv_quant`,
+`_kv_dequant`, `gqa_init_cache`, `gqa_decode`, `gqa_decode_cross` and the
+MLA functions. `gqa_prefill` and `mla_prefill`
+take the place of the `*_prefill_cache` functions: each returns the
+attention's output with the cache, built from the K/V (MLA: the latent
+`ckv` and `kpe`) the attention computed, where the reference projects
 them again.
 
 Under model parallelism `gqa_apply` takes the layout of its projections
@@ -12,17 +16,23 @@ Under model parallelism `gqa_apply` takes the layout of its projections
 plan; a shard holding part of a head (the smoke yi-6b's 4 heads of 32 over
 8 ranks, chatglm3-6b's 2 KV heads over 4) runs `gqa_gathered`.
 
-Which attention `gqa_apply` runs:
-  * the flash kernel (`kernels.flashattn.gqa_flash_attention`) when the mask
-    is the plain causal/window mask that `gqa_apply` builds itself
-    (`mask is None and a.causal`) and autograd is not recording
-    (`not torch.is_grad_enabled()`, as in `Model.prefill`). The kernel is
-    forward-only, as the reference's is;
-  * otherwise `_sdpa`, the reference's plain einsum + softmax, which
-    materializes the (S, S) score matrix in f32. Training takes this path,
-    so the train step never launches the flash kernel.
-Decode attention is plain `_sdpa` arithmetic over the cache, as in the
-reference (which runs it outside any Pallas kernel).
+Which attention the GQA functions run (`_attention`):
+  * the flash kernel (`kernels.flashattn.gqa_flash_attention`) when no
+    mask is given (the causal/window mask the function would build
+    itself, or none: the encoder's bidirectional attention and the
+    cross-attention, which launch it with `causal=False`) and autograd is
+    not recording (`not torch.is_grad_enabled()`, as in `Model.prefill`).
+    The kernel is forward-only, as the reference's is;
+  * otherwise `chunked_sdpa` with `kv_chunk`, or `_sdpa`, the reference's
+    plain einsum + softmax, which materializes the score matrix in f32.
+    Training takes these paths, so the train step never launches the
+    flash kernel.
+MLA's attention is the reference's explicit einsum + softmax (or
+`chunked_sdpa` with `kv_chunk`): its query/key head dim differs from its
+value head dim, which the flash kernel does not take. Decode attention is
+plain arithmetic over the cache, as in the reference (which runs it outside
+any Pallas kernel); MLA decodes on the latent cache with the absorbed
+projections.
 
 The decode step writes the new token's K/V into the cache tensors in place
 and returns the same tensors; the reference returns updated copies.
@@ -35,7 +45,7 @@ import math
 import torch
 import torch.distributed as dist
 
-from repro_torch.configs.base import AttnConfig
+from repro_torch.configs.base import AttnConfig, MLAConfig
 from repro_torch.core import collectives as cl
 from repro_torch.core import planner as pl
 from repro_torch.kernels import flashattn
@@ -82,30 +92,93 @@ def _project(p: dict, x: torch.Tensor) -> tuple:
     return x @ p["wq"], x @ p["wk"], x @ p["wv"]
 
 
+def chunked_sdpa(q, k, v, *, causal: bool = True, window: int | None = None,
+                 q_offset: int = 0, kv_chunk: int = 1024,
+                 scale: float | None = None) -> torch.Tensor:
+    """Online-softmax attention over KV chunks of `kv_chunk` keys, so the
+    (Sq, Sk) score matrix never materializes: the reference's
+    `chunked_sdpa`, with its rounding (the probabilities and the
+    accumulator in q's dtype, the running max and denominator in f32).
+
+    q (B, Sq, H, D); k (B, Sk, H, D) and v (B, Sk, H, Dv) with the heads
+    already repeated. Plain PyTorch, as the reference's is jnp."""
+    B, Sq, H, D = q.shape
+    Sk, Dv = k.shape[1], v.shape[-1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    c = min(kv_chunk, Sk)
+    pad = (-Sk) % c
+    if pad:
+        k = torch.cat([k, k.new_zeros((B, pad) + k.shape[2:])], dim=1)
+        v = torch.cat([v, v.new_zeros((B, pad) + v.shape[2:])], dim=1)
+    q_pos = torch.arange(Sq, device=q.device) + q_offset
+    neg = torch.full((), -1e30, dtype=torch.float32, device=q.device)
+    m = torch.full((B, H, Sq), -math.inf, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, H, Sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
+    for j in range(k.shape[1] // c):
+        kj, vj = k[:, j * c:(j + 1) * c], v[:, j * c:(j + 1) * c]
+        k_pos = j * c + torch.arange(c, device=q.device)
+        s = torch.einsum("bqhd,bkhd->bhqk", q, kj).to(torch.float32) * scale
+        valid = (k_pos[None, :] <= Sk - 1).expand(Sq, c)
+        if causal:
+            valid = valid & (k_pos[None, :] <= q_pos[:, None])
+        if window is not None:
+            valid = valid & (k_pos[None, :] > q_pos[:, None] - window)
+        s = torch.where(valid, s, neg)
+        m_new = torch.maximum(m, torch.amax(s, dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + torch.sum(p, dim=-1)
+        pv = torch.einsum("bhqk,bkhd->bqhd", p.to(q.dtype), vj)
+        acc = acc * corr.transpose(1, 2)[..., None].to(acc.dtype) + pv
+        m = m_new
+    denom = torch.clamp(l, min=1e-30).transpose(1, 2)[..., None]
+    return (acc.to(torch.float32) / denom).to(q.dtype)
+
+
+def _attention(q, k, v, *, causal: bool, window: int | None,
+               mask: torch.Tensor | None, q_offset: int = 0,
+               kv_chunk: int | None = None) -> torch.Tensor:
+    """Attention of q (B, Sq, H, hd) over k, v (B, Sk, KV, hd): the flash
+    kernel when there is no mask and autograd is not recording, else
+    `chunked_sdpa` with `kv_chunk`, else `_sdpa` (with the causal/window
+    mask built here when `causal` and no mask is given). A bidirectional
+    attention (`causal=False`) ignores `window` but in `chunked_sdpa`, as
+    the reference's does."""
+    H = q.shape[2]
+    if mask is None and not torch.is_grad_enabled():
+        return flashattn.gqa_flash_attention(
+            q, k, v, causal=causal, window=window if causal else None)
+    k, v = _repeat_kv(k, H), _repeat_kv(v, H)
+    if mask is None and kv_chunk is not None:
+        return chunked_sdpa(q, k, v, causal=causal, window=window,
+                            q_offset=q_offset, kv_chunk=kv_chunk)
+    if mask is None and causal:
+        mask = common.causal_mask(q.shape[1], k.shape[1], window=window,
+                                  device=q.device)
+    return _sdpa(q, k, v, mask)
+
+
 def _attend(q, k, v, a: AttnConfig, *, pos0: int, window: int | None,
-            mask: torch.Tensor | None):
-    """`gqa_apply`'s attention over the projections q (B, S, H * hd) and
-    k, v (B, S, KV * hd), the head counts read from their widths. Returns
-    the attention output (B, S, H * hd), before the out-projection, and
-    the roped K and V it attended to, (B, S, KV, hd) each, from which the
-    prefill builds its cache."""
+            mask: torch.Tensor | None, kv_chunk: int | None = None):
+    """`gqa_apply`'s self-attention over the projections q (B, S, H * hd)
+    and k, v (B, S, KV * hd), the head counts read from their widths.
+    Returns the attention output (B, S, H * hd), before the
+    out-projection, and the roped K and V it attended to, (B, S, KV, hd)
+    each, from which the prefill builds its cache."""
     B, S, _ = q.shape
     hd = a.head_dim
-    H, KV = q.shape[-1] // hd, k.shape[-1] // hd
+    H = q.shape[-1] // hd
     q, k, v = (_split_heads(t, t.shape[-1] // hd, hd) for t in (q, k, v))
     positions = torch.arange(S, device=q.device) + pos0
     q = common.apply_rope(q, positions, rotary_frac=a.rotary_frac,
                           theta=a.rope_theta)
     k = common.apply_rope(k, positions, rotary_frac=a.rotary_frac,
                           theta=a.rope_theta)
-    w = window if window is not None else a.window
-    if mask is None and a.causal and not torch.is_grad_enabled():
-        o = flashattn.gqa_flash_attention(q, k, v, causal=True, window=w)
-    else:
-        if mask is None and a.causal:
-            mask = common.causal_mask(S, S, q_offset=0, window=w,
-                                      device=q.device)
-        o = _sdpa(q, _repeat_kv(k, H), _repeat_kv(v, H), mask)
+    o = _attention(q, k, v, causal=a.causal,
+                   window=window if window is not None else a.window,
+                   mask=mask, q_offset=pos0, kv_chunk=kv_chunk)
     return o.reshape(B, S, H * hd), k, v
 
 
@@ -124,8 +197,12 @@ def head_aligned(layout: dict, a: AttnConfig, size: int) -> bool:
 
 def gqa_apply(p: dict, x: torch.Tensor, a: AttnConfig, *, pos0: int = 0,
               window: int | None = None, mask: torch.Tensor | None = None,
-              tp_axis=None, layout: dict | None = None) -> torch.Tensor:
-    """Full causal self-attention over a sequence (training and prefill).
+              kv_chunk: int | None = None, tp_axis=None,
+              layout: dict | None = None) -> torch.Tensor:
+    """Self-attention over a sequence (training and prefill): causal, or
+    bidirectional when `a.causal` is False (the encoder). `kv_chunk`: the
+    online-softmax `chunked_sdpa` over chunks of that many keys where the
+    materialized `_sdpa` would run.
 
     tp_axis (a process group): head-sharded tensor parallelism -- the
     projections in `p` are this rank's head shard (local head counts come
@@ -145,7 +222,8 @@ def gqa_apply(p: dict, x: torch.Tensor, a: AttnConfig, *, pos0: int = 0,
                             window=window, mask=mask)
     if tp_axis is not None:
         x = cl.tp_replicate(x, tp_axis)
-    o = _attend(*_project(p, x), a, pos0=pos0, window=window, mask=mask)[0]
+    o = _attend(*_project(p, x), a, pos0=pos0, window=window, mask=mask,
+                kv_chunk=kv_chunk)[0]
     y = o @ p["wo"]
     if tp_axis is not None:
         y = cl.tp_psum(y, tp_axis)
@@ -169,6 +247,24 @@ def gqa_gathered(p: dict, x: torch.Tensor, a: AttnConfig, group,
     if layout["wo"] == -2:
         return cl.tp_psum(cl.tp_split(o, group) @ p["wo"], group)
     return o @ p["wo"]
+
+
+def gqa_cross_kv(p: dict, enc: torch.Tensor, a: AttnConfig) -> tuple:
+    """Cross-attention K and V (B, Sk, KV, hd) from the encoder output
+    (whisper), unroped."""
+    return (_split_heads(enc @ p["wk"], a.n_kv, a.head_dim),
+            _split_heads(enc @ p["wv"], a.n_kv, a.head_dim))
+
+
+def gqa_cross(p: dict, x: torch.Tensor, kv: tuple,
+              a: AttnConfig) -> torch.Tensor:
+    """Cross-attention of the decoder's x (B, S, d) over the encoder's
+    (k, v) from `gqa_cross_kv`: every query sees every key, nothing is
+    roped (the reference's `gqa_apply(..., kv_override=kv, mask=None)`)."""
+    B, S, _ = x.shape
+    q = _split_heads(x @ p["wq"], a.n_heads, a.head_dim)
+    o = _attention(q, *kv, causal=False, window=None, mask=None)
+    return o.reshape(B, S, a.n_heads * a.head_dim) @ p["wo"]
 
 
 # --- serving caches ------------------------------------------------------------
@@ -226,19 +322,20 @@ def gqa_prefill(p: dict, x: torch.Tensor, a: AttnConfig, *,
 
 
 def _decode_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 valid: torch.Tensor) -> torch.Tensor:
+                 valid: torch.Tensor | None) -> torch.Tensor:
     """`_sdpa(q, _repeat_kv(k, H), _repeat_kv(v, H), valid)` for one query
     token, without the repeated copy of the cache: q (B, 1, H, hd), k/v
-    (B, slots, KV, hd), valid (slots,) bool. Query head h reads KV head
-    h // (H / KV), as `_repeat_kv` lays them out."""
+    (B, slots, KV, hd), valid (slots,) bool or None (every slot). Query
+    head h reads KV head h // (H / KV), as `_repeat_kv` lays them out."""
     B, _, H, hd = q.shape
     KV = k.shape[2]
     qg = q.reshape(B, KV, H // KV, hd)
     scores = torch.einsum("bkgd,bskd->bkgs", qg, k).to(torch.float32)
     scores = scores / math.sqrt(hd)
-    scores = torch.where(valid, scores,
-                         torch.full((), -1e30, dtype=scores.dtype,
-                                    device=scores.device))
+    if valid is not None:
+        scores = torch.where(valid, scores,
+                             torch.full((), -1e30, dtype=scores.dtype,
+                                        device=scores.device))
     w = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.einsum("bkgs,bskd->bkgd", w, v).reshape(B, 1, H, hd)
 
@@ -282,3 +379,159 @@ def gqa_decode(p: dict, x1: torch.Tensor, cache: dict, pos: int,
         valid = idx <= pos
     o = _decode_sdpa(q, k, v, valid)
     return o.reshape(B, 1, H * hd) @ p["wo"], cache
+
+
+def gqa_decode_cross(p: dict, x1: torch.Tensor, cross_kv: dict,
+                     a: AttnConfig) -> torch.Tensor:
+    """Cross-attention for one decoder token against the fixed encoder K/V
+    of the cache (`{"k", "v"}`, (B, Sk, KV, hd) each)."""
+    B = x1.shape[0]
+    H, hd = a.n_heads, a.head_dim
+    q = _split_heads(x1 @ p["wq"], H, hd)
+    o = _decode_sdpa(q, cross_kv["k"], cross_kv["v"], None)
+    return o.reshape(B, 1, H * hd) @ p["wo"]
+
+
+# =============================== MLA =========================================
+
+def mla_defs(d_model: int, m: MLAConfig, dtype) -> dict:
+    H = m.n_heads
+    qk = m.qk_nope_dim + m.qk_rope_dim
+    return {
+        "w_dq": pl.ParamDef((d_model, m.q_lora_rank), pl.K_REPLICATED, dtype),
+        "q_norm": pl.ParamDef((m.q_lora_rank,), pl.K_NORM, dtype,
+                              init="ones"),
+        "w_uq": pl.ParamDef((m.q_lora_rank, H * qk), pl.K_PROJ_IN, dtype),
+        "w_dkv": pl.ParamDef((d_model, m.kv_lora_rank + m.qk_rope_dim),
+                             pl.K_REPLICATED, dtype),
+        "kv_norm": pl.ParamDef((m.kv_lora_rank,), pl.K_NORM, dtype,
+                               init="ones"),
+        "w_uk": pl.ParamDef((m.kv_lora_rank, H * m.qk_nope_dim),
+                            pl.K_PROJ_IN, dtype),
+        "w_uv": pl.ParamDef((m.kv_lora_rank, H * m.v_head_dim),
+                            pl.K_PROJ_IN, dtype),
+        "wo": pl.ParamDef((H * m.v_head_dim, d_model), pl.K_PROJ_OUT, dtype),
+    }
+
+
+def _mla_qkv(p: dict, x: torch.Tensor, m: MLAConfig, pos0: int) -> tuple:
+    """The queries (q_nope, q_pe) (B, S, H, *) and the latent (ckv, kpe)
+    (B, S, *) of a full sequence, q_pe and kpe roped."""
+    B, S, _ = x.shape
+    cq = common.rmsnorm(x @ p["w_dq"], p["q_norm"])
+    q = (cq @ p["w_uq"]).reshape(B, S, m.n_heads,
+                                 m.qk_nope_dim + m.qk_rope_dim)
+    q_nope, q_pe = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
+    ckv_full = x @ p["w_dkv"]
+    ckv = common.rmsnorm(ckv_full[..., :m.kv_lora_rank], p["kv_norm"])
+    kpe = ckv_full[..., m.kv_lora_rank:]
+    positions = torch.arange(S, device=x.device) + pos0
+    q_pe = common.apply_rope(q_pe, positions, theta=m.rope_theta)
+    kpe = common.apply_rope(kpe[..., None, :], positions,
+                            theta=m.rope_theta)[..., 0, :]
+    return q_nope, q_pe, ckv, kpe
+
+
+def _mla_attend(p: dict, q_nope, q_pe, ckv, kpe, m: MLAConfig, *,
+                pos0: int, window: int | None,
+                kv_chunk: int | None) -> torch.Tensor:
+    """MLA's causal attention over the latent of a full sequence, through
+    the out-projection: keys and values expanded from `ckv` per head, the
+    decoupled rope part `kpe` shared by the heads."""
+    B, S, H, _ = q_nope.shape
+    k_nope = (ckv @ p["w_uk"]).reshape(B, S, H, m.qk_nope_dim)
+    v = (ckv @ p["w_uv"]).reshape(B, S, H, m.v_head_dim)
+    d_qk = m.qk_nope_dim + m.qk_rope_dim
+    if kv_chunk is not None:
+        # fold the rope part into the head dim for the online softmax
+        q_cat = torch.cat([q_nope, q_pe], dim=-1)
+        k_cat = torch.cat([k_nope, kpe[:, :, None, :].expand(
+            B, S, H, m.qk_rope_dim)], dim=-1)
+        o = chunked_sdpa(q_cat, k_cat, v, causal=True, window=window,
+                         q_offset=pos0, kv_chunk=kv_chunk,
+                         scale=1.0 / math.sqrt(d_qk))
+    else:
+        scores = (torch.einsum("bqhd,bkhd->bhqk", q_nope, k_nope)
+                  + torch.einsum("bqhd,bkd->bhqk", q_pe, kpe)
+                  ).to(torch.float32)
+        scores = scores / math.sqrt(d_qk)
+        mask = common.causal_mask(S, S, window=window, device=ckv.device)
+        scores = torch.where(mask[None, None], scores,
+                             torch.full((), -1e30, dtype=scores.dtype,
+                                        device=scores.device))
+        w = torch.softmax(scores, dim=-1).to(ckv.dtype)
+        o = torch.einsum("bhqk,bkhd->bqhd", w, v)
+    return o.reshape(B, S, H * m.v_head_dim) @ p["wo"]
+
+
+def mla_apply(p: dict, x: torch.Tensor, m: MLAConfig, *, pos0: int = 0,
+              window: int | None = None,
+              kv_chunk: int | None = None) -> torch.Tensor:
+    return _mla_attend(p, *_mla_qkv(p, x, m, pos0), m, pos0=pos0,
+                       window=window, kv_chunk=kv_chunk)
+
+
+def mla_init_cache(batch: int, max_seq: int, m: MLAConfig, dtype, *,
+                   window: int | None = None, device=None) -> dict:
+    slots = min(max_seq, window) if window else max_seq
+    return {"ckv": torch.zeros((batch, slots, m.kv_lora_rank), dtype=dtype,
+                               device=device),
+            "kpe": torch.zeros((batch, slots, m.qk_rope_dim), dtype=dtype,
+                               device=device)}
+
+
+def mla_prefill(p: dict, x: torch.Tensor, m: MLAConfig, *,
+                window: int | None = None):
+    """`mla_apply` over the whole prompt, and the latent cache of the
+    `ckv`/`kpe` it attended over (ring-compacted if windowed): returns
+    (y, cache). The reference's `mla_prefill_cache` computes them again."""
+    q_nope, q_pe, ckv, kpe = _mla_qkv(p, x, m, 0)
+    y = _mla_attend(p, q_nope, q_pe, ckv, kpe, m, pos0=0, window=window,
+                    kv_chunk=None)
+    S = x.shape[1]
+    if window and S > window:
+        # position p at ring slot p % window
+        ckv = torch.roll(ckv[:, -window:], S % window, dims=1)
+        kpe = torch.roll(kpe[:, -window:], S % window, dims=1)
+    return y, {"ckv": ckv, "kpe": kpe}
+
+
+def mla_decode(p: dict, x1: torch.Tensor, cache: dict, pos: int,
+               m: MLAConfig, *, window: int | None = None):
+    """Absorbed-projection MLA decode: W_uk folds into the query and W_uv
+    into the output, so the attention acts on the latent cache. x1 (B, 1,
+    d); writes the token's latent into `cache` in place; returns (y,
+    cache)."""
+    B = x1.shape[0]
+    H, r = m.n_heads, m.kv_lora_rank
+    slots = cache["ckv"].shape[1]
+    cq = common.rmsnorm(x1 @ p["w_dq"], p["q_norm"])
+    q = (cq @ p["w_uq"]).reshape(B, 1, H, m.qk_nope_dim + m.qk_rope_dim)
+    q_nope, q_pe = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
+    posv = torch.full((1,), pos, device=x1.device)
+    q_pe = common.apply_rope(q_pe, posv, theta=m.rope_theta)
+    ckv1_full = x1 @ p["w_dkv"]
+    ckv1 = common.rmsnorm(ckv1_full[..., :r], p["kv_norm"])
+    kpe1 = common.apply_rope(ckv1_full[..., None, r:], posv,
+                             theta=m.rope_theta)[..., 0, :]
+    # the reference's dynamic_update_slice clamps the slot into range
+    write = pos % slots if window else min(pos, slots - 1)
+    cache["ckv"][:, write] = ckv1[:, 0]
+    cache["kpe"][:, write] = kpe1[:, 0]
+    ckv, kpe = cache["ckv"], cache["kpe"]
+    q_abs = torch.einsum("bqhn,rhn->bqhr", q_nope,
+                         p["w_uk"].reshape(r, H, m.qk_nope_dim))
+    scores = (torch.einsum("bqhr,bkr->bhqk", q_abs, ckv)
+              + torch.einsum("bqhd,bkd->bhqk", q_pe, kpe)).to(torch.float32)
+    scores = scores / math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
+    if not (window and pos >= slots):
+        # before a ring is full only the slots <= pos hold positions
+        valid = torch.arange(slots, device=x1.device) <= pos
+        scores = torch.where(valid, scores,
+                             torch.full((), -1e30, dtype=scores.dtype,
+                                        device=scores.device))
+    w = torch.softmax(scores, dim=-1).to(x1.dtype)
+    ctx = torch.einsum("bhqk,bkr->bqhr", w, ckv)
+    o = torch.einsum("bqhr,rhv->bqhv", ctx,
+                     p["w_uv"].reshape(r, H, m.v_head_dim))
+    return o.reshape(B, 1, H * m.v_head_dim) @ p["wo"], cache

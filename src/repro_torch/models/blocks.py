@@ -1,10 +1,14 @@
 """Per-layer block assembly: norm + mixer + MLP with residuals.
 
-Ports the "attn" block kind of `repro/models/blocks.py` (causal
-self-attention + dense MLP): full-sequence apply, with head/feature-sharded
-tensor parallelism under a hybrid plan or model parallelism, serving caches
-and one-token decode (unsharded, as in the reference). The other kinds come with their
-slices.
+Ports the attention-family kinds of `repro/models/blocks.py`:
+  attn   -- (windowed) causal self-attention + dense MLP
+  mla    -- multi-head latent attention + dense MLP
+  enc    -- bidirectional self-attention + MLP (encoder towers)
+  cross  -- causal self-attention + cross-attention + MLP (enc-dec decoders)
+with rmsnorm or layernorm: full-sequence apply (the "attn" kind also with
+head/feature-sharded tensor parallelism under a hybrid plan or model
+parallelism), serving caches and one-token decode (unsharded, as in the
+reference). The other kinds come with their slices.
 """
 
 from __future__ import annotations
@@ -19,16 +23,19 @@ from repro_torch.core import planner as pl
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import common, mlp
 
-PORTED_KINDS = ("attn",)
+PORTED_KINDS = ("attn", "mla", "enc", "cross")
 
 
 def norm_defs(d: int, cfg: ModelConfig) -> dict:
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(f"norm {cfg.norm!r} is not yet ported")
-    return {"scale": pl.ParamDef((d,), pl.K_NORM, cfg.dtype, init="ones")}
+    out = {"scale": pl.ParamDef((d,), pl.K_NORM, cfg.dtype, init="ones")}
+    if cfg.norm == "layernorm":
+        out["bias"] = pl.ParamDef((d,), pl.K_NORM, cfg.dtype, init="zeros")
+    return out
 
 
 def norm_apply(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.norm == "layernorm":
+        return common.layernorm(x, p["scale"], p["bias"], cfg.norm_eps)
     return common.rmsnorm(x, p["scale"], cfg.norm_eps)
 
 
@@ -42,8 +49,12 @@ def _check_kind(kind: str) -> None:
 def block_defs(kind: str, cfg: ModelConfig) -> dict:
     _check_kind(kind)
     d, dt = cfg.d_model, cfg.dtype
-    return {"ln1": norm_defs(d, cfg),
-            "attn": attn_mod.gqa_defs(d, cfg.attn, dt),
+    mixer = ({"mla": attn_mod.mla_defs(d, cfg.mla, dt)} if kind == "mla"
+             else {"attn": attn_mod.gqa_defs(d, cfg.attn, dt)})
+    cross = ({"ln_x": norm_defs(d, cfg),
+              "xattn": attn_mod.gqa_defs(d, cfg.attn, dt)}
+             if kind == "cross" else {})
+    return {"ln1": norm_defs(d, cfg), **mixer, **cross,
             "ln2": norm_defs(d, cfg),
             "mlp": mlp.mlp_defs(d, cfg.d_ff, dt, gated=cfg.mlp_gated)}
 
@@ -55,6 +66,8 @@ class BlockCtx:
 
     cfg: ModelConfig
     window_override: Optional[int] = None  # force SWA on full-attn blocks
+    enc_out: Optional[torch.Tensor] = None  # encoder output (cross blocks)
+    kv_chunk: Optional[int] = None         # online-softmax attention chunk
     kv_dtype: str = "native"               # int8: quantized GQA KV cache
     # the activation-exchange group (process group) of model-sharded
     # blocks. Under a hybrid plan whether a given block actually runs
@@ -108,6 +121,14 @@ def _mlp_residual(p: dict, h: torch.Tensor, cfg: ModelConfig,
                              tp_axis=tp_axis)
 
 
+def _cross_residual(p: dict, h: torch.Tensor, kv: tuple,
+                    cfg: ModelConfig) -> torch.Tensor:
+    """A cross block's cross-attention over the encoder's (k, v), with its
+    residual."""
+    x = norm_apply(p["ln_x"], h, cfg)
+    return h + attn_mod.gqa_cross(p["xattn"], x, kv, cfg.attn)
+
+
 def block_apply(kind: str, p: dict, h: torch.Tensor,
                 ctx: BlockCtx) -> torch.Tensor:
     """Returns the block's output. (The reference also returns an auxiliary
@@ -115,9 +136,22 @@ def block_apply(kind: str, p: dict, h: torch.Tensor,
     _check_kind(kind)
     cfg = ctx.cfg
     x = norm_apply(p["ln1"], h, cfg)
-    h = h + attn_mod.gqa_apply(p["attn"], x, cfg.attn,
-                               window=ctx.window_for(kind),
-                               tp_axis=ctx.attn_tp(p["attn"], cfg.attn),
+    if kind == "mla":
+        h = h + attn_mod.mla_apply(p["mla"], x, cfg.mla,
+                                   window=ctx.window_override,
+                                   kv_chunk=ctx.kv_chunk)
+        return _mlp_residual(p, h, cfg)
+    if kind == "cross":
+        h = h + attn_mod.gqa_apply(p["attn"], x, cfg.attn,
+                                   kv_chunk=ctx.kv_chunk)
+        h = _cross_residual(p, h, attn_mod.gqa_cross_kv(
+            p["xattn"], ctx.enc_out, cfg.attn), cfg)
+        return _mlp_residual(p, h, cfg)
+    a = (cfg.attn if kind == "attn"
+         else dataclasses.replace(cfg.attn, causal=False))
+    h = h + attn_mod.gqa_apply(p["attn"], x, a, window=ctx.window_for(kind),
+                               kv_chunk=ctx.kv_chunk,
+                               tp_axis=ctx.attn_tp(p["attn"], a),
                                layout=ctx.attn_layout())
     return _mlp_residual(p, h, cfg, ctx.mlp_tp(p["mlp"]))
 
@@ -126,7 +160,22 @@ def block_apply(kind: str, p: dict, h: torch.Tensor,
 
 def block_init_cache(kind: str, cfg: ModelConfig, batch: int, max_seq: int,
                      ctx: BlockCtx, device=None) -> dict:
+    """The serving cache of one block: the attn kind's (int8 with
+    `ctx.kv_dtype`), MLA's latent, or a cross block's {"self": its
+    self-attention's, "cross": the encoder's K/V}. The encoder's blocks
+    keep no cache."""
     _check_kind(kind)
+    if kind == "mla":
+        return attn_mod.mla_init_cache(batch, max_seq, cfg.mla, cfg.dtype,
+                                       window=ctx.window_override,
+                                       device=device)
+    if kind == "cross":
+        a = cfg.attn
+        shape = (batch, cfg.encoder.n_frames, a.n_kv, a.head_dim)
+        return {"self": attn_mod.gqa_init_cache(batch, max_seq, a, cfg.dtype,
+                                                device=device),
+                "cross": {n: torch.zeros(shape, dtype=cfg.dtype,
+                                         device=device) for n in "kv"}}
     return attn_mod.gqa_init_cache(batch, max_seq, cfg.attn, cfg.dtype,
                                    window=ctx.window_for(kind),
                                    kv_dtype=ctx.kv_dtype, device=device)
@@ -135,10 +184,21 @@ def block_init_cache(kind: str, cfg: ModelConfig, batch: int, max_seq: int,
 def block_prefill(kind: str, p: dict, h: torch.Tensor, ctx: BlockCtx):
     """`block_apply` over the prompt; returns (h, the block's cache after
     the prompt). Takes the place of the reference's `block_prefill_cache`,
-    which projects the block input's K/V a second time."""
+    which projects the block input's K/V (MLA: its latent; cross: the
+    encoder's K/V) a second time."""
     _check_kind(kind)
     cfg = ctx.cfg
     x = norm_apply(p["ln1"], h, cfg)
+    if kind == "mla":
+        y, cache = attn_mod.mla_prefill(p["mla"], x, cfg.mla,
+                                        window=ctx.window_override)
+        return _mlp_residual(p, h + y, cfg), cache
+    if kind == "cross":
+        y, self_c = attn_mod.gqa_prefill(p["attn"], x, cfg.attn)
+        k, v = attn_mod.gqa_cross_kv(p["xattn"], ctx.enc_out, cfg.attn)
+        h = _cross_residual(p, h + y, (k, v), cfg)
+        return _mlp_residual(p, h, cfg), {"self": self_c,
+                                          "cross": {"k": k, "v": v}}
     y, cache = attn_mod.gqa_prefill(p["attn"], x, cfg.attn,
                                     window=ctx.window_for(kind),
                                     kv_dtype=ctx.kv_dtype)
@@ -154,6 +214,17 @@ def block_decode(kind: str, p: dict, h1: torch.Tensor, cache: dict, pos: int,
     _check_kind(kind)
     cfg = ctx.cfg
     x = norm_apply(p["ln1"], h1, cfg)
+    if kind == "mla":
+        y, cache = attn_mod.mla_decode(p["mla"], x, cache, pos, cfg.mla,
+                                       window=ctx.window_override)
+        return _mlp_residual(p, h1 + y, cfg), cache
+    if kind == "cross":
+        y, _ = attn_mod.gqa_decode(p["attn"], x, cache["self"], pos, cfg.attn)
+        h1 = h1 + y
+        x = norm_apply(p["ln_x"], h1, cfg)
+        h1 = h1 + attn_mod.gqa_decode_cross(p["xattn"], x, cache["cross"],
+                                            cfg.attn)
+        return _mlp_residual(p, h1, cfg), cache
     y, cache = attn_mod.gqa_decode(p["attn"], x, cache, pos, cfg.attn,
                                    window=ctx.window_for(kind))
     return _mlp_residual(p, h1 + y, cfg), cache

@@ -1,8 +1,8 @@
 """Shared model building blocks: init, norms, rotary embeddings, losses.
 
-Ports the dense-model half of `repro/models/common.py`. Parameters are
-nested dicts of tensors keyed like the reference's pytrees. Under model
-parallelism the embedding lookup and the cross-entropy also run on this
+Ports `repro/models/common.py` but for its JAX-only helper
+`abstract_tree`. Parameters are nested dicts of tensors keyed like the
+reference's pytrees. Under model parallelism the embedding lookup and the cross-entropy also run on this
 rank's shard of the table or of the logits (`embed_lookup`,
 `vocab_parallel_xent`), with their collectives explicit where the
 reference's partitioner inserts them.
@@ -67,6 +67,18 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
     return (x * scale.to(torch.float32)).to(dt)
 
 
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """Layer norm computed in f32 with a scale and a bias, cast back to x's
+    dtype."""
+    dt = x.dtype
+    x = x.to(torch.float32)
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * scale.to(torch.float32) + bias.to(torch.float32)).to(dt)
+
+
 # --- rotary position embeddings ------------------------------------------------
 
 def rope_freqs(rotary_dim: int, theta: float, device) -> torch.Tensor:
@@ -95,10 +107,26 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, *,
     return torch.cat([out.to(x.dtype), x[..., rot:]], dim=-1)
 
 
+def sinusoidal_positions(n: int, d: int, device=None) -> torch.Tensor:
+    """(n, d) f32 sinusoidal position table: sin in the even columns, cos in
+    the odd ones."""
+    pos = torch.arange(n, dtype=torch.float32, device=device)[:, None]
+    div = torch.exp(torch.arange(0, d, 2, dtype=torch.float32, device=device)
+                    * (-math.log(10000.0) / d))
+    pe = torch.zeros((n, d), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe
+
+
 # --- activations / loss ---------------------------------------------------------
 
 def act_fn(name: str):
-    return {"silu": F.silu, "gelu": F.gelu,
+    """The reference's activations. Its "gelu" is `jax.nn.gelu`, whose
+    default is the tanh approximation, so "gelu" and "gelu_tanh" are the
+    same function."""
+    return {"silu": F.silu,
+            "gelu": lambda x: F.gelu(x, approximate="tanh"),
             "gelu_tanh": lambda x: F.gelu(x, approximate="tanh"),
             "relu": F.relu}[name]
 

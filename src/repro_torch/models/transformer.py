@@ -1,11 +1,15 @@
 """The Model facade: embeddings + block pattern + head; training and
 serving entry points.
 
-Ports `repro/models/transformer.py` for dense decoders. The parameter tree
-keeps the reference's paths and shapes, including the stacked
-`blocks/p{i}_{kind}/...` leaves with their leading `pattern_repeats`
-dimension; the forward loops over that dimension in Python where the
-reference scans. With `cfg.remat`, each pattern repeat runs under
+Ports `repro/models/transformer.py` for the attention family: dense
+decoders (attn, mla), the VLM (projected patch embeddings prepended to
+the text) and the encoder-decoder (an encoder over frame embeddings, cross
+blocks, learned positions). The modality frontends are stubs, as in the
+reference: the model takes precomputed patch or frame embeddings. The
+parameter tree keeps the reference's paths and shapes, including the
+stacked `blocks/p{i}_{kind}/...` and `encoder/blocks/...` leaves with their
+leading repeat dimension; the forward loops over that dimension in Python
+where the reference scans. With `cfg.remat`, each pattern repeat runs under
 `torch.utils.checkpoint` (the reference's `jax.checkpoint` of the scan
 body) when autograd records.
 
@@ -17,9 +21,10 @@ feature-sharded MLPs, a vocab- or row-parallel head and the vocab-parallel
 cross-entropy.
 
 The serving cache has the reference's tree, `cache["blocks"]["p0_attn"]["k"]`
-with the leading `pattern_repeats` dimension. `prefill` and `decode_step`
-run under `torch.inference_mode()`; `decode_step` writes into the cache's
-tensors in place and returns them.
+with the leading `pattern_repeats` dimension (MLA: `"ckv"`, `"kpe"`; a
+cross block: `{"self": {"k", "v"}, "cross": {"k", "v"}}`). `prefill` and
+`decode_step` run under `torch.inference_mode()`; `decode_step` writes
+into the cache's tensors in place and returns them.
 """
 
 from __future__ import annotations
@@ -39,11 +44,15 @@ from repro_torch.models import blocks, common
 
 @dataclasses.dataclass(frozen=True)
 class Batch:
-    """Model inputs: `tokens` (B, S) integer; labels/mask the same shape."""
+    """Model inputs: `tokens` (B, S) integer; labels/mask the same shape.
+    img_embeds (B, n_img, d_vision) for VLMs; frame_embeds (B, n_frames,
+    d_input) for audio enc-dec."""
 
     tokens: torch.Tensor
     labels: Optional[torch.Tensor] = None
     mask: Optional[torch.Tensor] = None
+    img_embeds: Optional[torch.Tensor] = None
+    frame_embeds: Optional[torch.Tensor] = None
 
 
 class Model:
@@ -62,6 +71,25 @@ class Model:
         }
         if not cfg.tie_embeddings:
             defs["head"] = pl.ParamDef((d, cfg.vocab), pl.K_HEAD, cfg.dtype)
+        if cfg.vlm_img_tokens:
+            defs["img_proj"] = pl.ParamDef((cfg.vlm_d_vision, d),
+                                           pl.K_REPLICATED, cfg.dtype)
+        if cfg.learned_positions:
+            defs["pos_emb"] = pl.ParamDef((cfg.learned_positions, d),
+                                          pl.K_REPLICATED, cfg.dtype,
+                                          init="scaled", init_scale=0.02)
+        if cfg.encoder is not None:
+            enc: dict = {
+                "blocks": common.stack_defs(blocks.block_defs("enc", cfg),
+                                            cfg.encoder.n_layers),
+                "pos": pl.ParamDef((cfg.encoder.n_frames, d), pl.K_REPLICATED,
+                                   cfg.dtype, init="scaled", init_scale=0.02),
+                "ln_f": blocks.norm_defs(d, cfg),
+            }
+            if cfg.encoder.d_input != d:
+                enc["in_proj"] = pl.ParamDef((cfg.encoder.d_input, d),
+                                             pl.K_REPLICATED, cfg.dtype)
+            defs["encoder"] = enc
         reps = cfg.pattern_repeats
         if reps > 0:
             defs["blocks"] = {
@@ -85,8 +113,28 @@ class Model:
 
     @staticmethod
     def stacked_path(path: tuple) -> bool:
-        """Paths whose leaves have a leading stacked (repeat) dimension."""
+        """Paths whose leaves have a leading stacked (repeat) dimension:
+        `blocks/...` and the encoder's `encoder/blocks/...`."""
         return "blocks" in path
+
+    def check_tensor_parallel(self, what: str) -> None:
+        """Raise unless `what` (model parallelism, or a hybrid plan's tensor
+        parallelism) runs every part of this model: only the "attn" block
+        kind, with no image projector, learned positions or encoder, is
+        ported there."""
+        cfg = self.cfg
+        kinds = [k for k in cfg.block_pattern if k != "attn"]
+        if cfg.encoder is not None:
+            kinds.append("enc")
+        parts = [f"block kind {k!r}" for k in dict.fromkeys(kinds)]
+        if cfg.vlm_img_tokens:
+            parts.append("the image projector img_proj")
+        if cfg.learned_positions:
+            parts.append("the learned positions pos_emb")
+        if parts:
+            raise NotImplementedError(
+                f"{what} is not yet ported for {cfg.name}: "
+                f"{', '.join(parts)}")
 
     # ---------------- forward ----------------
 
@@ -95,7 +143,9 @@ class Model:
         (`Planner.model_dims`), checked against the layouts the
         model-parallel forward runs; any other raises, naming the leaf and
         its spec. Nothing is replicated in place of a layout it cannot
-        run."""
+        run; a model with parts the model-parallel forward lacks raises
+        (`check_tensor_parallel`)."""
+        self.check_tensor_parallel("model parallelism")
         defs = self.param_defs()
         dims = planner.model_dims(defs, stacked_paths=Model.stacked_path)
         specs = planner.tree_specs(defs, stacked_paths=Model.stacked_path)
@@ -120,19 +170,57 @@ class Model:
         return dims
 
     def _ctx(self, window_override: Optional[int] = None,
-             kv_dtype: str = "native", tp_axis=None) -> blocks.BlockCtx:
+             kv_dtype: str = "native", tp_axis=None, enc_out=None,
+             kv_chunk: Optional[int] = None) -> blocks.BlockCtx:
         return blocks.BlockCtx(cfg=self.cfg, window_override=window_override,
+                               enc_out=enc_out, kv_chunk=kv_chunk,
                                kv_dtype=kv_dtype, tp_axis=tp_axis)
 
-    def _embed(self, params: dict, batch: Batch, *, group=None,
-               layout: Optional[dict] = None) -> torch.Tensor:
+    def _embed(self, params: dict, batch: Batch, *, pos0: int = 0,
+               group=None, layout: Optional[dict] = None) -> torch.Tensor:
+        """Token embeddings, with the projected image tokens first (VLM)
+        and the learned positions from `pos0` on added."""
+        cfg = self.cfg
         h = common.embed_lookup(params["embed"], batch.tokens, group=group,
                                 dim=None if layout is None
                                 else layout["embed"])
-        if self.cfg.embed_scale:
-            h = h * torch.sqrt(torch.tensor(self.cfg.d_model, dtype=h.dtype,
+        if cfg.embed_scale:
+            h = h * torch.sqrt(torch.tensor(cfg.d_model, dtype=h.dtype,
                                             device=h.device))
+        if cfg.vlm_img_tokens and batch.img_embeds is not None:
+            img = batch.img_embeds.to(cfg.dtype) @ params["img_proj"]
+            h = torch.cat([img, h], dim=1)
+        if cfg.learned_positions:
+            S = h.shape[1]
+            # the reference's dynamic_slice clamps the start into range
+            start = max(0, min(pos0, cfg.learned_positions - S))
+            h = h + params["pos_emb"][start:start + S][None]
         return h
+
+    def _encode(self, params: dict, batch: Batch) -> Optional[torch.Tensor]:
+        """The encoder over the batch's frame embeddings (B, n_frames,
+        d_input): bidirectional blocks over learned frame positions, then
+        its final norm. None for a model without an encoder."""
+        cfg = self.cfg
+        if cfg.encoder is None:
+            return None
+        frame_embeds = batch.frame_embeds
+        if frame_embeds is None:
+            enc = cfg.encoder
+            raise ValueError(
+                f"{cfg.name} is an encoder-decoder: its encoder needs frame "
+                f"embeddings (Batch.frame_embeds, or frame_embeds= of "
+                f"Engine.generate: (batch, {enc.n_frames}, {enc.d_input})), "
+                f"and none were given")
+        p = params["encoder"]
+        h = frame_embeds.to(cfg.dtype)
+        if "in_proj" in p:
+            h = h @ p["in_proj"]
+        h = h + p["pos"][None]
+        ctx = self._ctx()
+        for r in range(cfg.encoder.n_layers):
+            h = blocks.block_apply("enc", _slice_tree(p["blocks"], r), h, ctx)
+        return blocks.norm_apply(p["ln_f"], h, cfg)
 
     def _run_blocks(self, params: dict, h: torch.Tensor,
                     ctx: blocks.BlockCtx,
@@ -194,7 +282,8 @@ class Model:
         return logits
 
     def forward(self, params: dict, batch: Batch, *, tp_axis=None,
-                layout: Optional[dict] = None) -> torch.Tensor:
+                layout: Optional[dict] = None,
+                kv_chunk: Optional[int] = None) -> torch.Tensor:
         """Full-sequence logits (training / evaluation). `tp_axis` (a
         process group): blocks whose weights are head/feature shards run
         tensor-parallel over it; replicated blocks ignore it.
@@ -205,15 +294,26 @@ class Model:
         place their collectives by it, and the logits come back as this
         rank's block of vocabulary columns when the head is split by
         vocabulary (the full logits when it is split by the model
-        dimension or not at all)."""
-        ctx = self._ctx(tp_axis=tp_axis)
+        dimension or not at all).
+
+        `kv_chunk`: the attention runs online-softmax over chunks of that
+        many keys (`attention.chunked_sdpa`) where it would materialize
+        the scores. A VLM's logits cover the image positions too."""
+        ctx = self._ctx(tp_axis=tp_axis, enc_out=self._encode(params, batch),
+                        kv_chunk=kv_chunk)
         h = self._embed(params, batch, group=tp_axis, layout=layout)
         h = self._run_blocks(params, h, ctx, layout)
         return self._head(params, h, group=tp_axis, layout=layout)
 
     def loss(self, params: dict, batch: Batch, *, tp_axis=None,
-             layout: Optional[dict] = None) -> torch.Tensor:
-        logits = self.forward(params, batch, tp_axis=tp_axis, layout=layout)
+             layout: Optional[dict] = None,
+             kv_chunk: Optional[int] = None) -> torch.Tensor:
+        """Next-token cross-entropy over the text positions (a VLM's image
+        positions are dropped)."""
+        logits = self.forward(params, batch, tp_axis=tp_axis, layout=layout,
+                              kv_chunk=kv_chunk)
+        if self.cfg.vlm_img_tokens and batch.img_embeds is not None:
+            logits = logits[:, batch.img_embeds.shape[1]:]
         labels = batch.labels[:, 1:]
         mask = None if batch.mask is None else batch.mask[:, 1:]
         if self._head_dim(layout) == -1:
@@ -233,9 +333,9 @@ class Model:
             for i, kind in enumerate(cfg.block_pattern):
                 one = blocks.block_init_cache(kind, cfg, batch, max_seq, ctx,
                                               device)
-                cache["blocks"][f"p{i}_{kind}"] = {
-                    k: t[None].repeat((cfg.pattern_repeats,) + (1,) * t.dim())
-                    for k, t in one.items()}
+                cache["blocks"][f"p{i}_{kind}"] = tree_lib.tree_map(
+                    lambda t: t[None].repeat((cfg.pattern_repeats,)
+                                             + (1,) * t.dim()), one)
         if cfg.tail_layers:
             cache["tail"] = {
                 f"t{i}_{kind}": blocks.block_init_cache(kind, cfg, batch,
@@ -250,25 +350,37 @@ class Model:
 
         The cache is laid out for `decode_step`: windowed blocks get ring
         buffers (compacted only when the prompt is longer than the window),
-        full-attention blocks get max_seq slots.
+        full-attention blocks get max_seq slots; a cross block's
+        self-attention grows to max_seq and its encoder K/V keep their
+        n_frames rows. The encoder runs once, before the blocks; the
+        prompt length counts a VLM's image tokens.
         """
         cfg = self.cfg
-        ctx = self._ctx(**ctx_kw)
+        ctx = self._ctx(enc_out=self._encode(params, batch), **ctx_kw)
         h = self._embed(params, batch)
         S = h.shape[1]
         cache: dict = {}
 
-        def slots(kind: str, t: torch.Tensor) -> int:
-            """Grow prompt-length K/V buffers to max_seq slots (the
-            reference's pad_cache)."""
-            w = ctx.window_for(kind)
-            if (not w or w >= max_seq) and t.dim() >= 2 and t.shape[1] == S:
-                return max(S, max_seq)
-            return t.shape[1]
+        def grows(kind: str) -> bool:
+            """Do the block's prompt-length buffers grow to max_seq slots
+            (the reference's pad_cache)? A cross block's self-attention
+            always does."""
+            if kind == "cross":
+                return True
+            w = (ctx.window_override if kind == "mla"
+                 else ctx.window_for(kind))
+            return not w or w >= max_seq
 
-        def put(bufs: dict, kind: str, c: dict, r: Optional[int]) -> None:
+        def put(bufs: dict, c: dict, r: Optional[int], grow: bool) -> None:
             for key, t in c.items():
-                shape = (t.shape[0], slots(kind, t)) + tuple(t.shape[2:])
+                if isinstance(t, dict):
+                    # a cross block's caches: only "self" grows
+                    put(bufs.setdefault(key, {}), t, r,
+                        grow and key == "self")
+                    continue
+                n = (max(S, max_seq) if grow and t.dim() >= 2
+                     and t.shape[1] == S else t.shape[1])
+                shape = (t.shape[0], n) + tuple(t.shape[2:])
                 if key not in bufs:
                     lead = () if r is None else (cfg.pattern_repeats,)
                     bufs[key] = t.new_zeros(lead + shape)
@@ -284,14 +396,14 @@ class Model:
                                                    stacked)):
                     h, c = blocks.block_prefill(kind, _slice_tree(ps, r), h,
                                                 ctx)
-                    put(cache["blocks"][f"p{i}_{kind}"], kind, c, r)
+                    put(cache["blocks"][f"p{i}_{kind}"], c, r, grows(kind))
         if cfg.tail_layers:
             cache["tail"] = {}
             for i, kind in enumerate(cfg.tail_layers):
                 h, c = blocks.block_prefill(
                     kind, params["tail"][f"t{i}_{kind}"], h, ctx)
-                put(cache["tail"].setdefault(f"t{i}_{kind}", {}), kind, c,
-                    None)
+                put(cache["tail"].setdefault(f"t{i}_{kind}", {}), c, None,
+                    grows(kind))
         logits = self._head(params, h[:, -1:, :])
         return logits[:, 0, :], cache, S
 
@@ -304,7 +416,7 @@ class Model:
         cfg = self.cfg
         ctx = self._ctx(**ctx_kw)
         pos = int(pos)
-        h = self._embed(params, Batch(tokens=token))
+        h = self._embed(params, Batch(tokens=token), pos0=pos)
         new_cache: dict = {"blocks": {}, "tail": {}}
         if cfg.pattern_repeats > 0:
             keys = [f"p{i}_{k}" for i, k in enumerate(cfg.block_pattern)]

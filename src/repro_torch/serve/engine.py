@@ -73,6 +73,10 @@ class Engine:
                               / self.cfg.temperature, dim=-1)
         return torch.multinomial(probs, 1, generator=gen)[:, 0]
 
+    def _tensor(self, a) -> Optional[torch.Tensor]:
+        return None if a is None else torch.as_tensor(np.asarray(a),
+                                                      device=self.device)
+
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -99,11 +103,15 @@ class Engine:
                                          factor=a.factor, level=a.level,
                                          rank=a.rank, detail=a.detail)
 
-    def generate(self, prompts: np.ndarray, n_new: int, *, seed: int = 0,
+    def generate(self, prompts: np.ndarray, n_new: int, *,
+                 img_embeds=None, frame_embeds=None, seed: int = 0,
                  timings: Optional[dict] = None) -> np.ndarray:
         """prompts (B, S) int32 -> (B, n_new) generated int32 tokens: the
         prefill's token, then n_new decode steps (the last step's token is
-        not returned, as in the reference).
+        not returned, as in the reference). `img_embeds` (B, n_img,
+        d_vision) go before a VLM's prompt (the decode positions count
+        them); `frame_embeds` (B, n_frames, d_input) feed an
+        encoder-decoder's encoder, which raises without them.
 
         `timings`, when given, receives host-clock seconds, each read after
         the device has finished: `prefill_s` (the call to the prefill's
@@ -115,10 +123,12 @@ class Engine:
         t0 = time.perf_counter()
         tokens = torch.as_tensor(np.asarray(prompts, np.int32),
                                  device=self.device)
+        batch = Batch(tokens=tokens,
+                      img_embeds=self._tensor(img_embeds),
+                      frame_embeds=self._tensor(frame_embeds))
         with self._span("prefill"):
             logits, cache, pos = self.model.prefill(
-                self.params, Batch(tokens=tokens), self.cfg.max_seq,
-                **self.ctx_kw)
+                self.params, batch, self.cfg.max_seq, **self.ctx_kw)
             if sync:
                 self._sync()
         if timings is not None:

@@ -210,6 +210,8 @@ def make_train_step(model: Model, optimizer: opt_lib.Optimizer, mesh,
     if mp and hybrid is not None:
         raise ValueError("a hybrid plan has its own model-parallel layers; "
                          "force_model_parallel does not apply")
+    if hybrid is not None:
+        model.check_tensor_parallel("hybrid execution")
     if device is None:
         device = torch.device(mesh.device_type)
     data_axes = planner.batch_axes
@@ -243,7 +245,8 @@ def make_train_step(model: Model, optimizer: opt_lib.Optimizer, mesh,
         with torch.enable_grad():
             for p in leaves:
                 p.requires_grad_(True)
-            loss = model.loss(params, batch, tp_axis=tp_group, layout=layout)
+            loss = model.loss(params, batch, tp_axis=tp_group, layout=layout,
+                              kv_chunk=comm.kv_chunk or None)
             grads = torch.autograd.grad(loss, leaves)
             for p in leaves:
                 p.requires_grad_(False)
@@ -376,4 +379,5 @@ def _rows(batch: Batch, k: int, n: int) -> Batch:
         m = x.shape[0] // n
         return x[k * m:(k + 1) * m]
     return Batch(tokens=one(batch.tokens), labels=one(batch.labels),
-                 mask=one(batch.mask))
+                 mask=one(batch.mask), img_embeds=one(batch.img_embeds),
+                 frame_embeds=one(batch.frame_embeds))

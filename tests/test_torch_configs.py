@@ -5,6 +5,9 @@ same weights: the configs field by field, and on the smoke configs (f32 on
 the CPU, the reference's parameters carried across with `params_from_jax`)
 the forward logits (atol 1e-4), the loss (rtol 1e-5) and the greedy tokens
 of a prefill and its decode steps through each package's engine (equal).
+Every ported config (the attention family's too: tests/test_torch_archs.py
+holds their models) equals the reference's field by field, with the same
+parameter count and parameter-count estimate.
 """
 
 import dataclasses
@@ -15,15 +18,17 @@ import numpy as np
 import pytest
 import torch
 
-from repro.configs import registry as jreg
+from repro.configs import base as jbase, registry as jreg
 from repro.models.transformer import Batch as JBatch, Model as JModel
 from repro.serve import engine as jengine
 from repro_torch import convert
-from repro_torch.configs import registry as treg
+from repro_torch.configs import base as tbase, registry as treg
 from repro_torch.models.transformer import Batch as TBatch, Model as TModel
 from repro_torch.serve import engine as tengine
 
 ARCHS = ("chatglm3-6b", "deepseek-7b")
+CONFIG_ARCHS = ("yi-6b",) + ARCHS + ("llava-next-mistral-7b", "whisper-small",
+                                     "minicpm3-4b")
 
 
 def _fields(cfg, names=None):
@@ -46,9 +51,10 @@ def _fields(cfg, names=None):
 
 
 @pytest.mark.parametrize("smoke", [False, True])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", CONFIG_ARCHS)
 def test_config_equals_reference(arch, smoke):
-    """Every field the port's config has equals the reference's."""
+    """Every field the port's config has equals the reference's, and so do
+    the parameter count and its estimate."""
     get_t = treg.get_smoke_config if smoke else treg.get_config
     get_j = jreg.get_smoke_config if smoke else jreg.get_config
     mine = _fields(get_t(arch))
@@ -57,6 +63,8 @@ def test_config_equals_reference(arch, smoke):
     assert _fields(get_j(arch), names) == mine
     assert arch in treg.ARCH_IDS
     assert TModel(get_t(arch)).n_params() == JModel(get_j(arch)).n_params()
+    assert tbase.param_count_estimate(get_t(arch)) == \
+        jbase.param_count_estimate(get_j(arch))
 
 
 @pytest.fixture(scope="module", params=ARCHS)
