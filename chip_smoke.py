@@ -22,33 +22,40 @@ Phases, each fatal on failure:
                  query heads on 4 KV heads, D 128) bf16 causal, of S-B
                  (1, 8192, 32 on 4, 128) bf16 causal window 4096 (compared
                  on the first 4 heads: the plain version's scores for 32
-                 heads would take 8.6 GB), and a ragged f32 case (2, 1000,
-                 3 on 1, 32) causal window 100, and the attention family's
-                 prefill: whisper-small's encoder W-enc (16, 1500, 12 on
-                 12, 64) bf16 non-causal, its decoder's self-attention
-                 W-dec (16, 32, 12 on 12, 64) causal on serve cell W-A's
-                 32-token prompt and its cross-attention W-cross (those 32
-                 queries on 1500 keys) non-causal on the mma.sync kernel
-                 (`mma_bf16`),
-                 llava's V-A (8, 2048, 32 on 8, 128) bf16 causal window
-                 4096; both wrappers, the model's (B, S, H, D) layout with
+                 heads would take 8.6 GB), a ragged f32 case (2, 1000,
+                 3 on 1, 32) causal window 100 and its bf16 twin (the
+                 mma.sync kernel, `mma_bf16`, which no served model
+                 reaches), and the attention family's prefill:
+                 whisper-small's encoder W-enc (16, 1500, 12 on 12, 64)
+                 bf16 non-causal, its decoder's self-attention W-dec (16,
+                 32, 12 on 12, 64) causal on serve cell W-A's 32-token
+                 prompt and its cross-attention W-cross (those 32 queries
+                 on 1500 keys) non-causal, all three on the Hopper kernel
+                 at D 64, llava's V-A (8, 2048, 32 on 8, 128) bf16 causal
+                 window 4096; both wrappers, the model's (B, S, H, D) layout with
                  KV heads read through strides and the reference's (B, H,
                  S, D) with heads repeated; scores of
                  standard deviation 1. Tolerance (FLASH_TOL), per element,
                  rtol |plain| + atol x the RMS of the plain output's row:
                  bf16 1.6e-2 and 2e-2, f32 2e-5 and 2e-5; a control with 64
                  keys' scores zeroed (W-dec: its last 16) must fail it; the
-                 per-kernel counts must show S-A, S-B and V-A on the Hopper
-                 kernel (`wgmma_bf16`), W-enc, W-dec and W-cross on
-                 `mma_bf16` and the
-                 ragged case on the FMA kernel. Times kernel, plain version
+                 per-kernel counts must show S-A, S-B, V-A, W-enc, W-dec
+                 and W-cross on the Hopper kernel (`wgmma_bf16`), the bf16
+                 ragged case on `mma_bf16` and the f32 one on the FMA
+                 kernel. Times kernel, plain version
                  and the one PyTorch call that computes the same function
                  (`torch.mul`, `torch.addcmul` for the dequantize kernels,
                  `scaled_dot_product_attention` for flash, at S-B with a
                  boolean causal-and-window mask, non-causal at W-enc and
                  W-cross; no single call quantizes) with CUDA events, and
                  prints each flash time's
-                 share of its bound and its ratio to the library call;
+                 share of its bound and its ratio to the library call, and
+                 each flash shape's host issue apart from its kernel: the
+                 wrapper's host time per call over calls issued back to
+                 back (one synchronize after them) and the kernel's device
+                 time per launch from torch.profiler's key_averages, and
+                 the same split for the library call (its kernels' device
+                 time per call);
   4. model    -- the smoke models of yi-6b, llava-next-mistral-7b,
                  whisper-small and minicpm3-4b (standard-normal patch and
                  frame embeddings) on the card against the CPU, same weights:
@@ -144,8 +151,8 @@ Phases, each fatal on failure:
                  standard-normal patch embeddings + 1472 tokens); W-A
                  whisper-small, batch 16 x 1500 standard-normal frame
                  embeddings, decoder prompt 32; M-A minicpm3-4b, batch 8 x
-                 2048. Each checks its flash launches per prefill (32 on
-                 `wgmma_bf16` / 36 on `mma_bf16` / 0), finite logits and
+                 2048. Each checks its flash launches per prefill (32 / 36
+                 on `wgmma_bf16` / 0), finite logits and
                  tokens in the vocabulary, and prints prefill, first-token
                  and decode times and peak memory; then one prefill and 3
                  decode steps under torch.profiler: kernels, their summed
@@ -197,26 +204,29 @@ QUANT8 = tuple(KERNELS)[:4]
 N_LAYERS = 32                   # yi-6b, served at full depth
 # flash_attention shapes (B, Sq, Sk, H, KV, D, dtype, window, causal,
 # heads compared, the kernel it must run on): the prefill of serve cells
-# S-A and S-B (yi-6b's 32 query heads on 4 KV heads), a ragged f32 case at
-# D 32 with 3 query heads on one KV head, and the attention family's
+# S-A and S-B (yi-6b's 32 query heads on 4 KV heads), a ragged case at D 32
+# with 3 query heads on one KV head in f32 and in bf16 (the mma.sync
+# kernel, which no served model reaches), and the attention family's
 # prefill: whisper-small's encoder (W-enc, 1500 frames, non-causal), its
 # decoder's causal self-attention on serve cell W-A's 32-token prompt
-# (W-dec: half of one 64-row query tile) and its cross-attention (W-cross,
-# those 32 queries on the 1500 encoder keys), all at D 64 on the mma.sync
-# kernel, and llava-next-mistral-7b's (V-A,
-# 32 query heads on 8 KV heads, window 4096)
+# (W-dec: a sixth of one 192-row query tile) and its cross-attention
+# (W-cross, those 32 queries on the 1500 encoder keys), all at D 64 on the
+# Hopper kernel, and llava-next-mistral-7b's (V-A, 32 query heads on 8 KV
+# heads, window 4096)
 FLASH_SHAPES = {
     "S-A": (8, 2048, 2048, 32, 4, 128, "bfloat16", None, True, 32,
             "wgmma_bf16"),
     "S-B": (1, 8192, 8192, 32, 4, 128, "bfloat16", 4096, True, 4,
             "wgmma_bf16"),
     "ragged": (2, 1000, 1000, 3, 1, 32, "float32", 100, True, 3, "fma_f32"),
+    "ragged-bf16": (2, 1000, 1000, 3, 1, 32, "bfloat16", 100, True, 3,
+                    "mma_bf16"),
     "W-enc": (16, 1500, 1500, 12, 12, 64, "bfloat16", None, False, 12,
-              "mma_bf16"),
+              "wgmma_bf16"),
     "W-dec": (16, 32, 32, 12, 12, 64, "bfloat16", None, True, 12,
-              "mma_bf16"),
+              "wgmma_bf16"),
     "W-cross": (16, 32, 1500, 12, 12, 64, "bfloat16", None, False, 12,
-                "mma_bf16"),
+                "wgmma_bf16"),
     "V-A": (8, 2048, 2048, 32, 8, 128, "bfloat16", 4096, True, 32,
             "wgmma_bf16")}
 # flash_attention tolerance (rtol, atol as a share of the RMS of the plain
@@ -278,6 +288,11 @@ def build_phase():
             if any(k in line for k in ("registers", "spill", "smem",
                                        "Compiling")):
                 log("  " + line.strip())
+    # the Hopper flash kernel's instances (registers at launch; setmaxnreg
+    # moves them between the producer and the consumers)
+    for _, out in built:
+        for d, regs, spill in _build.ptxas_usage(out, "flash_fwd_wgmma"):
+            log(f"  flash_fwd_wgmma<{d}>: {regs} registers, {spill}")
 
 
 # --------------------------------------------------------------------------
@@ -462,6 +477,39 @@ def flash_excess(torch, out, plain, tol) -> float:
                   / (rtol * plain.abs() + atol * rms)).max())
 
 
+def issue_split(torch, fn, n, kernel=""):
+    """fn's host issue apart from its kernels' device time: (host us per
+    call, device us per call of the kernels whose name holds `kernel`, their
+    launches in n calls). The host time is a host clock over n calls issued
+    back to back, with one synchronize after the window; the device time
+    comes from torch.profiler's key_averages over n more calls (the trace's
+    kernel events where key_averages shows no device time)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host_s = (time.perf_counter() - t0) / n
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    # the device's own rows (an operator's row also sums its kernels' time)
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and kernel in e.key]
+    dev_us = sum(getattr(e, "device_time_total", 0.0) for e in rows)
+    count = sum(e.count for e in rows)
+    if dev_us <= 0:
+        events = [e for e in _kernels(prof) if kernel in e.get("name", "")]
+        dev_us = sum(float(e.get("dur", 0.0)) for e in events)
+        count = len(events)
+    return host_s * 1e6, dev_us / n, count
+
+
 def _window_mask(torch, s, window, dev):
     """The boolean causal-and-window mask (True: attend) of a (s, s) score
     matrix, for `scaled_dot_product_attention`'s attn_mask."""
@@ -531,7 +579,8 @@ def flash_phase(torch):
         check(ctrl > 1, f"flash {label}: the check passes a wrong result")
         del outs, k_ctrl
         library = None
-        if label != "ragged" and (window is None or window >= S):
+        if not label.startswith("ragged") and (window is None or
+                                               window >= S):
             def library():
                 return torch.nn.functional.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=causal)
@@ -570,6 +619,19 @@ def flash_phase(torch):
             f"({bound_by}, {flops} FLOP, {bytes_} B)  share of the bound "
             f"{bound_ms / ms:.1%}  plain {plain_ms:.4f} ms on {heads} heads  "
             f"library {lib}")
+        host_us, kernel_us, profiled_n = issue_split(
+            torch, lambda: flashattn.gqa_flash_attention(q, k, v, **kw),
+            iters, "flash_fwd")
+        check(profiled_n == iters, f"flash {label}: the profiler saw "
+                                   f"{profiled_n} of {iters} launches")
+        split = (f"host {host_us:.1f} us per call, kernel {kernel_us:.1f} us "
+                 f"per launch ({profiled_n} launches profiled)")
+        if library is not None:
+            lib_host, lib_kernel, lib_n = issue_split(torch, library, iters)
+            split += (f"; library host {lib_host:.1f} us per call, its "
+                      f"{lib_n / iters:g} kernels {lib_kernel:.1f} us per "
+                      f"call")
+        log(f"  flash {label:7s} issue split: {split}")
         if label == "S-A":
             res.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                        bound_by=bound_by, library_ms=library_ms)
@@ -1410,8 +1472,8 @@ def cli_obs_phase(torch):
 FAMILY_SERVE = (
     ("V-A", "llava-next-mistral-7b",
      dict(batch=8, prompt_len=1472, n_new=64), (32, "wgmma_bf16")),
-    ("W-A", "whisper-small", dict(batch=16, prompt_len=32, n_new=64),
-     (36, "mma_bf16")),
+    ("W-A", "whisper-small",
+     dict(batch=16, prompt_len=32, n_new=64, repeat=2), (36, "wgmma_bf16")),
     ("M-A", "minicpm3-4b", dict(batch=8, prompt_len=2048, n_new=64),
      (0, None)))
 
@@ -1421,8 +1483,8 @@ def family_serve_phase(torch):
     random weights, through `serve_phase`. V-A's 576 patch embeddings and
     1472 tokens fill 2048 positions (32 launches of `wgmma_bf16`, D 128, 32
     query heads on 8 KV heads); W-A's encoder takes 1500 frame embeddings
-    per request (36 launches of `mma_bf16`, D 64: 12 encoder non-causal, 12
-    decoder causal, 12 cross non-causal on 1500 keys); M-A's MLA attention
+    per request (36 launches of `wgmma_bf16`, D 64: 12 encoder non-causal,
+    12 decoder causal, 12 cross non-causal on 1500 keys); M-A's MLA attention
     is plain PyTorch (no launch)."""
     from repro_torch.configs import registry
     from repro_torch.models.transformer import Model

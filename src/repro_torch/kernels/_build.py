@@ -13,6 +13,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import tempfile
@@ -86,6 +87,18 @@ def build(name: str) -> tuple[pathlib.Path, str]:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return out, proc.stdout + proc.stderr
+
+
+def ptxas_usage(log: str, kernel: str) -> list[tuple[str, int, str]]:
+    """(template arguments, registers, stack and spill line) of each entry
+    function whose name holds `kernel`, from ptxas's -v lines in a build
+    log; "" for a function that is not a template instance."""
+    found = re.findall(r"Compiling entry function '(\w*" + re.escape(kernel)
+                       + r"\w*)' for 'sm_\w+'.*?\n\s*(\d+ bytes stack "
+                       r"frame[^\n]*)\n[^\n]*?Used (\d+) registers", log,
+                       re.S)
+    return [(",".join(re.findall(r"Li(\d+)E", name)), int(regs), spill.strip())
+            for name, spill, regs in found]
 
 
 def load(name: str, signatures: dict) -> ctypes.CDLL:

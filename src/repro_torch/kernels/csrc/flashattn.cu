@@ -20,12 +20,14 @@
 // rows (the last query tiles, under a causal mask) are scheduled first. Each
 // (dtype, D) pair runs exactly one kernel (dispatch_bf16 / dispatch_f32):
 //
-//   * bf16, D 128 (the model's prefill: yi-6b's head dim):
-//     flash_fwd_wgmma, built for Hopper (see its comment below): persistent
-//     CTAs, TMA loads from a warp-specialized producer, both products on
-//     wgmma, 128-row query tiles and 128-key KV tiles;
-//   * bf16, D 32 and 64: flash_fwd_bf16, both products on mma.sync from
-//     every warp, 64-row query tiles, a cp.async K/V ring;
+//   * bf16, D 64 and 128 (whisper-small's encoder, decoder and
+//     cross-attention; yi-6b's and llava's prefill): flash_fwd_wgmma<D>,
+//     built for Hopper (see its comment below): persistent CTAs, TMA loads
+//     from a warp-specialized producer, both products on wgmma, 128-key KV
+//     tiles; D 64 on 192-row query tiles (three consumer warpgroups), D 128
+//     on 128-row tiles (two);
+//   * bf16, D 32 (no served model has it): flash_fwd_bf16, both products on
+//     mma.sync from every warp, 64-row query tiles, a cp.async K/V ring;
 //   * f32, D 32, 64 and 128: flash_fwd_f32, both products as f32 FMAs on
 //     the CUDA cores, so f32 attention keeps f32 products as in the TPU
 //     kernel.
@@ -42,26 +44,37 @@
 // (query head h reads KV head h / group), so no transposed or repeated copy
 // is made.
 //
-// Bound. At the prefill shapes the work is 4*D flops per visible (query,
-// key) pair against reading q, k, v and writing o once (S-A: 0.28 ms of
-// bf16 tensor-core work at 989 TFLOP/s against 0.09 ms of HBM traffic), so
-// the tensor cores' rate bounds it. flash_fwd_wgmma is built for that
-// bound: wgmma is the only instruction that reaches it, one thread's TMA
-// copies leave the math warps' registers and issue slots to the products,
-// and 128 x 128 tiles read each K/V tile from shared memory once per 64
-// query rows instead of once per 16. The softmax's exp2 (16 a clock per SM)
-// needs about half the products' time at D 128, so each group runs it
-// under its own P V, and persistent CTAs load the next item's tiles while
-// the last ones finish.
+// Bounds. The work is 4*D flops per visible (query, key) pair against
+// reading q, k, v and writing o once, and one exp2 per visible pair. At the
+// prefill shapes the tensor cores bound it: S-A takes 0.28 ms of bf16 work
+// at 989 TFLOP/s against 0.09 ms of HBM traffic, W-enc (whisper's encoder,
+// 16 x 12 heads of 1500 x 1500 at D 64) 0.112 ms. The exp2 unit (MUFU.EX2,
+// 16 a clock per SM against the tensor cores' 4,096 flops) needs 1/16 of a
+// clock per score: half the products' time at D 128 and all of it at D 64,
+// where W-enc's 4.3e8 scores also take 0.112 ms. flash_fwd_wgmma is built
+// for both: wgmma is the only instruction that reaches the tensor cores'
+// rate; one thread's TMA copies leave the math warps' registers and issue
+// slots to the products; 64-row warpgroup tiles read each K/V tile from
+// shared memory once per 64 query rows instead of once per 16; and the
+// softmax of one tile runs under products in flight: at D 128 under the same
+// group's P V, at D 64 under the other two groups' products, the groups
+// issuing in turns. The exp2 is MUFU.EX2 alone (ex2.approx.ftz), with the
+// scale folded into the multiply-add before it on interior tiles, so each
+// score costs one exp2. Persistent CTAs load the next item's tiles while the
+// last ones finish. At 32 queries (W-dec, W-cross) a 192-row tile has one
+// group's rows; the others only keep the barriers.
 //
 // Driver API. The TMA descriptors (CUtensorMap) are encoded on the host for
 // every call, since the pointers change, with cuTensorMapEncodeTiled. It is
 // reached through the runtime's cudaGetDriverEntryPoint(ByVersion), so the
-// library links no -lcuda; <cuda.h> supplies its types only.
+// library links no -lcuda; <cuda.h> supplies its types only. The SM count
+// and each kernel's raised shared-memory limit are asked once per device
+// and process (sm_count, allow_smem).
 //
 // Built with FMA contraction allowed (unlike quant8): the result is held to a
-// tolerance, not bitwise. The f32 kernel uses expf, the bf16 kernels exp2f on
-// scores scaled by log2(e). The final division stays IEEE (flash_fwd_wgmma:
+// tolerance, not bitwise. The f32 kernel uses expf, the bf16 kernels 2^x on
+// scores scaled by log2(e) (exp2f in flash_fwd_bf16, ex2.approx.ftz in
+// flash_fwd_wgmma). The final division stays IEEE (flash_fwd_wgmma:
 // one IEEE reciprocal per row, then a multiply per element).
 
 #include <cuda.h>
@@ -70,6 +83,8 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <atomic>
+#include <type_traits>
 
 namespace {
 
@@ -283,7 +298,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_f32(Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16, D 32 and 64: the two products on the tensor cores (mma.sync
+// bf16, D 32: the two products on the tensor cores (mma.sync
 // m16n8k16, bf16 in, f32 accumulate). Each of the 4 warps owns 16 query rows of the 64-row tile; Q
 // stays in registers as mma A fragments for the whole KV loop. Per KV tile
 // of 64 keys a warp computes its 16 x 64 scores (S = Q K^T) in f32, updates
@@ -558,37 +573,52 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16, D = 128, for Hopper: flash_fwd_wgmma.
+// bf16, D 64 and 128, for Hopper: flash_fwd_wgmma<D>.
 //
 // Persistent: one CTA per SM (at most) takes the work items, each a (b, h,
-// 128-row query tile), in turn: w = blockIdx.x, + gridDim.x, ..., in
-// work_item's order. A CTA is 3 warpgroups (384 threads):
+// query tile of kBQ = 64 x kGroups rows), in turn: w = blockIdx.x, +
+// gridDim.x, ..., in work_item's order. A CTA is 1 + kGroups warpgroups
+// (Tile<D> holds the counts of each head dim):
 //   * Warpgroup 0 produces: one thread issues every TMA load, each item's Q
-//     and then its K and V tiles of 128 keys x 128 dims into a ring of
-//     kStages stages; setmaxnreg lowers the warpgroup to 40 registers.
-//   * Warpgroups 1 and 2 consume, 64 query rows each, with setmaxnreg raised
-//     to 232 registers. S = Q K^T is wgmma m64n128k16 with Q and K read from
-//     shared memory (8 k-steps over D); the online softmax runs in registers
-//     on the accumulator layout; O += P V is wgmma m64n128k16 with P
+//     and then its K and V tiles of 128 keys x D into a ring of kStages
+//     stages; setmaxnreg lowers the warpgroup to kProducerRegs registers.
+//   * Warpgroups 1..kGroups consume, 64 query rows each, with setmaxnreg
+//     raised to kConsumerRegs. S = Q K^T is wgmma m64n128k16 with Q and K
+//     read from shared memory (D / 16 k-steps); the online softmax runs in
+//     registers on the accumulator layout; O += P V is wgmma m64nDk16 with P
 //     converted to bf16 in registers (the A operand) and V read from shared
 //     memory as stored, keys x D with D contiguous (an MN-major B operand).
-//     Tile i's S = Q K^T is issued together with tile i-1's P V, and tile
-//     i's softmax runs while that P V is still in flight.
-// Barriers (mbarrier): Q full and Q empty (the next item's Q lands once both
-// groups' last S = Q K^T is done); per stage, K full and V full (the
+//     Tile i's S = Q K^T is issued together with tile i-1's P V. With two
+//     groups (kOverlap) tile i's softmax runs while that P V is still in
+//     flight, which holds two sets of P fragments; with three, whose 160
+//     registers a thread cannot hold both, the softmax follows both
+//     products and writes P over the fragments the P V read.
+//   * The consumer groups issue their products in turns (FlashAttention-3's
+//     ping-pong): group c issues once group c - 1 (cyclically) has issued,
+//     through named barrier 1 + c (group c syncs on it with 128 threads,
+//     group c - 1 arrives with 128 more after its issue). The tensor cores
+//     then run the other groups' products while group c runs its exp2 pass,
+//     and the groups do not all wait on the tensor cores, or all on the
+//     exp2 unit, at once.
+//   * A group whose 64 rows all lie at or past Sq (the decoder's and the
+//     cross-attention's 32 queries fill a third of a 192-row tile) keeps its
+//     barrier waits, arrivals and turns but issues no product.
+// Barriers (mbarrier): Q full and Q empty (the next item's Q lands once every
+// group's last S = Q K^T is done); per stage, K full and V full (the
 // producer's expect-tx arrival plus the TMA bytes) and K empty and V empty
-// (all 256 consumer threads arrive once their wgmma group has been waited
-// on). K and V have their own barriers so that S = Q K^T starts before V has
+// (every consumer thread arrives once its wgmma group has been waited on).
+// K and V have their own barriers so that S = Q K^T starts before V has
 // landed and K is refilled while V is still read.
 //
-// Shared memory, 1024-byte aligned: Q (32 KiB) and kStages x (K, V) (32 KiB
-// each): 160 KiB at 2 stages. Every tile arrives as two TMA boxes of 128
-// rows x 64 dims (128 bytes a row, the 128-byte swizzle's span), 16 KiB
-// apart. The wgmma descriptors follow that layout: K-major Q and K with
+// Shared memory, 1024-byte aligned: Q (kBQ x D), then kStages K tiles and
+// kStages V tiles (128 x D each), then the barriers. Every tile arrives in
+// TMA boxes of 64 dims (128 bytes a row, the 128-byte swizzle's span) and all
+// its rows: one box at D 64, two at D 128, the second a box's bytes after
+// the first. The wgmma descriptors follow that layout: K-major Q and K with
 // 8-row groups 1024 bytes apart (SBO), a k-step of 16 dims 32 bytes further
-// along the row and the second box for dims 64..127; MN-major V with 8-key
-// groups 1024 bytes apart (SBO) and the second 64 dims in the second box
-// (LBO 16 KiB).
+// along the row and the next box every 4 k-steps; MN-major V with 8-key
+// groups 1024 bytes apart (SBO) and, at D 128, the second 64 dims in the
+// second box (LBO, one box's bytes).
 //
 // The tensor maps view q, k and v as (D, S, H, B) with the caller's strides,
 // so query head h reads KV head h / group with no copy, and TMA fills rows
@@ -600,19 +630,41 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Params p) {
 
 namespace wg {
 
-constexpr int kD = 128;
-constexpr int kBQ = 128;                  // query rows per CTA
-constexpr int kBK = 128;                  // keys per KV tile
-constexpr int kStages = 2;
-constexpr int kThreads = 384;
-constexpr int kConsumers = 256;           // threads of the 2 consumer groups
-constexpr int kBox = 64;                  // dims per TMA box (128 bytes)
-constexpr uint32_t kTileBytes = kBK * kD * 2;      // 32 KiB
-constexpr uint32_t kBoxBytes = kTileBytes / 2;     // 16 KiB
-constexpr uint32_t kBarBytes = 8 * (2 + 4 * kStages);
-constexpr int kSmemBytes = 1024 + (1 + 2 * kStages) * kTileBytes + kBarBytes;
+constexpr int kBK = 128;                            // keys per KV tile
+constexpr int kBox = 64;                            // dims per TMA box
+constexpr uint32_t kRowBytes = kBox * 2;            // 128: the swizzle's span
+constexpr uint32_t kKVBoxBytes = kBK * kRowBytes;   // 16 KiB
 
-static_assert(kBQ == kBK && kBQ * kD * 2 == kTileBytes, "Q, K, V tiles alike");
+// The counts of each head dim, chosen by timing versions in turns with
+// scripts/flash_ab.py (PERF.md): consumer warpgroups of 64 query rows, and
+// the registers setmaxnreg gives a producer and a consumer thread (128
+// producers and 128 x kGroups consumers share 65,536). Two K/V stages:
+// four timed no faster at D 64.
+template <int D>
+struct Tile {
+  static_assert(D % kBox == 0, "D is a whole number of 64-dim TMA boxes");
+  static constexpr int kGroups = D == 64 ? 3 : 2;
+  static constexpr int kStages = 2;
+  static constexpr int kProducerRegs = kGroups == 3 ? 32 : 40;
+  static constexpr int kConsumerRegs = kGroups == 3 ? 160 : 232;
+  // tile i's softmax under the same group's P V of tile i - 1: two sets of
+  // P fragments, which two groups' registers hold and three groups' do not
+  static constexpr bool kOverlap = kGroups == 2;
+
+  static constexpr int kBQ = 64 * kGroups;          // query rows per CTA
+  static constexpr int kThreads = 128 * (1 + kGroups);
+  static constexpr int kConsumers = 128 * kGroups;  // consumer threads
+  static constexpr int kBoxes = D / kBox;           // TMA boxes per tile
+  static constexpr uint32_t kQBoxBytes = kBQ * kRowBytes;
+  static constexpr uint32_t kQBytes = kBoxes * kQBoxBytes;
+  static constexpr uint32_t kKVBytes = kBoxes * kKVBoxBytes;
+  static constexpr uint32_t kBarBytes = 8 * (2 + 4 * kStages);
+  static constexpr int kSmemBytes =
+      1024 + kQBytes + 2 * kStages * kKVBytes + kBarBytes;
+  static_assert(128 * kProducerRegs + kConsumers * kConsumerRegs <= 65536,
+                "the register file");
+  static_assert(kSmemBytes <= 232448, "227 KB of shared memory per block");
+};
 
 struct Params {
   void* o;
@@ -626,7 +678,7 @@ struct Params {
   float scale;
 };
 
-// One work item: a (b, h, 128-row query tile) and its KV tiles.
+// One work item: a (b, h, kBQ-row query tile) and its KV tiles.
 struct Item {
   int q0, h, b;
   int k_begin, n_tiles;
@@ -636,6 +688,7 @@ struct Item {
 // p.kv_chunk, whose K and V fit in L2 together; within a chunk the longest
 // rows come first (the last query tiles, under a causal mask), then the
 // pairs, then the query heads that read one KV head, side by side.
+template <int kBQ>
 __device__ __forceinline__ Item work_item(int w, const Params& p) {
   const int nq = (p.sq + kBQ - 1) / kBQ, hkv = p.h / p.group;
   const int pairs = p.b * hkv, per_chunk = p.kv_chunk * nq * p.group;
@@ -697,6 +750,16 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
+// Named barriers 1..kGroups order the consumer groups' turns (barrier 0 is
+// __syncthreads'): `threads` counts the syncing and the arriving threads.
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // One TMA box of the (D, S, H, B) tensor map at (d, s, h, b) into shared
 // memory at `dst`, completing on `bar`.
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
@@ -710,12 +773,15 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
-// Both boxes of one 128-row tile.
+// Every box of one tile (rows s.. of head h, batch b), box_bytes apart.
+template <int kBoxes>
 __device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int s, int h, int b) {
-  mbar_expect_tx(bar, kTileBytes);
-  tma_load(dst, map, bar, 0, s, h, b);
-  tma_load(dst + kBoxBytes, map, bar, kBox, s, h, b);
+                                         uint32_t bar, uint32_t box_bytes,
+                                         int s, int h, int b) {
+  mbar_expect_tx(bar, kBoxes * box_bytes);
+#pragma unroll
+  for (int x = 0; x < kBoxes; ++x)
+    tma_load(dst + x * box_bytes, map, bar, x * kBox, s, h, b);
 }
 
 // wgmma's shared-memory matrix descriptor for a 128-byte-swizzled operand:
@@ -744,9 +810,10 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // Orders the compiler's reads of the accumulators after the wgmma wait:
 // wgmma writes them asynchronously, which the asm operands do not say.
-__device__ __forceinline__ void fence_regs(float (&d)[64]) {
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // The same for A fragments that an in-flight wgmma still reads: they stay
@@ -758,7 +825,15 @@ __device__ __forceinline__ void fence_frag(uint32_t (&a)[8][4]) {
     for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[j][e])::"memory");
 }
 
-// The 64 f32 accumulators of one thread as "+f" operands, 8 at a time.
+// 2^x on the exp2 unit alone (MUFU.EX2, flushing results below 2^-126 to 0):
+// exp2f adds a denormal fix-up around it.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Eight f32 accumulators of one thread as "+f" operands.
 #define WG_ACC8(d, i)                                                \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),        \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
@@ -791,8 +866,28 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// d (64 x 128, f32) += A (64 x 16, this thread's registers) . B (16 x 128,
-// shared), B MN-major (trans 1): O += P V with V stored keys x D.
+// d (64 x N, f32) += A (64 x 16, this thread's registers) . B (16 x N,
+// shared), B MN-major (trans 1): O += P V with V stored keys x D, N = D.
+// D 64: m64n64k16.
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        WG_ACC8(d, 0),
+        WG_ACC8(d, 8),
+        WG_ACC8(d, 16),
+        WG_ACC8(d, 24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D 128: m64n128k16.
 __device__ __forceinline__ void wgmma_rs(float (&d)[64],
                                          const uint32_t (&a)[4], uint64_t db) {
   asm volatile(
@@ -819,9 +914,8 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-
 // A consumer thread's rows: it holds columns 8n + 2t + {0, 1} of rows row0
-// (accumulator registers 4n, 4n + 1) and row1 (4n + 2, 4n + 3), n < 16.
+// (accumulator registers 4n, 4n + 1) and row1 (4n + 2, 4n + 3), n < N / 8.
 struct Rows {
   int first;  // the warpgroup's first row
   int row0, row1, t;
@@ -875,14 +969,14 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64],
   }
   const float f = edge ? 1.f : r.sl2;
   const float mn0 = fmaxf(m0, mx0 * f), mn1 = fmaxf(m1, mx1 * f);
-  c0 = exp2f(m0 - mn0);
-  c1 = exp2f(m1 - mn1);
+  c0 = ex2(m0 - mn0);
+  c1 = ex2(m1 - mn1);
   m0 = mn0;
   m1 = mn1;
   float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
   for (int i = 0; i < 64; ++i) {
-    sc[i] = exp2f(fmaf(sc[i], f, (i & 2) ? -mn1 : -mn0));
+    sc[i] = ex2(fmaf(sc[i], f, (i & 2) ? -mn1 : -mn0));
     if (i & 2)
       rs1 += sc[i];
     else
@@ -899,31 +993,36 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64],
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
+template <int D>
+__global__ void __launch_bounds__(Tile<D>::kThreads, 1)
     flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv, const Params p) {
+  using T = Tile<D>;
+  constexpr int kStages = T::kStages;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sQ = base;
-  const uint32_t bars = base + (1 + 2 * kStages) * kTileBytes;
+  const uint32_t bars = base + T::kQBytes + 2 * kStages * T::kKVBytes;
   const uint32_t q_full = bars, q_empty = bars + 8;
-  auto sK = [&](int s) { return base + (1 + s) * kTileBytes; };
-  auto sV = [&](int s) { return base + (1 + kStages + s) * kTileBytes; };
+  auto sK = [&](int s) { return base + T::kQBytes + s * T::kKVBytes; };
+  auto sV = [&](int s) {
+    return base + T::kQBytes + (kStages + s) * T::kKVBytes;
+  };
   auto k_full = [&](int s) { return bars + 8 * (2 + s); };
   auto v_full = [&](int s) { return bars + 8 * (2 + kStages + s); };
   auto k_empty = [&](int s) { return bars + 8 * (2 + 2 * kStages + s); };
   auto v_empty = [&](int s) { return bars + 8 * (2 + 3 * kStages + s); };
-  const int n_items = (p.sq + kBQ - 1) / kBQ * p.h * p.b;
+  const int n_items = (p.sq + T::kBQ - 1) / T::kBQ * p.h * p.b;
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
-    mbar_init(q_empty, kConsumers);
+    mbar_init(q_empty, T::kConsumers);
     for (int s = 0; s < kStages; ++s) {
       mbar_init(k_full(s), 1);
       mbar_init(v_full(s), 1);
-      mbar_init(k_empty(s), kConsumers);
-      mbar_init(v_empty(s), kConsumers);
+      mbar_init(k_empty(s), T::kConsumers);
+      mbar_init(v_empty(s), T::kConsumers);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -931,135 +1030,177 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   if (threadIdx.x < 128) {
     // ---- producer warpgroup: one thread issues every copy ----
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+                     T::kProducerRegs)
+                 : "memory");
     if (threadIdx.x == 0) {
       int gt = 0;  // KV tiles this CTA has loaded
       for (int w = blockIdx.x, j = 0; w < n_items; w += gridDim.x, ++j) {
-        const Item item = work_item(w, p);
+        const Item item = work_item<T::kBQ>(w, p);
         const int hk = item.h / p.group;
-        // the next item's Q once both consumers' last S = Q K^T is done
+        // the next item's Q once every group's last S = Q K^T is done
         if (j > 0) mbar_wait(q_empty, (j - 1) & 1);
-        tma_tile(sQ, &tq, q_full, item.q0, item.h, item.b);
+        tma_tile<T::kBoxes>(sQ, &tq, q_full, T::kQBoxBytes, item.q0, item.h,
+                            item.b);
         for (int it = 0; it < item.n_tiles; ++it, ++gt) {
           const int s = gt % kStages;
           const uint32_t free_parity = ((gt / kStages) & 1) ^ 1;
           const int k0 = item.k_begin + it * kBK;
           mbar_wait(k_empty(s), free_parity);
-          tma_tile(sK(s), &tk, k_full(s), k0, hk, item.b);
+          tma_tile<T::kBoxes>(sK(s), &tk, k_full(s), kKVBoxBytes, k0, hk,
+                              item.b);
           mbar_wait(v_empty(s), free_parity);
-          tma_tile(sV(s), &tv, v_full(s), k0, hk, item.b);
+          tma_tile<T::kBoxes>(sV(s), &tv, v_full(s), kKVBoxBytes, k0, hk,
+                              item.b);
         }
       }
     }
   } else {
     // ---- consumer warpgroups: 64 query rows each ----
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+                     T::kConsumerRegs)
+                 : "memory");
     const int c = threadIdx.x / 128 - 1;
     const int tid = threadIdx.x & 127;
     const int warp = tid >> 5, lane = tid & 31;
-    const uint64_t dq = smem_desc(sQ + 64 * c * 128, 16, 1024);
-    float o[64];
+    const uint64_t dq = smem_desc(sQ + 64 * c * kRowBytes, 16, 1024);
 
-    // S = Q K^T of the tile in stage s: 8 k-steps over D, committed as one
-    // wgmma group and left in flight
+    // S = Q K^T of the tile in stage s: D / 16 k-steps, 4 per 64-dim box,
+    // committed as one wgmma group and left in flight
     auto issue_qk = [&](float (&sc)[64], int s) {
       const uint64_t dk = smem_desc(sK(s), 16, 1024);
 #pragma unroll
-      for (int ks = 0; ks < kD / 16; ++ks) {
-        const uint32_t off = ((ks / 4) * kBoxBytes + (ks % 4) * 32) >> 4;
-        wgmma_ss(sc, dq + off, dk + off, ks);
+      for (int ks = 0; ks < D / 16; ++ks) {
+        const uint32_t in_row = (ks % 4) * 32;
+        wgmma_ss(sc, dq + (((ks / 4) * T::kQBoxBytes + in_row) >> 4),
+                 dk + (((ks / 4) * kKVBoxBytes + in_row) >> 4), ks);
       }
       wgmma_commit();
     };
     // O += P V of the tile in stage s, 16 keys per k-step, in flight
-    auto issue_pv = [&](const uint32_t (&pa)[8][4], int s) {
-      const uint64_t dv = smem_desc(sV(s), kBoxBytes, 1024);
+    auto issue_pv = [&](float (&o)[D / 2], const uint32_t (&pa)[8][4],
+                        int s) {
+      const uint64_t dv = smem_desc(sV(s), kKVBoxBytes, 1024);
 #pragma unroll
       for (int j = 0; j < 8; ++j)
-        wgmma_rs(o, pa[j], dv + ((j * 16 * 128) >> 4));
+        wgmma_rs(o, pa[j], dv + ((j * 16 * kRowBytes) >> 4));
       wgmma_commit();
     };
+    // the groups' turns (ping-pong): wait for group c - 1's issue, then
+    // let group c + 1 issue after this one
+    auto turn_wait = [&] { named_sync(1 + c, 256); };
+    auto turn_pass = [&] { named_arrive(1 + (c + 1) % T::kGroups, 256); };
+    if (c == 0) named_arrive(1, 256);  // group 0 goes first
 
-    int gt = 0;  // KV tiles this CTA has consumed
-    for (int w = blockIdx.x, j = 0; w < n_items; w += gridDim.x, ++j) {
-      const Item item = work_item(w, p);
+    // One item's n > 0 KV tiles in n + 1 turns (turn it issues tile it's
+    // S = Q K^T and tile it - 1's P V), then its rows of O. `gt` counts the
+    // KV tiles consumed before it. kActive is false for a group whose rows
+    // all lie at or past Sq: it keeps every barrier wait, arrival and turn
+    // and computes nothing.
+    auto consume = [&](auto active, const Item& item, const Rows& r, int gt) {
+      constexpr bool kActive = decltype(active)::value;
       const int n = item.n_tiles;
-      Rows r;
-      r.first = item.q0 + 64 * c;
-      r.row0 = r.first + 16 * warp + (lane >> 2);
-      r.row1 = r.row0 + 8;
-      r.t = lane & 3;
-      // scores in log2 units: exp(s - m) = exp2(s log2(e) - m log2(e))
-      r.sl2 = p.scale * 1.4426950408889634f;
+      auto stage = [&](int i) { return (gt + i) % kStages; };
+      auto parity = [&](int i) { return ((gt + i) / kStages) & 1; };
+      float o[D / 2];
 #pragma unroll
-      for (int i = 0; i < 64; ++i) o[i] = 0.f;
-      float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
-      float c0, c1;
+      for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+      float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f, c0, c1;
+      auto rescale = [&] {
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) o[i] *= (i & 2) ? c1 : c0;
+      };
+      uint32_t pa[8][4];  // P of the last tile, as wgmma's A fragments
 
-      mbar_wait(q_full, j & 1);
-      __syncwarp();
-      if (n == 0) {
-        mbar_arrive(q_empty);
-      } else {
-        // tile 0: its scores, then its P
-        uint32_t pa[8][4];
-        {
-          const int s = gt % kStages;
-          float sc[64];
-          mbar_wait(k_full(s), (gt / kStages) & 1);
-          __syncwarp();
+      // tile 0: its scores, then its P
+      {
+        float sc[64];
+        mbar_wait(k_full(stage(0)), parity(0));
+        __syncwarp();
+        turn_wait();
+        if constexpr (kActive) {
           wgmma_fence();
-          issue_qk(sc, s);
-          wgmma_wait<0>();
+          issue_qk(sc, stage(0));
+        }
+        turn_pass();
+        wgmma_wait<0>();
+        mbar_arrive(k_empty(stage(0)));
+        if (n == 1) mbar_arrive(q_empty);
+        if constexpr (kActive) {
           fence_regs(sc);
-          mbar_arrive(k_empty(s));
-          if (n == 1) mbar_arrive(q_empty);
           softmax_tile(sc, pa, m0, m1, l0, l1, c0, c1, item.k_begin, r, p);
         }
-        // tile it's scores run beside tile it - 1's P V; tile it's softmax
-        // runs while that P V is still in flight
-        for (int it = 1; it < n; ++it) {
-          const int s = (gt + it) % kStages, sp = (gt + it - 1) % kStages;
-          float sc[64];
-          mbar_wait(k_full(s), ((gt + it) / kStages) & 1);
-          mbar_wait(v_full(sp), ((gt + it - 1) / kStages) & 1);
-          __syncwarp();
+      }
+      for (int it = 1; it < n; ++it) {
+        const int s = stage(it), sp = stage(it - 1);
+        float sc[64];
+        mbar_wait(k_full(s), parity(it));
+        mbar_wait(v_full(sp), parity(it - 1));
+        __syncwarp();
+        turn_wait();
+        if constexpr (kActive) {
           wgmma_fence();
           issue_qk(sc, s);
-          issue_pv(pa, sp);
+          issue_pv(o, pa, sp);
+        }
+        turn_pass();
+        const int k0 = item.k_begin + it * kBK;
+        if constexpr (T::kOverlap) {
+          // tile it's softmax runs while tile it - 1's P V is in flight
           wgmma_wait<1>();
-          fence_regs(sc);
           mbar_arrive(k_empty(s));
           if (it == n - 1) mbar_arrive(q_empty);
           uint32_t pn[8][4];
-          softmax_tile(sc, pn, m0, m1, l0, l1, c0, c1,
-                       item.k_begin + it * kBK, r, p);
-          // P is computed before the wait, under this tile's P V (the
-          // compiler would otherwise sink the softmax below the wait)
-          fence_frag(pn);
+          if constexpr (kActive) {
+            fence_regs(sc);
+            softmax_tile(sc, pn, m0, m1, l0, l1, c0, c1, k0, r, p);
+            // P is computed before the wait, under this tile's P V (the
+            // compiler would otherwise sink the softmax below the wait)
+            fence_frag(pn);
+          }
           wgmma_wait<0>();
-          fence_regs(o);
-          fence_frag(pa);
           mbar_arrive(v_empty(sp));
+          if constexpr (kActive) {
+            fence_regs(o);
+            fence_frag(pa);
+            rescale();
 #pragma unroll
-          for (int i = 0; i < 64; ++i) o[i] *= (i & 2) ? c1 : c0;
+            for (int jj = 0; jj < 8; ++jj)
 #pragma unroll
-          for (int jj = 0; jj < 8; ++jj)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) pa[jj][e] = pn[jj][e];
+              for (int e = 0; e < 4; ++e) pa[jj][e] = pn[jj][e];
+          }
+        } else {
+          // both products first; the new P then takes the registers of the
+          // one P V read, and the other groups' products run under this
+          // group's softmax
+          wgmma_wait<0>();
+          mbar_arrive(k_empty(s));
+          if (it == n - 1) mbar_arrive(q_empty);
+          mbar_arrive(v_empty(sp));
+          if constexpr (kActive) {
+            fence_regs(sc);
+            fence_regs(o);
+            fence_frag(pa);
+            softmax_tile(sc, pa, m0, m1, l0, l1, c0, c1, k0, r, p);
+            rescale();
+          }
         }
-        // the last tile's P V
-        const int sl = (gt + n - 1) % kStages;
-        mbar_wait(v_full(sl), ((gt + n - 1) / kStages) & 1);
-        __syncwarp();
-        wgmma_fence();
-        issue_pv(pa, sl);
-        wgmma_wait<0>();
-        fence_regs(o);
-        fence_frag(pa);
-        mbar_arrive(v_empty(sl));
       }
-      gt += n;
+      // the last tile's P V
+      const int sl = stage(n - 1);
+      mbar_wait(v_full(sl), parity(n - 1));
+      __syncwarp();
+      turn_wait();
+      if constexpr (kActive) {
+        wgmma_fence();
+        issue_pv(o, pa, sl);
+      }
+      turn_pass();
+      wgmma_wait<0>();
+      mbar_arrive(v_empty(sl));
+      if constexpr (!kActive) return;
+      fence_regs(o);
+      fence_frag(pa);
 
 #pragma unroll
       for (int off = 1; off < 4; off <<= 1) {
@@ -1072,7 +1213,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) +
                           item.b * p.os.b + item.h * p.os.h;
 #pragma unroll
-      for (int i = 0; i < 16; ++i) {
+      for (int i = 0; i < D / 8; ++i) {
         const int dim = 8 * i + 2 * r.t;
         if (r.row0 < p.sq)
           *reinterpret_cast<__nv_bfloat162*>(og + r.row0 * p.os.s + dim) =
@@ -1081,6 +1222,27 @@ __global__ void __launch_bounds__(kThreads, 1)
           *reinterpret_cast<__nv_bfloat162*>(og + r.row1 * p.os.s + dim) =
               __floats2bfloat162_rn(o[4 * i + 2] * inv1, o[4 * i + 3] * inv1);
       }
+    };
+
+    int gt = 0;  // KV tiles this CTA has consumed
+    for (int w = blockIdx.x, j = 0; w < n_items; w += gridDim.x, ++j) {
+      const Item item = work_item<T::kBQ>(w, p);
+      Rows r;
+      r.first = item.q0 + 64 * c;
+      r.row0 = r.first + 16 * warp + (lane >> 2);
+      r.row1 = r.row0 + 8;
+      r.t = lane & 3;
+      // scores in log2 units: exp(s - m) = exp2(s log2(e) - m log2(e))
+      r.sl2 = p.scale * 1.4426950408889634f;
+      mbar_wait(q_full, j & 1);
+      __syncwarp();
+      if (item.n_tiles == 0)
+        mbar_arrive(q_empty);
+      else if (r.first < p.sq)
+        consume(std::true_type{}, item, r, gt);
+      else
+        consume(std::false_type{}, item, r, gt);
+      gt += item.n_tiles;
     }
   }
 }
@@ -1112,18 +1274,20 @@ EncodeTiled encode_tiled() {
 }
 
 // The (D, S, H, B) view of a bf16 tensor with d contiguous and (b, h, s)
-// strides `st` (elements), in boxes of 64 dims x kBK rows, 128-byte swizzled.
-cudaError_t make_map(CUtensorMap* map, const void* ptr, int s, int h, int b,
-                     const Strides& st) {
+// strides `st` (elements), in boxes of 64 dims x `rows` rows, 128-byte
+// swizzled.
+cudaError_t make_map(CUtensorMap* map, const void* ptr, int d, int s, int h,
+                     int b, const Strides& st, int rows) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {kD, static_cast<cuuint64_t>(s),
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(s),
                               static_cast<cuuint64_t>(h),
                               static_cast<cuuint64_t>(b)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st.s) * 2,
                                  static_cast<cuuint64_t>(st.h) * 2,
                                  static_cast<cuuint64_t>(st.b) * 2};
-  const cuuint32_t box[4] = {kBox, kBK, 1, 1};
+  const cuuint32_t box[4] = {kBox, static_cast<cuuint32_t>(rows), 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
@@ -1135,40 +1299,76 @@ cudaError_t make_map(CUtensorMap* map, const void* ptr, int s, int h, int b,
 
 }  // namespace wg
 
+// Host answers that stay the same within a process, kept per device: the SM
+// count, and for each kernel whether its dynamic shared memory limit has
+// been raised (each launcher holds its own flags). Devices past kMaxDevices
+// ask every time.
+constexpr int kMaxDevices = 64;
+
+cudaError_t sm_count(int device, int* sms) {
+  static std::atomic<int> cached[kMaxDevices];  // 0: not asked yet
+  const bool keep = device < kMaxDevices;
+  if (keep && (*sms = cached[device].load(std::memory_order_relaxed)) > 0)
+    return cudaSuccess;
+  const cudaError_t err =
+      cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess && keep)
+    cached[device].store(*sms, std::memory_order_relaxed);
+  return err;
+}
+
+// Raise `kernel`'s dynamic shared memory limit to `bytes` on `device` (the
+// current one), unless the launcher's flag for the device says it was.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel* kernel, int bytes, int device,
+                       std::atomic<bool> (&done)[kMaxDevices]) {
+  const bool keep = device < kMaxDevices;
+  if (keep && done[device].load(std::memory_order_acquire)) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && keep)
+    done[device].store(true, std::memory_order_release);
+  return err;
+}
+
+template <int D>
 cudaError_t launch_wgmma(const Params& p, int b, int h, cudaStream_t stream) {
+  using T = wg::Tile<D>;
   CUtensorMap tq, tk, tv;
-  cudaError_t err = wg::make_map(&tq, p.q, p.sq, h, b, p.qs);
+  cudaError_t err = wg::make_map(&tq, p.q, D, p.sq, h, b, p.qs, T::kBQ);
   if (err == cudaSuccess)
-    err = wg::make_map(&tk, p.k, p.sk, h / p.group, b, p.ks);
+    err = wg::make_map(&tk, p.k, D, p.sk, h / p.group, b, p.ks, wg::kBK);
   if (err == cudaSuccess)
-    err = wg::make_map(&tv, p.v, p.sk, h / p.group, b, p.vs);
+    err = wg::make_map(&tv, p.v, D, p.sk, h / p.group, b, p.vs, wg::kBK);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(wg::flash_fwd_wgmma,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             wg::kSmemBytes);
+  static std::atomic<bool> smem_set[kMaxDevices];
   int device, sms;
-  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  err = cudaGetDevice(&device);
   if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    err = allow_smem(wg::flash_fwd_wgmma<D>, T::kSmemBytes, device, smem_set);
+  if (err == cudaSuccess) err = sm_count(device, &sms);
   if (err != cudaSuccess) return err;
   // (b, KV head) pairs whose K and V fit in 32 MiB of the 50 MB L2
-  const int64_t kv_bytes = 2 * int64_t{p.sk} * wg::kD * 2;
+  const int64_t kv_bytes = 2 * int64_t{p.sk} * D * 2;
   const int kv_chunk = static_cast<int>(
       std::max<int64_t>(1, (int64_t{32} << 20) / kv_bytes));
   const wg::Params wp{p.o,  p.os,    b,        h,        kv_chunk, p.sq,
                       p.sk, p.group, p.causal, p.window, p.scale};
   // persistent: one CTA per SM walks the work items
-  const int items = (p.sq + wg::kBQ - 1) / wg::kBQ * h * b;
-  wg::flash_fwd_wgmma<<<std::min(items, sms), wg::kThreads, wg::kSmemBytes,
-                        stream>>>(tq, tk, tv, wp);
+  const int items = (p.sq + T::kBQ - 1) / T::kBQ * h * b;
+  wg::flash_fwd_wgmma<D><<<std::min(items, sms), T::kThreads, T::kSmemBytes,
+                           stream>>>(tq, tk, tv, wp);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_f32(const Params& p, int b, int h, cudaStream_t stream) {
   const int smem = smem_floats<D>() * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static std::atomic<bool> smem_set[kMaxDevices];
+  int device;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = allow_smem(flash_fwd_f32<D>, smem, device, smem_set);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.sq + kBQ - 1) / kBQ, h, b);
   flash_fwd_f32<D><<<grid, kThreads, smem, stream>>>(p);
@@ -1178,8 +1378,11 @@ cudaError_t launch_f32(const Params& p, int b, int h, cudaStream_t stream) {
 template <int D>
 cudaError_t launch_bf16(const Params& p, int b, int h, cudaStream_t stream) {
   const int smem = smem_bytes_bf16<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static std::atomic<bool> smem_set[kMaxDevices];
+  int device;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = allow_smem(flash_fwd_bf16<D>, smem, device, smem_set);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.sq + kBQ - 1) / kBQ, h, b);
   flash_fwd_bf16<D><<<grid, kThreads, smem, stream>>>(p);
@@ -1205,17 +1408,17 @@ cudaError_t dispatch_f32(const Params& p, int b, int h, int d,
   }
 }
 
-// bf16: D 128 on the Hopper kernel, D 32 and 64 on the mma.sync kernel.
+// bf16: D 64 and 128 on the Hopper kernel, D 32 on the mma.sync kernel.
 cudaError_t dispatch_bf16(const Params& p, int b, int h, int d,
                           cudaStream_t stream, int* variant) {
-  *variant = d == wg::kD ? kWgmmaBf16 : kMmaBf16;
+  *variant = d == 32 ? kMmaBf16 : kWgmmaBf16;
   switch (d) {
     case 32:
       return launch_bf16<32>(p, b, h, stream);
     case 64:
-      return launch_bf16<64>(p, b, h, stream);
-    case wg::kD:
-      return launch_wgmma(p, b, h, stream);
+      return launch_wgmma<64>(p, b, h, stream);
+    case 128:
+      return launch_wgmma<128>(p, b, h, stream);
     default:
       return cudaErrorInvalidValue;
   }

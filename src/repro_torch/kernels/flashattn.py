@@ -17,11 +17,18 @@ CUDA tensors they launch the kernel or raise. They launch on the current
 stream, do not synchronize, and add one to `LAUNCHES["flash_attention"]` per
 launch. The kernel is forward-only, as the reference's is.
 
-Each (dtype, D) runs one CUDA kernel: bf16 at D 128, the model's prefill,
-the Hopper kernel (`wgmma_bf16`: TMA, wgmma, warp specialization); bf16 at D
-32 and 64 the mma.sync kernel (`mma_bf16`); f32 the FMA kernel (`fma_f32`).
-The library reports which kernel it launched, and `VARIANT_LAUNCHES` counts
-launches per kernel.
+Each (dtype, D) runs one CUDA kernel: bf16 at D 64 and 128 (whisper-small's
+encoder, decoder and cross-attention; yi-6b's and llava's prefill) the
+Hopper kernel (`wgmma_bf16`: TMA, wgmma, warp specialization); bf16 at D 32,
+which no served model has, the mma.sync kernel (`mma_bf16`); f32 the FMA
+kernel (`fma_f32`). The library reports which kernel it launched, and
+`VARIANT_LAUNCHES` counts launches per kernel.
+
+Bounds on the card (`csrc/flashattn.cu`): 4 * D tensor-core flops per
+visible (query, key) pair at 989 TFLOP/s, and one exp2 per pair at 16 a
+clock per SM, which at D 64 takes as long as the flops. The Hopper kernel
+runs one warpgroup's softmax under other products in flight: at D 128 its
+own P V, at D 64 the other two warpgroups' products, issued in turns.
 """
 
 from __future__ import annotations

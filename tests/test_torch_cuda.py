@@ -276,8 +276,15 @@ def test_bucket_replay_launches_one_quantize_and_dequantize(cuda, ef):
 # every head dim the kernels are built for. At D 128 (bf16: the Hopper
 # kernel's 128-row query and 128-key tiles) lengths that are not multiples
 # of 128, Sq != Sk under the causal mask, and a window narrower than a tile.
+# At D 64 (bf16: the same kernel's 192-row query tiles on three consumer
+# warpgroups) whisper's launches scaled down: 32 queries on 300 keys
+# non-causal (two idle warpgroups), a causal window, and ragged
+# self-lengths (190: the last warpgroup holds 62 rows).
 FLASH_CASES = [(1, 2, 64, 64, 32, True, None), (2, 3, 100, 100, 32, True, 24),
                (1, 1, 128, 256, 64, True, None), (2, 2, 65, 65, 64, False, None),
+               (2, 3, 32, 300, 64, False, None),
+               (1, 4, 300, 300, 64, True, 100),
+               (2, 3, 190, 190, 64, False, None),
                (1, 4, 300, 300, 128, True, 100), (2, 2, 130, 70, 128, False, 70),
                (1, 2, 200, 200, 128, True, None),
                (1, 2, 129, 383, 128, True, 130),
@@ -323,24 +330,29 @@ def test_flash_attention_vs_plain(cuda, case, dtype):
     torch.cuda.synchronize()
     assert flashattn.LAUNCHES["flash_attention"] == 1
     kernel = ("fma_f32" if dtype == torch.float32 else
-              "wgmma_bf16" if D == 128 else "mma_bf16")
+              "mma_bf16" if D == 32 else "wgmma_bf16")
     assert flashattn.VARIANT_LAUNCHES[kernel] == 1
     want = ref.flash_attention(q, k, v, causal=causal, window=window)
     assert _flash_excess(got, want, dtype) <= 1
     assert _flash_excess(_control(q, k, v, causal, window), want, dtype) > 1
 
 
-def test_gqa_flash_attention_reads_kv_heads_through_strides(cuda):
+@pytest.mark.parametrize("d", [128, 64])
+def test_gqa_flash_attention_reads_kv_heads_through_strides(cuda, d):
     """8 query heads on 2 KV heads in the model's (B, S, H, D) layout,
     against the plain version on the transposed copies with the KV heads
-    repeated."""
+    repeated; both head dims run the Hopper kernel (D 64 on its 192-row
+    tiles)."""
     from repro_torch.kernels import flashattn
     dtype = torch.bfloat16
     g = torch.Generator(device=cuda).manual_seed(3)
-    q = torch.randn(2, 200, 8, 128, generator=g, device=cuda).to(dtype)
-    k, v = (torch.randn(2, 200, 2, 128, generator=g, device=cuda).to(dtype)
+    q = torch.randn(2, 200, 8, d, generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn(2, 200, 2, d, generator=g, device=cuda).to(dtype)
             for _ in range(2))
+    flashattn.reset_launches()
     got = flashattn.gqa_flash_attention(q, k, v, causal=True, window=64)
+    torch.cuda.synchronize()
+    assert flashattn.VARIANT_LAUNCHES["wgmma_bf16"] == 1
     qt, kt, vt = (t.repeat_interleave(8 // t.shape[2], dim=2).transpose(1, 2)
                   for t in (q, k, v))
     want = ref.flash_attention(qt, kt, vt, causal=True, window=64)

@@ -45,6 +45,11 @@ def _f32(a):
 MASKED_CASES = [(c, causal, window) for c in CASES
                 for causal, window in ((True, None), (True, 24), (False, None))
                 if causal or c[2] == c[3]]
+# whisper-small's non-causal launches at D 64, scaled down: the
+# cross-attention's few queries on more keys (its 32 on 1500 frames), and
+# the encoder's self-attention at a length no tile divides (its 1500)
+MASKED_CASES += [((1, 3, 32, 300, 64, 32, 128), False, None),
+                 ((1, 2, 150, 150, 64, 64, 64), False, None)]
 
 
 @pytest.mark.parametrize(
