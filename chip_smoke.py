@@ -32,22 +32,27 @@ Phases, each fatal on failure:
                  prompt and its cross-attention W-cross (those 32 queries
                  on 1500 keys) non-causal, all three on the Hopper kernel
                  at D 64, llava's V-A (8, 2048, 32 on 8, 128) bf16 causal
-                 window 4096; both wrappers, the model's (B, S, H, D) layout with
+                 window 4096, and recurrentgemma-2b's local attention at
+                 D 256 on the prefill of R-A (8, 2048, 10 on 1, 256) and
+                 R-B (1, 8192, 10 on 1, 256), bf16 causal window 2048;
+                 both wrappers, the model's (B, S, H, D) layout with
                  KV heads read through strides and the reference's (B, H,
                  S, D) with heads repeated; scores of
                  standard deviation 1. Tolerance (FLASH_TOL), per element,
                  rtol |plain| + atol x the RMS of the plain output's row:
                  bf16 1.6e-2 and 2e-2, f32 2e-5 and 2e-5; a control with 64
                  keys' scores zeroed (W-dec: its last 16) must fail it; the
-                 per-kernel counts must show S-A, S-B, V-A, W-enc, W-dec
-                 and W-cross on the Hopper kernel (`wgmma_bf16`), the bf16
+                 per-kernel counts must show S-A, S-B, V-A, W-enc, W-dec,
+                 W-cross, R-A and R-B on the Hopper kernel (`wgmma_bf16`),
+                 the bf16
                  ragged case on `mma_bf16` and the f32 one on the FMA
                  kernel. Times kernel, plain version
                  and the one PyTorch call that computes the same function
                  (`torch.mul`, `torch.addcmul` for the dequantize kernels,
-                 `scaled_dot_product_attention` for flash, at S-B with a
-                 boolean causal-and-window mask, non-causal at W-enc and
-                 W-cross; no single call quantizes) with CUDA events, and
+                 `scaled_dot_product_attention` for flash, with a boolean
+                 causal-and-window mask where some row reaches past the
+                 window (S-B, R-B, the ragged cases), non-causal at W-enc
+                 and W-cross; no single call quantizes) with CUDA events, and
                  prints each flash time's
                  share of its bound and its ratio to the library call, and
                  each flash shape's host issue apart from its kernel: the
@@ -57,7 +62,8 @@ Phases, each fatal on failure:
                  the same split for the library call (its kernels' device
                  time per call);
   4. model    -- the smoke models of yi-6b, llava-next-mistral-7b,
-                 whisper-small and minicpm3-4b (standard-normal patch and
+                 whisper-small, minicpm3-4b, recurrentgemma-2b and
+                 mamba2-2.7b (standard-normal patch and
                  frame embeddings) on the card against the CPU, same weights:
                  loss and gradients (loss rtol 1e-5, gradients 1e-4 of their
                  norm), prefill logits and one decode step (atol 1e-4, f32);
@@ -166,7 +172,25 @@ Phases, each fatal on failure:
                  three smoke configs; the whisper serve CLI (no frame
                  embeddings, as the reference's) must stop with the
                  ValueError naming them;
- 17. report   -- the serve cells' numbers, one JSON line with every kernel,
+ 17. recurrent serve -- the recurrent family at full width and depth,
+                 random weights from a seed, through `Engine.generate`,
+                 greedy: R-A recurrentgemma-2b, batch 8 x 2048, 64 new
+                 tokens (8 flash launches per prefill, D 256 on
+                 `wgmma_bf16`); R-B the same model, batch 1 x 8192, 32 new
+                 (the window's tile skipping, the local blocks' rings
+                 compacted to 2048 slots); MB-A mamba2-2.7b, batch 8 x
+                 2048, 64 new (the chunked SSD, no flash launch). Each
+                 checks its launches, the cache's shapes after the prefill,
+                 finite logits and tokens in the vocabulary, prints
+                 prefill, first-token and decode times and peak memory,
+                 and profiles one prefill and 3 decode steps;
+ 18. train I  -- cell A's configuration on mamba2-2.7b at full width cut to
+                 8 layers (seq 2048): its bucket plan, finite losses, the
+                 quant8 launches of its fused buckets, autograd through
+                 the chunked SSD;
+ 19. recurrent cli -- the train and serve CLIs on the two smoke configs;
+ 20. report   -- the serve cells' numbers, one JSON line with every kernel
+                 (the flash kernel's D-256 instance on a line of its own),
                  then the device line.
 
 Exits non-zero without the result line when CUDA is absent or any phase
@@ -212,7 +236,9 @@ N_LAYERS = 32                   # yi-6b, served at full depth
 # (W-dec: a sixth of one 192-row query tile) and its cross-attention
 # (W-cross, those 32 queries on the 1500 encoder keys), all at D 64 on the
 # Hopper kernel, and llava-next-mistral-7b's (V-A, 32 query heads on 8 KV
-# heads, window 4096)
+# heads, window 4096); then recurrentgemma-2b's local attention at D 256
+# (10 query heads on one KV head, window 2048) on the prefill of serve
+# cells R-A (8 x 2048: the window hides nothing) and R-B (1 x 8192)
 FLASH_SHAPES = {
     "S-A": (8, 2048, 2048, 32, 4, 128, "bfloat16", None, True, 32,
             "wgmma_bf16"),
@@ -228,7 +254,14 @@ FLASH_SHAPES = {
     "W-cross": (16, 32, 1500, 12, 12, 64, "bfloat16", None, False, 12,
                 "wgmma_bf16"),
     "V-A": (8, 2048, 2048, 32, 8, 128, "bfloat16", 4096, True, 32,
+            "wgmma_bf16"),
+    "R-A": (8, 2048, 2048, 10, 1, 256, "bfloat16", 2048, True, 10,
+            "wgmma_bf16"),
+    "R-B": (1, 8192, 8192, 10, 1, 256, "bfloat16", 2048, True, 10,
             "wgmma_bf16")}
+# the shapes whose numbers go into the report's kernel lines: S-A for
+# flash_attention, R-A for its D-256 instance
+FLASH_REPORTED = {"S-A": "flash_attention", "R-A": "flash_attention[D256]"}
 # flash_attention tolerance (rtol, atol as a share of the RMS of the plain
 # output's row): |out - plain| <= rtol |plain| + atol rms(row). bf16: both
 # sides round the output to bf16 (rtol, two bf16 ulps), and the kernel
@@ -236,6 +269,8 @@ FLASH_SHAPES = {
 # row's RMS per element, up to 9e-3 on 16 M elements of a CPU emulation;
 # atol). f32: summation order and exp differ.
 FLASH_TOL = {"bfloat16": (1.6e-2, 2e-2), "float32": (2e-5, 2e-5)}
+# profiler windows `issue_split` may take to record every kernel of one
+PROFILER_WINDOWS = 3
 # f32 operations per element (abs, max, divide, round, clip x2, mul, sub)
 OPS_PER_ELEM = {"quantize_blocks": 6, "quantize_ef_blocks": 9,
                 "dequantize_blocks": 1, "dequantize_accumulate_blocks": 2}
@@ -483,7 +518,11 @@ def issue_split(torch, fn, n, kernel=""):
     launches in n calls). The host time is a host clock over n calls issued
     back to back, with one synchronize after the window; the device time
     comes from torch.profiler's key_averages over n more calls (the trace's
-    kernel events where key_averages shows no device time)."""
+    kernel events where key_averages shows no device time). A profiler
+    window can drop kernel records (one S-B window of 10 flash launches
+    recorded 7): up to PROFILER_WINDOWS windows are taken, each short one
+    logged, and the first with `kernel`'s launch count a multiple of n is
+    used (the last otherwise)."""
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -493,20 +532,27 @@ def issue_split(torch, fn, n, kernel=""):
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    # the device's own rows (an operator's row also sums its kernels' time)
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and kernel in e.key]
-    dev_us = sum(getattr(e, "device_time_total", 0.0) for e in rows)
-    count = sum(e.count for e in rows)
-    if dev_us <= 0:
-        events = [e for e in _kernels(prof) if kernel in e.get("name", "")]
-        dev_us = sum(float(e.get("dur", 0.0)) for e in events)
-        count = len(events)
+    for attempt in range(PROFILER_WINDOWS):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        # the device's own rows (an operator's row also sums its kernels'
+        # time)
+        rows = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and kernel in e.key]
+        dev_us = sum(getattr(e, "device_time_total", 0.0) for e in rows)
+        count = sum(e.count for e in rows)
+        if dev_us <= 0:
+            events = [e for e in _kernels(prof)
+                      if kernel in e.get("name", "")]
+            dev_us = sum(float(e.get("dur", 0.0)) for e in events)
+            count = len(events)
+        if count and count % n == 0:
+            break
+        log(f"  profiler window {attempt + 1}: {count} kernel records for "
+            f"{n} calls")
     return host_s * 1e6, dev_us / n, count
 
 
@@ -530,16 +576,19 @@ def flash_phase(torch):
     shape on its kernel (FLASH_SHAPES' last entry). Times at every shape,
     with the bound's share and the ratio to `scaled_dot_product_attention`
     (causal without a window or with one no row reaches: is_causal;
-    non-causal: no mask; S-B: a boolean causal-and-window mask); S-A's go
-    into the report."""
+    non-causal: no mask; a window some row reaches: a boolean
+    causal-and-window mask); FLASH_REPORTED's shapes go into the report,
+    {report name: numbers}."""
     phase("kernels: flash_attention")
     from repro_torch.kernels import flashattn, ref
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
-    res = {"max_abs_err": 0.0}
+    res = {name: {"max_abs_err": 0.0} for name in FLASH_REPORTED.values()}
     for label, (B, Sq, S, H, KV, D, dname, window, causal, heads,
                 variant) in FLASH_SHAPES.items():
         dtype, tol = getattr(torch, dname), FLASH_TOL[dname]
+        reported = ("flash_attention[D256]" if D == 256
+                    else "flash_attention")
         q = torch.randn((B, Sq, H, D), generator=gen, device=dev).to(dtype)
         k, v = (torch.randn((B, S, KV, D), generator=gen, device=dev)
                 .to(dtype) for _ in range(2))
@@ -567,7 +616,8 @@ def flash_phase(torch):
                 f"{excess:.3f} of the tolerance {tol} on {heads} heads")
             check(excess <= 1, f"{name} {label}: differs from the plain "
                                f"version ({excess:.3f} of the tolerance)")
-            res["max_abs_err"] = max(res["max_abs_err"], err)
+            res[reported]["max_abs_err"] = max(
+                res[reported]["max_abs_err"], err)
         lo = min(64, S // 2)
         k_ctrl = sub[1].clone()
         k_ctrl[:, :, lo:lo + 64] = 0
@@ -578,24 +628,21 @@ def flash_phase(torch):
             f"{ctrl:.3f} of the tolerance")
         check(ctrl > 1, f"flash {label}: the check passes a wrong result")
         del outs, k_ctrl
-        library = None
-        if not label.startswith("ragged") and (window is None or
-                                               window >= S):
+        if window is None or window >= S:
             def library():
                 return torch.nn.functional.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=causal)
-        elif label == "S-B":
+        else:
             mask = _window_mask(torch, S, window, dev)
 
             def library():
                 return torch.nn.functional.scaled_dot_product_attention(
                     qt, kt, vt, attn_mask=mask)
-        if library is not None:
-            # the yardstick computes the same function: its agreement with
-            # the plain version, for the record
-            lib_excess = flash_excess(torch, library()[:, :heads], plain, tol)
-            log(f"  library {label:7s} {lib_excess:.3f} of the tolerance on "
-                f"{heads} heads")
+        # the yardstick computes the same function: its agreement with the
+        # plain version, for the record
+        lib_excess = flash_excess(torch, library()[:, :heads], plain, tol)
+        log(f"  library {label:7s} {lib_excess:.3f} of the tolerance on "
+            f"{heads} heads")
         del plain
         iters = 10 if Sq * S * B > 2 ** 24 else 50
         ms = _time_ms(torch, lambda: flashattn.gqa_flash_attention(
@@ -609,11 +656,8 @@ def flash_phase(torch):
             (bytes_ / HBM_BYTES_PER_S * 1e3, "bytes"),
             (flops / (BF16_OPS_PER_S if dtype == torch.bfloat16
                       else F32_OPS_PER_S) * 1e3, "operations"))
-        library_ms = None if library is None else _time_ms(torch, library,
-                                                           iters)
-        lib = ("null" if library_ms is None else
-               f"{library_ms:.4f} ms (kernel / library "
-               f"{ms / library_ms:.3f})")
+        library_ms = _time_ms(torch, library, iters)
+        lib = f"{library_ms:.4f} ms (kernel / library {ms / library_ms:.3f})"
         log(f"  flash {label:7s} {variant} gqa_flash_attention {ms:.4f} ms, "
             f"flash_attention {public_ms:.4f} ms  bound {bound_ms:.4f} ms "
             f"({bound_by}, {flops} FLOP, {bytes_} B)  share of the bound "
@@ -624,17 +668,15 @@ def flash_phase(torch):
             iters, "flash_fwd")
         check(profiled_n == iters, f"flash {label}: the profiler saw "
                                    f"{profiled_n} of {iters} launches")
-        split = (f"host {host_us:.1f} us per call, kernel {kernel_us:.1f} us "
-                 f"per launch ({profiled_n} launches profiled)")
-        if library is not None:
-            lib_host, lib_kernel, lib_n = issue_split(torch, library, iters)
-            split += (f"; library host {lib_host:.1f} us per call, its "
-                      f"{lib_n / iters:g} kernels {lib_kernel:.1f} us per "
-                      f"call")
-        log(f"  flash {label:7s} issue split: {split}")
-        if label == "S-A":
-            res.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                       bound_by=bound_by, library_ms=library_ms)
+        lib_host, lib_kernel, lib_n = issue_split(torch, library, iters)
+        log(f"  flash {label:7s} issue split: host {host_us:.1f} us per call, "
+            f"kernel {kernel_us:.1f} us per launch ({profiled_n} launches "
+            f"profiled); library host {lib_host:.1f} us per call, its "
+            f"{lib_n / iters:g} kernels {lib_kernel:.1f} us per call")
+        if label in FLASH_REPORTED:
+            res[FLASH_REPORTED[label]].update(
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
         del q, k, v, qt, kt, vt, sub, library
         torch.cuda.empty_cache()
     return res
@@ -645,7 +687,7 @@ def flash_phase(torch):
 # --------------------------------------------------------------------------
 
 MODEL_ARCHS = ("yi-6b", "llava-next-mistral-7b", "whisper-small",
-               "minicpm3-4b")
+               "minicpm3-4b", "recurrentgemma-2b", "mamba2-2.7b")
 
 
 def normal_embeds(torch, cfg, batch, gen):
@@ -851,7 +893,7 @@ def hybrid_planner(cfg, comm, *, batch, seq, n_buckets):
 
 def serve_phase(torch, model, params, label, *, batch, prompt_len, n_new,
                 repeat=1, flash=(N_LAYERS, "wgmma_bf16"), profile=False,
-                **engine_kw):
+                check_cache=None, **engine_kw):
     """One serve cell through Engine.generate at full width; `repeat` runs
     it that many times on the same prompts (the greedy tokens must agree).
     Then one prefill and one decode step on the same prompts check that the
@@ -861,7 +903,8 @@ def serve_phase(torch, model, params, label, *, batch, prompt_len, n_new,
     takes standard-normal frame embeddings; both drawn from a seed. With
     `profile`, that prefill and 3 decode steps after it run under
     torch.profiler: kernels, summed kernel time against the wall time and
-    the top kernels by time."""
+    the top kernels by time. `check_cache(cache)` checks the cache after
+    that prefill and its decode steps."""
     from repro_torch.models.transformer import Batch
     from repro_torch.serve.engine import Engine, EngineConfig
     phase(f"serve {label} ({model.cfg.name}): batch {batch}, prompt "
@@ -913,6 +956,8 @@ def serve_phase(torch, model, params, label, *, batch, prompt_len, n_new,
     from repro_torch.kernels import flashattn
     variants = dict(flashattn.VARIANT_LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
+    if check_cache is not None:
+        check_cache(cache)
     del cache
     prefills = repeat + 1
     per_prefill, variant = flash
@@ -1535,11 +1580,12 @@ def train_h_phase(torch, zero):
                                          "dequantize_accumulate_blocks": n})
 
 
-def family_cli_phase(torch):
+def family_cli_phase(torch, archs):
     """The train CLI (flat mlsl int8 + EF, 2 steps) and the serve CLI on
-    the attention family's smoke configs. The serve CLI passes no frame
+    the smoke configs of `archs`. The serve CLI passes no frame
     embeddings, as the reference's does: whisper-small must stop with the
-    ValueError naming them."""
+    ValueError naming them. A prefill launches flash once per attn or
+    local layer."""
     from repro_torch.configs import registry
     from repro_torch.launch import serve as serve_lib
     from repro_torch.train import trainer as tr
@@ -1547,7 +1593,7 @@ def family_cli_phase(torch):
     totals = dict(zero)
     steps = 2
     comm = tr.CommConfig(mode="mlsl", wire="int8", error_feedback=True)
-    for _, arch, _, _ in FAMILY_SERVE:
+    for arch in archs:
         n = sum(_cli_plan(comm, False, arch).fusable) * steps
         launches, _ = _cli_train(
             torch, f"--arch {arch}",
@@ -1556,7 +1602,7 @@ def family_cli_phase(torch):
             {**zero, "quantize_ef_blocks": n, "dequantize_blocks": n})
         for k, v in launches.items():
             totals[k] += v
-    for _, arch, _, _ in FAMILY_SERVE:
+    for arch in archs:
         phase(f"cli: python -m repro_torch.launch.serve --arch {arch} "
               f"(smoke config)")
         cfg = registry.get_smoke_config(arch)
@@ -1576,7 +1622,7 @@ def family_cli_phase(torch):
         rc = serve_lib.main(argv)
         torch.cuda.synchronize()
         served = read_launches()
-        want = cfg.n_layers if "attn" in cfg.block_pattern else 0
+        want = flash_layers(cfg)
         log(f"  launches {served}")
         check(rc == 0 and served["flash_attention"] == want,
               f"cli serve {arch}: rc={rc} launches {served}, expected "
@@ -1584,6 +1630,124 @@ def family_cli_phase(torch):
         for k, v in served.items():
             totals[k] += v
     return totals
+
+
+# --------------------------------------------------------------------------
+# 18-20. the recurrent family
+# --------------------------------------------------------------------------
+
+# serve cells of the recurrent family, full width and depth: (label, arch,
+# shape)
+RECURRENT_SERVE = (
+    ("R-A", "recurrentgemma-2b", dict(batch=8, prompt_len=2048, n_new=64)),
+    ("R-B", "recurrentgemma-2b", dict(batch=1, prompt_len=8192, n_new=32)),
+    ("MB-A", "mamba2-2.7b", dict(batch=8, prompt_len=2048, n_new=64)))
+RECURRENT_ARCHS = ("recurrentgemma-2b", "mamba2-2.7b")
+
+
+def flash_layers(cfg) -> int:
+    """The layers whose attention a prefill runs on the flash kernel (the
+    attn and local kinds)."""
+    return sum(cfg.layer_kind(i) in ("attn", "local")
+               for i in range(cfg.n_layers))
+
+
+def _recurrent_cache_check(cfg, label, batch, prompt_len):
+    """The cache after a prefill: every local block a ring of its window's
+    slots (R-B's 8192-token prompt compacted into it; a prompt no longer
+    than the window keeps its own length), every recurrent block its state
+    and conv tails at their own shapes, never max_seq."""
+    def check_cache(cache):
+        reps = cfg.pattern_repeats
+        shapes = {}
+        for i, kind in enumerate(cfg.block_pattern):
+            c = cache["blocks"][f"p{i}_{kind}"]
+            shapes[kind] = {k: tuple(t.shape) for k, t in c.items()}
+            if kind == "local":
+                a = cfg.attn
+                want = (reps, batch, min(a.window, prompt_len), a.n_kv,
+                        a.head_dim)
+                check(shapes[kind]["k"] == want == shapes[kind]["v"],
+                      f"serve {label}: local cache {shapes[kind]}")
+            elif kind == "rglru":
+                w = cfg.rglru.lru_width
+                check(shapes[kind] == {
+                    "h": (reps, batch, w),
+                    "conv": (reps, batch, cfg.rglru.conv_width - 1, w)},
+                    f"serve {label}: rglru cache {shapes[kind]}")
+            elif kind == "ssm":
+                sc = cfg.ssm
+                d_in = sc.expand * cfg.d_model
+                check(shapes[kind]["state"] == (
+                    reps, batch, d_in // sc.head_dim, sc.d_state,
+                    sc.head_dim), f"serve {label}: ssm cache {shapes[kind]}")
+        log(f"  cache after the prefill: {shapes}")
+    return check_cache
+
+
+def recurrent_serve_phase(torch):
+    """R-A, R-B and MB-A: each model at full width and depth from seeded
+    random weights, through `serve_phase` with a profiler window. R-A and
+    R-B: recurrentgemma-2b, 8 local blocks (10 query heads on one KV head,
+    D 256, window 2048) launching `wgmma_bf16` once each per prefill, 18
+    RG-LRU blocks (R-A's window hides nothing at 2048 tokens; R-B's
+    8192-token prompt is compacted into the local blocks' rings). MB-A:
+    mamba2-2.7b, 64 SSD blocks, no attention. Returns the launches, the
+    cells' records and the D-256 flash launches."""
+    from repro_torch.configs import registry
+    from repro_torch.models.transformer import Model
+    totals, serve, d256 = {}, {}, 0
+    model = params = None
+    for label, arch, kw in RECURRENT_SERVE:
+        if model is None or model.cfg.name != arch:
+            del model, params
+            torch.cuda.empty_cache()
+            model = Model(registry.get_config(arch))
+            params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                                "cuda")
+            log(f"{arch}: {model.n_params():,} parameters on the card")
+        n_flash = flash_layers(model.cfg)
+        launches, serve[label] = serve_phase(
+            torch, model, params, label, profile=True,
+            flash=(n_flash, "wgmma_bf16" if n_flash else None),
+            check_cache=_recurrent_cache_check(model.cfg, label, kw["batch"],
+                                               kw["prompt_len"]), **kw)
+        serve[label]["n_params"] = model.n_params()
+        if model.cfg.attn is not None and model.cfg.attn.head_dim == 256:
+            d256 += launches["flash_attention"]
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+    del model, params
+    torch.cuda.empty_cache()
+    return totals, serve, d256
+
+
+def train_i_phase(torch, zero):
+    """Train I: cell A's configuration (default planner, mlsl int8 + EF, 2
+    microbatches, 3 steps, global batch 8 x 2048) on mamba2-2.7b at full
+    width cut to 8 layers. Its plan: the f32 per-head vectors (A_log, D,
+    dt_bias) beside the bf16 matrices; one quantize_ef and one
+    dequantize_accumulate per fused bucket and microbatch; autograd runs
+    through the chunked SSD."""
+    from repro_torch.configs import registry
+    from repro_torch.core import planner as pl
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models.transformer import Model
+    from repro_torch.train import trainer as tr
+    cfg = dataclasses.replace(registry.get_config("mamba2-2.7b"), n_layers=8)
+    comm = tr.CommConfig(mode="mlsl", wire="int8", error_feedback=True,
+                         accum_steps=2)
+    mesh = mesh_lib.make_host_mesh(1, 1)
+    plan = tr.make_comm_engine(Model(cfg), mesh, pl.Planner(mesh=mesh),
+                               comm).plan
+    for b, f in zip(plan.buckets.buckets, plan.fusable):
+        log(f"  train I bucket {'fused' if f else 'leafwise'}: "
+            + ", ".join("/".join(plan.buckets.paths[i]) for i in b.leaf_ids))
+    n = sum(plan.fusable) * 2 * 3
+    check(n > 0, "train I: no fused bucket")
+    return train_phase(torch, "I", cfg, comm, steps=3, dp_only=False,
+                       expect={**zero, "quantize_ef_blocks": n,
+                               "dequantize_accumulate_blocks": n})
 
 
 def main() -> int:
@@ -1603,7 +1767,7 @@ def main() -> int:
     name, count, smi = device_phase(torch)
     build_phase()
     results = kernels_phase(torch)
-    results["flash_attention"] = flash_phase(torch)
+    results.update(flash_phase(torch))
     model_phase(torch)
 
     cfg = dataclasses.replace(registry.get_config("yi-6b"), n_layers=4)
@@ -1689,8 +1853,19 @@ def main() -> int:
     launches, runs["H"] = train_h_phase(torch, zero)
     for k, v in launches.items():
         totals[k] += v
-    for k, v in family_cli_phase(torch).items():
+    for k, v in family_cli_phase(
+            torch, [arch for _, arch, _, _ in FAMILY_SERVE]).items():
         totals[k] += v
+    launches, recurrent, d256 = recurrent_serve_phase(torch)
+    serve.update(recurrent)
+    for k, v in launches.items():
+        totals[k] += v
+    launches, runs["I"] = train_i_phase(torch, zero)
+    for k, v in launches.items():
+        totals[k] += v
+    for k, v in family_cli_phase(torch, RECURRENT_ARCHS).items():
+        totals[k] += v
+    check(d256 > 0, "the recurrent cells never launched flash at D 256")
     check(all(v > 0 for v in totals.values()),
           f"a kernel was never launched on the main path: {totals}")
     if dist.is_initialized():
@@ -1700,16 +1875,20 @@ def main() -> int:
     log("train " + json.dumps(runs))
     print("serve " + json.dumps(serve), flush=True)
     log(f"total_s {time.perf_counter() - t_start:.1f}")
+    # the flash kernel's D-256 instance has its own line: its launches are
+    # the recurrentgemma cells' (R-A, R-B), its times R-A's shape's; the
+    # smoke config's head dim of 32 runs the f32 kernel
+    launched = {**totals, "flash_attention[D256]": d256}
     kernels = [{"name": k, "route": "cuda",
-                "source": SOURCES["flashattn" if k == "flash_attention"
-                                  else "quant8"],
-                "replaces": KERNELS[k], "launches": totals[k],
+                "source": SOURCES["quant8" if k in QUANT8 else "flashattn"],
+                "replaces": KERNELS[k.split("[")[0]],
+                "launches": launched[k],
                 "max_abs_err": results[k]["max_abs_err"],
                 "ms": results[k]["ms"], "plain_ms": results[k]["plain_ms"],
                 "bound_ms": results[k]["bound_ms"],
                 "bound_by": results[k]["bound_by"],
                 "library_ms": results[k]["library_ms"]}
-               for k in KERNELS]
+               for k in (*KERNELS, "flash_attention[D256]")]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

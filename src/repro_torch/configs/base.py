@@ -2,9 +2,8 @@
 
 Ports `repro/configs/base.py` with torch dtypes. Every ported architecture
 is a `ModelConfig` in repro_torch/configs/<id>.py; the registry
-(repro_torch.configs.registry) resolves `--arch <id>` strings. The MoE,
-SSM and RG-LRU configs, and their terms in `param_count_estimate`, come
-with their slices.
+(repro_torch.configs.registry) resolves `--arch <id>` strings. The MoE
+config, and its terms in `param_count_estimate`, come with its slice.
 """
 
 from __future__ import annotations
@@ -40,6 +39,27 @@ class MLAConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-2 SSD mixer."""
+
+    d_state: int = 128
+    head_dim: int = 64
+    expand: int = 2
+    conv_width: int = 4
+    chunk: int = 256
+    n_groups: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class RGLRUConfig:
+    """RecurrentGemma / Griffin recurrent block."""
+
+    lru_width: int
+    conv_width: int = 4
+    c_constant: float = 8.0
+
+
+@dataclasses.dataclass(frozen=True)
 class EncoderConfig:
     """Whisper-style encoder consuming precomputed frame embeddings (the
     conv + mel frontend is a stub, as in the reference)."""
@@ -52,16 +72,19 @@ class EncoderConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    arch_type: str                 # dense | audio | vlm (the ported types)
+    arch_type: str                 # dense | ssm | hybrid | audio | vlm
     n_layers: int
     d_model: int
     vocab: int
-    block_pattern: Tuple[str, ...]  # cycled over layers: attn | mla | cross
+    # cycled over layers: attn | mla | ssm | rglru | local | cross
+    block_pattern: Tuple[str, ...]
     d_ff: int = 0
     mlp_act: str = "silu"
     mlp_gated: bool = True
     attn: Optional[AttnConfig] = None
     mla: Optional[MLAConfig] = None
+    ssm: Optional[SSMConfig] = None
+    rglru: Optional[RGLRUConfig] = None
     encoder: Optional[EncoderConfig] = None
     vlm_img_tokens: int = 0        # >0: prepend this many projected patch embeds
     vlm_d_vision: int = 1024
@@ -109,6 +132,11 @@ def reduce_for_smoke(cfg: ModelConfig, *, d_model: int = 256,
         kw["mla"] = dataclasses.replace(cfg.mla, n_heads=4, q_lora_rank=64,
                                         kv_lora_rank=32, qk_nope_dim=16,
                                         qk_rope_dim=8, v_head_dim=16)
+    if cfg.ssm is not None:
+        kw["ssm"] = dataclasses.replace(cfg.ssm, d_state=16, head_dim=16,
+                                        chunk=16)
+    if cfg.rglru is not None:
+        kw["rglru"] = dataclasses.replace(cfg.rglru, lru_width=d_model)
     if cfg.encoder is not None:
         kw["encoder"] = dataclasses.replace(cfg.encoder, n_layers=2,
                                             n_frames=16, d_input=d_model)
@@ -126,12 +154,13 @@ def reduce_for_smoke(cfg: ModelConfig, *, d_model: int = 256,
 def param_count_estimate(cfg: ModelConfig) -> float:
     """Rough N for FSDP decisions and 6ND math (the exact count comes from
     the parameter definitions): the reference's terms for the ported
-    kinds."""
+    kinds (its rglru term leaves out the block's MLP and its w_a/w_i, as
+    the reference's does)."""
     d = cfg.d_model
     n = 2.0 * cfg.vocab * d
     for i in range(cfg.n_layers):
         k = cfg.layer_kind(i)
-        if k == "attn":
+        if k in ("attn", "local"):
             a = cfg.attn
             n += d * (a.n_heads + 2 * a.n_kv + a.n_heads) * a.head_dim
             n += (3 if cfg.mlp_gated else 2) * d * cfg.d_ff
@@ -144,6 +173,15 @@ def param_count_estimate(cfg: ModelConfig) -> float:
             n += m.kv_lora_rank * m.n_heads * (m.qk_nope_dim + m.v_head_dim)
             n += m.n_heads * m.v_head_dim * d
             n += (3 if cfg.mlp_gated else 2) * d * cfg.d_ff
+        elif k == "ssm":
+            s = cfg.ssm
+            d_in = s.expand * d
+            n += d * (2 * d_in + 2 * s.n_groups * s.d_state
+                      + d_in // s.head_dim)
+            n += d_in * d
+        elif k == "rglru":
+            r = cfg.rglru
+            n += 2 * d * r.lru_width + r.lru_width * d + 3 * r.lru_width
     if cfg.encoder is not None:
         a = cfg.attn
         per = d * 4 * a.n_heads * a.head_dim + 2 * d * cfg.d_ff

@@ -14,6 +14,8 @@ _MODULES = {
     "chatglm3-6b": "chatglm3_6b",
     "whisper-small": "whisper_small",
     "deepseek-7b": "deepseek_7b",
+    "recurrentgemma-2b": "recurrentgemma_2b",
+    "mamba2-2.7b": "mamba2_2_7b",
 }
 
 ARCH_IDS = tuple(_MODULES)

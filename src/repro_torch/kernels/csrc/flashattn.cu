@@ -20,12 +20,14 @@
 // rows (the last query tiles, under a causal mask) are scheduled first. Each
 // (dtype, D) pair runs exactly one kernel (dispatch_bf16 / dispatch_f32):
 //
-//   * bf16, D 64 and 128 (whisper-small's encoder, decoder and
-//     cross-attention; yi-6b's and llava's prefill): flash_fwd_wgmma<D>,
-//     built for Hopper (see its comment below): persistent CTAs, TMA loads
-//     from a warp-specialized producer, both products on wgmma, 128-key KV
-//     tiles; D 64 on 192-row query tiles (three consumer warpgroups), D 128
-//     on 128-row tiles (two);
+//   * bf16, D 64, 128 and 256 (whisper-small's encoder, decoder and
+//     cross-attention; yi-6b's and llava's prefill; recurrentgemma-2b's
+//     local attention): flash_fwd_wgmma<D>, built for Hopper (see its
+//     comment below): persistent CTAs, TMA loads from a warp-specialized
+//     producer, both products on wgmma; D 64 on 192-row query tiles (three
+//     consumer warpgroups) and 128-key KV tiles, D 128 on 128-row tiles
+//     (two) and 128-key KV tiles, D 256 on 128-row tiles and 64-key KV
+//     tiles;
 //   * bf16, D 32 (no served model has it): flash_fwd_bf16, both products on
 //     mma.sync from every warp, 64-row query tiles, a cp.async K/V ring;
 //   * f32, D 32, 64 and 128: flash_fwd_f32, both products as f32 FMAs on
@@ -573,7 +575,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16, D 64 and 128, for Hopper: flash_fwd_wgmma<D>.
+// bf16, D 64, 128 and 256, for Hopper: flash_fwd_wgmma<D>.
 //
 // Persistent: one CTA per SM (at most) takes the work items, each a (b, h,
 // query tile of kBQ = 64 x kGroups rows), in turn: w = blockIdx.x, +
@@ -583,16 +585,17 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Params p) {
 //     and then its K and V tiles of 128 keys x D into a ring of kStages
 //     stages; setmaxnreg lowers the warpgroup to kProducerRegs registers.
 //   * Warpgroups 1..kGroups consume, 64 query rows each, with setmaxnreg
-//     raised to kConsumerRegs. S = Q K^T is wgmma m64n128k16 with Q and K
+//     raised to kConsumerRegs. S = Q K^T is wgmma m64n(kBK)k16 with Q and K
 //     read from shared memory (D / 16 k-steps); the online softmax runs in
 //     registers on the accumulator layout; O += P V is wgmma m64nDk16 with P
 //     converted to bf16 in registers (the A operand) and V read from shared
 //     memory as stored, keys x D with D contiguous (an MN-major B operand).
 //     Tile i's S = Q K^T is issued together with tile i-1's P V. With two
-//     groups (kOverlap) tile i's softmax runs while that P V is still in
-//     flight, which holds two sets of P fragments; with three, whose 160
-//     registers a thread cannot hold both, the softmax follows both
-//     products and writes P over the fragments the P V read.
+//     groups at D <= 128 (kOverlap) tile i's softmax runs while that P V is
+//     still in flight, which holds two sets of P fragments; with three,
+//     whose 160 registers a thread cannot hold both, and at D 256, whose O
+//     alone is 128 registers a thread, the softmax follows both products
+//     and writes P over the fragments the P V read.
 //   * The consumer groups issue their products in turns (FlashAttention-3's
 //     ping-pong): group c issues once group c - 1 (cyclically) has issued,
 //     through named barrier 1 + c (group c syncs on it with 128 threads,
@@ -611,14 +614,14 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Params p) {
 // landed and K is refilled while V is still read.
 //
 // Shared memory, 1024-byte aligned: Q (kBQ x D), then kStages K tiles and
-// kStages V tiles (128 x D each), then the barriers. Every tile arrives in
+// kStages V tiles (kBK x D each), then the barriers. Every tile arrives in
 // TMA boxes of 64 dims (128 bytes a row, the 128-byte swizzle's span) and all
-// its rows: one box at D 64, two at D 128, the second a box's bytes after
-// the first. The wgmma descriptors follow that layout: K-major Q and K with
-// 8-row groups 1024 bytes apart (SBO), a k-step of 16 dims 32 bytes further
-// along the row and the next box every 4 k-steps; MN-major V with 8-key
-// groups 1024 bytes apart (SBO) and, at D 128, the second 64 dims in the
-// second box (LBO, one box's bytes).
+// its rows: one box at D 64, two at D 128, four at D 256, each a box's bytes
+// after the one before. The wgmma descriptors follow that layout: K-major Q
+// and K with 8-row groups 1024 bytes apart (SBO), a k-step of 16 dims 32
+// bytes further along the row and the next box every 4 k-steps; MN-major V
+// with 8-key groups 1024 bytes apart (SBO) and, at D 128 and 256, each next
+// 64 dims in the next box (LBO, one box's bytes).
 //
 // The tensor maps view q, k and v as (D, S, H, B) with the caller's strides,
 // so query head h reads KV head h / group with no copy, and TMA fills rows
@@ -630,31 +633,38 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Params p) {
 
 namespace wg {
 
-constexpr int kBK = 128;                            // keys per KV tile
 constexpr int kBox = 64;                            // dims per TMA box
 constexpr uint32_t kRowBytes = kBox * 2;            // 128: the swizzle's span
-constexpr uint32_t kKVBoxBytes = kBK * kRowBytes;   // 16 KiB
 
 // The counts of each head dim, chosen by timing versions in turns with
 // scripts/flash_ab.py (PERF.md): consumer warpgroups of 64 query rows, and
 // the registers setmaxnreg gives a producer and a consumer thread (128
 // producers and 128 x kGroups consumers share 65,536). Two K/V stages:
 // four timed no faster at D 64.
+//
+// D 256 takes 64-key KV tiles: with 128 keys, Q (128 rows) and two stages of
+// K and V would need 321 KB of shared memory; with 64 they need 193 KB. Its
+// O accumulator is 128 f32 registers a thread (m64n256), so a group holds
+// one set of P fragments (no kOverlap).
 template <int D>
 struct Tile {
   static_assert(D % kBox == 0, "D is a whole number of 64-dim TMA boxes");
   static constexpr int kGroups = D == 64 ? 3 : 2;
   static constexpr int kStages = 2;
+  static constexpr int kBK = D == 256 ? 64 : 128;   // keys per KV tile
+  static constexpr int kPSteps = kBK / 16;          // k-steps of P V
   static constexpr int kProducerRegs = kGroups == 3 ? 32 : 40;
   static constexpr int kConsumerRegs = kGroups == 3 ? 160 : 232;
   // tile i's softmax under the same group's P V of tile i - 1: two sets of
-  // P fragments, which two groups' registers hold and three groups' do not
-  static constexpr bool kOverlap = kGroups == 2;
+  // P fragments, which two groups' registers hold at D <= 128 and three
+  // groups' (or D 256's accumulator) do not
+  static constexpr bool kOverlap = kGroups == 2 && D <= 128;
 
   static constexpr int kBQ = 64 * kGroups;          // query rows per CTA
   static constexpr int kThreads = 128 * (1 + kGroups);
   static constexpr int kConsumers = 128 * kGroups;  // consumer threads
   static constexpr int kBoxes = D / kBox;           // TMA boxes per tile
+  static constexpr uint32_t kKVBoxBytes = kBK * kRowBytes;
   static constexpr uint32_t kQBoxBytes = kBQ * kRowBytes;
   static constexpr uint32_t kQBytes = kBoxes * kQBoxBytes;
   static constexpr uint32_t kKVBytes = kBoxes * kKVBoxBytes;
@@ -688,7 +698,7 @@ struct Item {
 // p.kv_chunk, whose K and V fit in L2 together; within a chunk the longest
 // rows come first (the last query tiles, under a causal mask), then the
 // pairs, then the query heads that read one KV head, side by side.
-template <int kBQ>
+template <int kBQ, int kBK>
 __device__ __forceinline__ Item work_item(int w, const Params& p) {
   const int nq = (p.sq + kBQ - 1) / kBQ, hkv = p.h / p.group;
   const int pairs = p.b * hkv, per_chunk = p.kv_chunk * nq * p.group;
@@ -818,9 +828,10 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 
 // The same for A fragments that an in-flight wgmma still reads: they stay
 // in their registers until the wait.
-__device__ __forceinline__ void fence_frag(uint32_t (&a)[8][4]) {
+template <int N>
+__device__ __forceinline__ void fence_frag(uint32_t (&a)[N][4]) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < N; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[j][e])::"memory");
 }
@@ -863,6 +874,25 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
         WG_ACC8(d, 40),
         WG_ACC8(d, 48),
         WG_ACC8(d, 56)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// The same over a 64-key tile (D 256): m64n64k16.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        WG_ACC8(d, 0),
+        WG_ACC8(d, 8),
+        WG_ACC8(d, 16),
+        WG_ACC8(d, 24)
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
@@ -914,6 +944,49 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D 256: m64n256k16.
+__device__ __forceinline__ void wgmma_rs(float (&d)[128],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87,"
+      "%88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103,"
+      "%104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119,"
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      :
+        WG_ACC8(d, 0),
+        WG_ACC8(d, 8),
+        WG_ACC8(d, 16),
+        WG_ACC8(d, 24),
+        WG_ACC8(d, 32),
+        WG_ACC8(d, 40),
+        WG_ACC8(d, 48),
+        WG_ACC8(d, 56),
+        WG_ACC8(d, 64),
+        WG_ACC8(d, 72),
+        WG_ACC8(d, 80),
+        WG_ACC8(d, 88),
+        WG_ACC8(d, 96),
+        WG_ACC8(d, 104),
+        WG_ACC8(d, 112),
+        WG_ACC8(d, 120)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // A consumer thread's rows: it holds columns 8n + 2t + {0, 1} of rows row0
 // (accumulator registers 4n, 4n + 1) and row1 (4n + 2, 4n + 3), n < N / 8.
 struct Rows {
@@ -922,16 +995,19 @@ struct Rows {
   float sl2;  // scale * log2(e)
 };
 
-// The online softmax update on one tile's scores `sc` (keys k0..k0+127):
+// The online softmax update on one tile's scores `sc` (keys k0..k0+kBK-1):
 // scale, mask (edge tiles only), new row maxima m, correction factors c
 // for the old accumulator and denominator, l updated with this tile's row
 // sums (this thread's share), and P in bf16 as wgmma's A fragments (k-step
 // j covers keys 16j..16j+15, the score columns of n-tiles 2j and 2j + 1).
-__device__ __forceinline__ void softmax_tile(float (&sc)[64],
-                                             uint32_t (&pa)[8][4], float& m0,
-                                             float& m1, float& l0, float& l1,
-                                             float& c0, float& c1, int k0,
-                                             const Rows& r, const Params& p) {
+template <int kBK>
+__device__ __forceinline__ void softmax_tile(float (&sc)[kBK / 2],
+                                             uint32_t (&pa)[kBK / 16][4],
+                                             float& m0, float& m1, float& l0,
+                                             float& l1, float& c0, float& c1,
+                                             int k0, const Rows& r,
+                                             const Params& p) {
+  constexpr int kN = kBK / 2;  // this thread's scores
   const bool edge = k0 + kBK > p.sk ||
                     (p.causal && k0 + kBK - 1 > r.first) ||
                     (p.window > 0 && k0 <= r.first + 63 - p.window);
@@ -948,7 +1024,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64],
     const int lo0 = (p.window > 0 ? r.row0 - p.window + 1 : 0) - c0k;
     const int lo1 = (p.window > 0 ? r.row1 - p.window + 1 : 0) - c0k;
 #pragma unroll
-    for (int i = 0; i < 64; ++i) {
+    for (int i = 0; i < kN; ++i) {
       const int col = 8 * (i / 4) + (i & 1);
       const bool ok = (i & 2) ? col >= lo1 && col <= hi1
                               : col >= lo0 && col <= hi0;
@@ -956,7 +1032,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64],
     }
   }
 #pragma unroll
-  for (int i = 0; i < 64; ++i) {
+  for (int i = 0; i < kN; ++i) {
     if (i & 2)
       mx1 = fmaxf(mx1, sc[i]);
     else
@@ -975,7 +1051,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64],
   m1 = mn1;
   float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
-  for (int i = 0; i < 64; ++i) {
+  for (int i = 0; i < kN; ++i) {
     sc[i] = ex2(fmaf(sc[i], f, (i & 2) ? -mn1 : -mn0));
     if (i & 2)
       rs1 += sc[i];
@@ -985,7 +1061,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64],
   l0 = l0 * c0 + rs0;
   l1 = l1 * c1 + rs1;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < kBK / 16; ++j) {
     pa[j][0] = pack_bf16(sc[8 * j], sc[8 * j + 1]);
     pa[j][1] = pack_bf16(sc[8 * j + 2], sc[8 * j + 3]);
     pa[j][2] = pack_bf16(sc[8 * j + 4], sc[8 * j + 5]);
@@ -1036,7 +1112,7 @@ __global__ void __launch_bounds__(Tile<D>::kThreads, 1)
     if (threadIdx.x == 0) {
       int gt = 0;  // KV tiles this CTA has loaded
       for (int w = blockIdx.x, j = 0; w < n_items; w += gridDim.x, ++j) {
-        const Item item = work_item<T::kBQ>(w, p);
+        const Item item = work_item<T::kBQ, T::kBK>(w, p);
         const int hk = item.h / p.group;
         // the next item's Q once every group's last S = Q K^T is done
         if (j > 0) mbar_wait(q_empty, (j - 1) & 1);
@@ -1045,12 +1121,12 @@ __global__ void __launch_bounds__(Tile<D>::kThreads, 1)
         for (int it = 0; it < item.n_tiles; ++it, ++gt) {
           const int s = gt % kStages;
           const uint32_t free_parity = ((gt / kStages) & 1) ^ 1;
-          const int k0 = item.k_begin + it * kBK;
+          const int k0 = item.k_begin + it * T::kBK;
           mbar_wait(k_empty(s), free_parity);
-          tma_tile<T::kBoxes>(sK(s), &tk, k_full(s), kKVBoxBytes, k0, hk,
+          tma_tile<T::kBoxes>(sK(s), &tk, k_full(s), T::kKVBoxBytes, k0, hk,
                               item.b);
           mbar_wait(v_empty(s), free_parity);
-          tma_tile<T::kBoxes>(sV(s), &tv, v_full(s), kKVBoxBytes, k0, hk,
+          tma_tile<T::kBoxes>(sV(s), &tv, v_full(s), T::kKVBoxBytes, k0, hk,
                               item.b);
         }
       }
@@ -1067,22 +1143,22 @@ __global__ void __launch_bounds__(Tile<D>::kThreads, 1)
 
     // S = Q K^T of the tile in stage s: D / 16 k-steps, 4 per 64-dim box,
     // committed as one wgmma group and left in flight
-    auto issue_qk = [&](float (&sc)[64], int s) {
+    auto issue_qk = [&](float (&sc)[T::kBK / 2], int s) {
       const uint64_t dk = smem_desc(sK(s), 16, 1024);
 #pragma unroll
       for (int ks = 0; ks < D / 16; ++ks) {
         const uint32_t in_row = (ks % 4) * 32;
         wgmma_ss(sc, dq + (((ks / 4) * T::kQBoxBytes + in_row) >> 4),
-                 dk + (((ks / 4) * kKVBoxBytes + in_row) >> 4), ks);
+                 dk + (((ks / 4) * T::kKVBoxBytes + in_row) >> 4), ks);
       }
       wgmma_commit();
     };
     // O += P V of the tile in stage s, 16 keys per k-step, in flight
-    auto issue_pv = [&](float (&o)[D / 2], const uint32_t (&pa)[8][4],
+    auto issue_pv = [&](float (&o)[D / 2], const uint32_t (&pa)[T::kPSteps][4],
                         int s) {
-      const uint64_t dv = smem_desc(sV(s), kKVBoxBytes, 1024);
+      const uint64_t dv = smem_desc(sV(s), T::kKVBoxBytes, 1024);
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < T::kPSteps; ++j)
         wgmma_rs(o, pa[j], dv + ((j * 16 * kRowBytes) >> 4));
       wgmma_commit();
     };
@@ -1110,11 +1186,11 @@ __global__ void __launch_bounds__(Tile<D>::kThreads, 1)
 #pragma unroll
         for (int i = 0; i < D / 2; ++i) o[i] *= (i & 2) ? c1 : c0;
       };
-      uint32_t pa[8][4];  // P of the last tile, as wgmma's A fragments
+      uint32_t pa[T::kPSteps][4];  // P of the last tile, as wgmma's A fragments
 
       // tile 0: its scores, then its P
       {
-        float sc[64];
+        float sc[T::kBK / 2];
         mbar_wait(k_full(stage(0)), parity(0));
         __syncwarp();
         turn_wait();
@@ -1128,12 +1204,13 @@ __global__ void __launch_bounds__(Tile<D>::kThreads, 1)
         if (n == 1) mbar_arrive(q_empty);
         if constexpr (kActive) {
           fence_regs(sc);
-          softmax_tile(sc, pa, m0, m1, l0, l1, c0, c1, item.k_begin, r, p);
+          softmax_tile<T::kBK>(sc, pa, m0, m1, l0, l1, c0, c1, item.k_begin,
+                               r, p);
         }
       }
       for (int it = 1; it < n; ++it) {
         const int s = stage(it), sp = stage(it - 1);
-        float sc[64];
+        float sc[T::kBK / 2];
         mbar_wait(k_full(s), parity(it));
         mbar_wait(v_full(sp), parity(it - 1));
         __syncwarp();
@@ -1144,16 +1221,16 @@ __global__ void __launch_bounds__(Tile<D>::kThreads, 1)
           issue_pv(o, pa, sp);
         }
         turn_pass();
-        const int k0 = item.k_begin + it * kBK;
+        const int k0 = item.k_begin + it * T::kBK;
         if constexpr (T::kOverlap) {
           // tile it's softmax runs while tile it - 1's P V is in flight
           wgmma_wait<1>();
           mbar_arrive(k_empty(s));
           if (it == n - 1) mbar_arrive(q_empty);
-          uint32_t pn[8][4];
+          uint32_t pn[T::kPSteps][4];
           if constexpr (kActive) {
             fence_regs(sc);
-            softmax_tile(sc, pn, m0, m1, l0, l1, c0, c1, k0, r, p);
+            softmax_tile<T::kBK>(sc, pn, m0, m1, l0, l1, c0, c1, k0, r, p);
             // P is computed before the wait, under this tile's P V (the
             // compiler would otherwise sink the softmax below the wait)
             fence_frag(pn);
@@ -1165,7 +1242,7 @@ __global__ void __launch_bounds__(Tile<D>::kThreads, 1)
             fence_frag(pa);
             rescale();
 #pragma unroll
-            for (int jj = 0; jj < 8; ++jj)
+            for (int jj = 0; jj < T::kPSteps; ++jj)
 #pragma unroll
               for (int e = 0; e < 4; ++e) pa[jj][e] = pn[jj][e];
           }
@@ -1181,7 +1258,7 @@ __global__ void __launch_bounds__(Tile<D>::kThreads, 1)
             fence_regs(sc);
             fence_regs(o);
             fence_frag(pa);
-            softmax_tile(sc, pa, m0, m1, l0, l1, c0, c1, k0, r, p);
+            softmax_tile<T::kBK>(sc, pa, m0, m1, l0, l1, c0, c1, k0, r, p);
             rescale();
           }
         }
@@ -1226,7 +1303,7 @@ __global__ void __launch_bounds__(Tile<D>::kThreads, 1)
 
     int gt = 0;  // KV tiles this CTA has consumed
     for (int w = blockIdx.x, j = 0; w < n_items; w += gridDim.x, ++j) {
-      const Item item = work_item<T::kBQ>(w, p);
+      const Item item = work_item<T::kBQ, T::kBK>(w, p);
       Rows r;
       r.first = item.q0 + 64 * c;
       r.row0 = r.first + 16 * warp + (lane >> 2);
@@ -1337,9 +1414,9 @@ cudaError_t launch_wgmma(const Params& p, int b, int h, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   cudaError_t err = wg::make_map(&tq, p.q, D, p.sq, h, b, p.qs, T::kBQ);
   if (err == cudaSuccess)
-    err = wg::make_map(&tk, p.k, D, p.sk, h / p.group, b, p.ks, wg::kBK);
+    err = wg::make_map(&tk, p.k, D, p.sk, h / p.group, b, p.ks, T::kBK);
   if (err == cudaSuccess)
-    err = wg::make_map(&tv, p.v, D, p.sk, h / p.group, b, p.vs, wg::kBK);
+    err = wg::make_map(&tv, p.v, D, p.sk, h / p.group, b, p.vs, T::kBK);
   if (err != cudaSuccess) return err;
   static std::atomic<bool> smem_set[kMaxDevices];
   int device, sms;
@@ -1408,7 +1485,7 @@ cudaError_t dispatch_f32(const Params& p, int b, int h, int d,
   }
 }
 
-// bf16: D 64 and 128 on the Hopper kernel, D 32 on the mma.sync kernel.
+// bf16: D 64, 128 and 256 on the Hopper kernel, D 32 on the mma.sync kernel.
 cudaError_t dispatch_bf16(const Params& p, int b, int h, int d,
                           cudaStream_t stream, int* variant) {
   *variant = d == 32 ? kMmaBf16 : kWgmmaBf16;
@@ -1419,6 +1496,8 @@ cudaError_t dispatch_bf16(const Params& p, int b, int h, int d,
       return launch_wgmma<64>(p, b, h, stream);
     case 128:
       return launch_wgmma<128>(p, b, h, stream);
+    case 256:
+      return launch_wgmma<256>(p, b, h, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1431,7 +1510,8 @@ extern "C" {
 // Replaces src/repro/kernels/flashattn.py:_flash_kernel (flash_attention).
 // q: (B, H, Sq, D) through strides (q_sb, q_sh, q_ss) and d contiguous; k, v:
 // (B, H / group, Sk, D) likewise; o like q. f32 (is_bf16 == 0) or bf16 for
-// all four. D is 32, 64 or 128; window <= 0 means no window. *variant
+// all four. D is 32, 64 or 128 (and 256 in bf16); window <= 0 means no
+// window. *variant
 // receives the kernel that was launched (enum Variant).
 cudaError_t flash_attention_fwd(const void* q, const void* k, const void* v,
                                 void* o, int is_bf16, int b, int h, int group,

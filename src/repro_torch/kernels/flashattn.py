@@ -17,12 +17,14 @@ CUDA tensors they launch the kernel or raise. They launch on the current
 stream, do not synchronize, and add one to `LAUNCHES["flash_attention"]` per
 launch. The kernel is forward-only, as the reference's is.
 
-Each (dtype, D) runs one CUDA kernel: bf16 at D 64 and 128 (whisper-small's
-encoder, decoder and cross-attention; yi-6b's and llava's prefill) the
-Hopper kernel (`wgmma_bf16`: TMA, wgmma, warp specialization); bf16 at D 32,
-which no served model has, the mma.sync kernel (`mma_bf16`); f32 the FMA
-kernel (`fma_f32`). The library reports which kernel it launched, and
-`VARIANT_LAUNCHES` counts launches per kernel.
+Each (dtype, D) runs one CUDA kernel: bf16 at D 64, 128 and 256
+(whisper-small's encoder, decoder and cross-attention; yi-6b's and llava's
+prefill; recurrentgemma-2b's local attention) the Hopper kernel
+(`wgmma_bf16`: TMA, wgmma, warp specialization; 64-key KV tiles at D 256);
+bf16 at D 32, which no served model has, the mma.sync kernel (`mma_bf16`);
+f32 at D 32, 64 and 128 the FMA kernel (`fma_f32`). The library reports
+which kernel it launched, and `VARIANT_LAUNCHES` counts launches per
+kernel.
 
 Bounds on the card (`csrc/flashattn.cu`): 4 * D tensor-core flops per
 visible (query, key) pair at 989 TFLOP/s, and one exp2 per pair at 16 a
@@ -40,7 +42,8 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-HEAD_DIMS = (32, 64, 128)        # head dims the CUDA kernels are built for
+# head dims the CUDA kernels are built for, per dtype
+HEAD_DIMS = {torch.bfloat16: (32, 64, 128, 256), torch.float32: (32, 64, 128)}
 DTYPES = (torch.float32, torch.bfloat16)
 
 # kernel launches since the last reset
@@ -99,9 +102,9 @@ def _check(q, k, v, *, heads_dim: int, window) -> None:
 
 def _check_cuda(q, k, v) -> None:
     d = q.shape[3]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d}: the CUDA kernel is built for "
-                         f"{HEAD_DIMS}")
+    if d not in HEAD_DIMS[q.dtype]:
+        raise ValueError(f"head dim {d}: the CUDA kernels for {q.dtype} are "
+                         f"built for {HEAD_DIMS[q.dtype]}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1:
             raise ValueError(f"{name} must be contiguous in its last dim")
@@ -153,7 +156,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     window: int | None = None) -> torch.Tensor:
     """q (B, H, Sq, D); k/v (B, H, Sk, D) (heads already repeated) ->
     (B, H, Sq, D) in q's dtype. On the card the tensors must be contiguous
-    and D one of HEAD_DIMS."""
+    and D one of HEAD_DIMS[dtype]."""
     _check(q, k, v, heads_dim=1, window=window)
     if k.shape[1] != q.shape[1]:
         raise ValueError(f"q has {q.shape[1]} heads and k {k.shape[1]}; "

@@ -1,14 +1,18 @@
 """Per-layer block assembly: norm + mixer + MLP with residuals.
 
-Ports the attention-family kinds of `repro/models/blocks.py`:
+Ports these kinds of `repro/models/blocks.py`:
   attn   -- (windowed) causal self-attention + dense MLP
+  local  -- sliding-window causal self-attention + dense MLP (hybrid
+            models; a window of 2048 where the config names none)
   mla    -- multi-head latent attention + dense MLP
+  ssm    -- Mamba-2 SSD mixer (no separate MLP, as in the source arch)
+  rglru  -- RG-LRU recurrent mixer + dense MLP
   enc    -- bidirectional self-attention + MLP (encoder towers)
   cross  -- causal self-attention + cross-attention + MLP (enc-dec decoders)
 with rmsnorm or layernorm: full-sequence apply (the "attn" kind also with
 head/feature-sharded tensor parallelism under a hybrid plan or model
 parallelism), serving caches and one-token decode (unsharded, as in the
-reference). The other kinds come with their slices.
+reference). The "moe" kind comes with its slice.
 """
 
 from __future__ import annotations
@@ -21,9 +25,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import planner as pl
 from repro_torch.models import attention as attn_mod
-from repro_torch.models import common, mlp
+from repro_torch.models import common, mlp, rglru, ssm
 
-PORTED_KINDS = ("attn", "mla", "enc", "cross")
+PORTED_KINDS = ("attn", "local", "mla", "ssm", "rglru", "enc", "cross")
 
 
 def norm_defs(d: int, cfg: ModelConfig) -> dict:
@@ -49,8 +53,15 @@ def _check_kind(kind: str) -> None:
 def block_defs(kind: str, cfg: ModelConfig) -> dict:
     _check_kind(kind)
     d, dt = cfg.d_model, cfg.dtype
-    mixer = ({"mla": attn_mod.mla_defs(d, cfg.mla, dt)} if kind == "mla"
-             else {"attn": attn_mod.gqa_defs(d, cfg.attn, dt)})
+    if kind == "ssm":
+        return {"ln1": norm_defs(d, cfg),
+                "ssm": ssm.ssm_defs(d, cfg.ssm, dt)}
+    if kind == "mla":
+        mixer = {"mla": attn_mod.mla_defs(d, cfg.mla, dt)}
+    elif kind == "rglru":
+        mixer = {"rec": rglru.rglru_defs(d, cfg.rglru, dt)}
+    else:
+        mixer = {"attn": attn_mod.gqa_defs(d, cfg.attn, dt)}
     cross = ({"ln_x": norm_defs(d, cfg),
               "xattn": attn_mod.gqa_defs(d, cfg.attn, dt)}
              if kind == "cross" else {})
@@ -108,6 +119,8 @@ class BlockCtx:
     def window_for(self, kind: str) -> Optional[int]:
         a = self.cfg.attn
         native = a.window if a is not None else None
+        if kind == "local":
+            native = native or 2048
         if self.window_override is not None:
             return (min(native, self.window_override) if native
                     else self.window_override)
@@ -136,6 +149,11 @@ def block_apply(kind: str, p: dict, h: torch.Tensor,
     _check_kind(kind)
     cfg = ctx.cfg
     x = norm_apply(p["ln1"], h, cfg)
+    if kind == "ssm":
+        return h + ssm.ssm_apply(p["ssm"], x, cfg.ssm)
+    if kind == "rglru":
+        return _mlp_residual(p, h + rglru.rglru_apply(p["rec"], x, cfg.rglru),
+                             cfg)
     if kind == "mla":
         h = h + attn_mod.mla_apply(p["mla"], x, cfg.mla,
                                    window=ctx.window_override,
@@ -147,8 +165,9 @@ def block_apply(kind: str, p: dict, h: torch.Tensor,
         h = _cross_residual(p, h, attn_mod.gqa_cross_kv(
             p["xattn"], ctx.enc_out, cfg.attn), cfg)
         return _mlp_residual(p, h, cfg)
-    a = (cfg.attn if kind == "attn"
-         else dataclasses.replace(cfg.attn, causal=False))
+    # attn and local are causal; only the encoder's attention is not
+    a = (dataclasses.replace(cfg.attn, causal=False) if kind == "enc"
+         else cfg.attn)
     h = h + attn_mod.gqa_apply(p["attn"], x, a, window=ctx.window_for(kind),
                                kv_chunk=ctx.kv_chunk,
                                tp_axis=ctx.attn_tp(p["attn"], a),
@@ -160,11 +179,18 @@ def block_apply(kind: str, p: dict, h: torch.Tensor,
 
 def block_init_cache(kind: str, cfg: ModelConfig, batch: int, max_seq: int,
                      ctx: BlockCtx, device=None) -> dict:
-    """The serving cache of one block: the attn kind's (int8 with
-    `ctx.kv_dtype`), MLA's latent, or a cross block's {"self": its
+    """The serving cache of one block: the attn and local kinds' (int8 with
+    `ctx.kv_dtype`; local: a ring of its window), MLA's latent, the
+    recurrent kinds' state and conv tails, or a cross block's {"self": its
     self-attention's, "cross": the encoder's K/V}. The encoder's blocks
     keep no cache."""
     _check_kind(kind)
+    if kind == "ssm":
+        return ssm.ssm_init_cache(batch, cfg.d_model, cfg.ssm, cfg.dtype,
+                                  device=device)
+    if kind == "rglru":
+        return rglru.rglru_init_cache(batch, cfg.rglru, cfg.dtype,
+                                      device=device)
     if kind == "mla":
         return attn_mod.mla_init_cache(batch, max_seq, cfg.mla, cfg.dtype,
                                        window=ctx.window_override,
@@ -185,10 +211,16 @@ def block_prefill(kind: str, p: dict, h: torch.Tensor, ctx: BlockCtx):
     """`block_apply` over the prompt; returns (h, the block's cache after
     the prompt). Takes the place of the reference's `block_prefill_cache`,
     which projects the block input's K/V (MLA: its latent; cross: the
-    encoder's K/V) a second time."""
+    encoder's K/V; the recurrent kinds: runs the scan) a second time."""
     _check_kind(kind)
     cfg = ctx.cfg
     x = norm_apply(p["ln1"], h, cfg)
+    if kind == "ssm":
+        y, cache = ssm.ssm_prefill(p["ssm"], x, cfg.ssm)
+        return h + y, cache
+    if kind == "rglru":
+        y, cache = rglru.rglru_prefill(p["rec"], x, cfg.rglru)
+        return _mlp_residual(p, h + y, cfg), cache
     if kind == "mla":
         y, cache = attn_mod.mla_prefill(p["mla"], x, cfg.mla,
                                         window=ctx.window_override)
@@ -214,6 +246,12 @@ def block_decode(kind: str, p: dict, h1: torch.Tensor, cache: dict, pos: int,
     _check_kind(kind)
     cfg = ctx.cfg
     x = norm_apply(p["ln1"], h1, cfg)
+    if kind == "ssm":
+        y, cache = ssm.ssm_decode(p["ssm"], x, cache, cfg.ssm)
+        return h1 + y, cache
+    if kind == "rglru":
+        y, cache = rglru.rglru_decode(p["rec"], x, cache, cfg.rglru)
+        return _mlp_residual(p, h1 + y, cfg), cache
     if kind == "mla":
         y, cache = attn_mod.mla_decode(p["mla"], x, cache, pos, cfg.mla,
                                        window=ctx.window_override)

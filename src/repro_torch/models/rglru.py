@@ -1,0 +1,118 @@
+"""RG-LRU recurrent block (RecurrentGemma / Griffin) [arXiv:2402.19427].
+
+Ports `repro/models/rglru.py`. The recurrence h_t = a_t * h_{t-1} +
+sqrt(1 - a_t^2) * (i_t * x_t), with the input-gated decay a_t = exp(-c *
+softplus(Lambda) * sigmoid(r_t)), is a first-order linear recurrence. Over a
+full sequence the reference computes it with `jax.lax.associative_scan`
+(log-depth); the port with `linear_scan`, a log-depth scan in plain PyTorch
+(log2(S) out-of-place steps, which autograd runs through), not a loop over
+positions. Decode is the O(1) step. Around it: a width-4 causal conv and a
+GELU gate branch (the tanh form, `jax.nn.gelu`'s default), as in the
+Griffin recurrent block. The gates and the recurrence are f32 throughout.
+
+`rglru_prefill` returns (y, cache) in one pass, where the reference's
+`rglru_apply` and `rglru_prefill_cache` run it twice; `rglru_decode`
+writes the new state and conv tail into the cache's tensors in place.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import RGLRUConfig
+from repro_torch.core import planner as pl
+from repro_torch.models import common
+from repro_torch.models.ssm import _causal_conv, _conv_step
+
+
+def rglru_defs(d_model: int, r: RGLRUConfig, dtype) -> dict:
+    w = r.lru_width
+    return {
+        "w_in": pl.ParamDef((d_model, w), pl.K_PROJ_IN, dtype),
+        "w_gate": pl.ParamDef((d_model, w), pl.K_PROJ_IN, dtype),
+        "conv": pl.ParamDef((w, r.conv_width), pl.K_CONV_MODEL, dtype,
+                            init="scaled", init_scale=0.5),
+        # per-channel recurrence parameters (sharded with the channel dim)
+        "w_a": pl.ParamDef((w, w), pl.K_REPLICATED, dtype,
+                           init="scaled", init_scale=0.02),
+        "b_a": pl.ParamDef((w,), pl.K_VEC_MODEL, torch.float32, init="zeros"),
+        "w_i": pl.ParamDef((w, w), pl.K_REPLICATED, dtype,
+                           init="scaled", init_scale=0.02),
+        "b_i": pl.ParamDef((w,), pl.K_VEC_MODEL, torch.float32, init="zeros"),
+        "lam": pl.ParamDef((w,), pl.K_VEC_MODEL, torch.float32, init="ones"),
+        "w_out": pl.ParamDef((w, d_model), pl.K_PROJ_OUT, dtype),
+    }
+
+
+def _gates(p: dict, x: torch.Tensor, r: RGLRUConfig):
+    """x (..., w) post-conv branch input -> (a, gated input b) in f32."""
+    xf = x.to(torch.float32)
+    rt = torch.sigmoid(xf @ p["w_a"].to(torch.float32) + p["b_a"])
+    it = torch.sigmoid(xf @ p["w_i"].to(torch.float32) + p["b_i"])
+    log_a = -r.c_constant * F.softplus(p["lam"]) * rt
+    a = torch.exp(log_a)
+    b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) \
+        * (it * xf)
+    return a, b
+
+
+def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t h_{t-1} + b_t over dim 1 from h_{-1} = 0, for every t:
+    the reference's `associative_scan` of (a1 a2, a2 b1 + b2). Log-depth
+    (Hillis-Steele): step k combines each position with the one 2^k
+    before it, so after ceil(log2(S)) out-of-place steps every position
+    holds the combination of all positions up to it."""
+    S = a.shape[1]
+    off = 1
+    while off < S:
+        b = torch.cat([b[:, :off], a[:, off:] * b[:, :-off] + b[:, off:]],
+                      dim=1)
+        a = torch.cat([a[:, :off], a[:, off:] * a[:, :-off]], dim=1)
+        off *= 2
+    return b
+
+
+def _gate_out(p: dict, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """The GELU gate branch on the block input x times the recurrence's h,
+    back in x's dtype, through the output projection."""
+    gate = common.act_fn("gelu")((x @ p["w_gate"]).to(torch.float32))
+    return (h * gate).to(x.dtype) @ p["w_out"]
+
+
+def rglru_prefill(p: dict, x: torch.Tensor, r: RGLRUConfig):
+    """The block over a full sequence x (B, S, d_model): returns (y, the
+    cache after it: the last state h (B, w) f32 and the last W-1 pre-conv
+    inputs)."""
+    pre = x @ p["w_in"]
+    a, b = _gates(p, _causal_conv(pre, p["conv"]), r)
+    h = linear_scan(a, b)
+    return _gate_out(p, x, h), {"h": h[:, -1, :],
+                                "conv": pre[:, -(r.conv_width - 1):, :]}
+
+
+def rglru_apply(p: dict, x: torch.Tensor, r: RGLRUConfig) -> torch.Tensor:
+    """Full-sequence forward. x (B, S, d_model)."""
+    return rglru_prefill(p, x, r)[0]
+
+
+def rglru_init_cache(batch: int, r: RGLRUConfig, dtype, device=None) -> dict:
+    return {
+        "h": torch.zeros((batch, r.lru_width), dtype=torch.float32,
+                         device=device),
+        "conv": torch.zeros((batch, r.conv_width - 1, r.lru_width),
+                            dtype=dtype, device=device),
+    }
+
+
+def rglru_decode(p: dict, x1: torch.Tensor, cache: dict, r: RGLRUConfig):
+    """One step. x1 (B, 1, d_model). Writes the new h and conv tail into
+    `cache` in place; returns (y1 (B, 1, d_model), cache)."""
+    x = x1[:, 0, :]
+    u, conv = _conv_step(x @ p["w_in"], cache["conv"], p["conv"])
+    a, b = _gates(p, u, r)
+    h = a * cache["h"] + b
+    y = _gate_out(p, x, h)
+    cache["h"].copy_(h)
+    cache["conv"].copy_(conv)
+    return y[:, None, :], cache

@@ -4,7 +4,10 @@ serving entry points.
 Ports `repro/models/transformer.py` for the attention family: dense
 decoders (attn, mla), the VLM (projected patch embeddings prepended to
 the text) and the encoder-decoder (an encoder over frame embeddings, cross
-blocks, learned positions). The modality frontends are stubs, as in the
+blocks, learned positions); and for the recurrent family: the SSM
+(mamba2, ssm blocks only) and the hybrid (recurrentgemma: rglru and local
+blocks, scaled embeddings, soft-capped logits, a tail of blocks after the
+repeats of the pattern). The modality frontends are stubs, as in the
 reference: the model takes precomputed patch or frame embeddings. The
 parameter tree keeps the reference's paths and shapes, including the
 stacked `blocks/p{i}_{kind}/...` and `encoder/blocks/...` leaves with their
@@ -22,7 +25,9 @@ cross-entropy.
 
 The serving cache has the reference's tree, `cache["blocks"]["p0_attn"]["k"]`
 with the leading `pattern_repeats` dimension (MLA: `"ckv"`, `"kpe"`; a
-cross block: `{"self": {"k", "v"}, "cross": {"k", "v"}}`). `prefill` and
+cross block: `{"self": {"k", "v"}, "cross": {"k", "v"}}`; ssm: `"state"`
+and the conv tails `"conv_x"`, `"conv_B"`, `"conv_C"`; rglru: `"h"`,
+`"conv"`). `prefill` and
 `decode_step` run under `torch.inference_mode()`; `decode_step` writes
 into the cache's tensors in place and returns them.
 """
@@ -352,7 +357,8 @@ class Model:
         buffers (compacted only when the prompt is longer than the window),
         full-attention blocks get max_seq slots; a cross block's
         self-attention grows to max_seq and its encoder K/V keep their
-        n_frames rows. The encoder runs once, before the blocks; the
+        n_frames rows; a recurrent block's state and conv tails keep their
+        shapes. The encoder runs once, before the blocks; the
         prompt length counts a VLM's image tokens.
         """
         cfg = self.cfg
@@ -364,9 +370,11 @@ class Model:
         def grows(kind: str) -> bool:
             """Do the block's prompt-length buffers grow to max_seq slots
             (the reference's pad_cache)? A cross block's self-attention
-            always does."""
+            always does; a recurrent state never does."""
             if kind == "cross":
                 return True
+            if kind in ("ssm", "rglru"):
+                return False
             w = (ctx.window_override if kind == "mla"
                  else ctx.window_for(kind))
             return not w or w >= max_seq

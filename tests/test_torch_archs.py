@@ -1,10 +1,15 @@
-"""The attention-family architectures of the port against the JAX reference
-on the same weights (the reference's parameters carried across with
-`params_from_jax`) and the same numpy inputs: llava-next-mistral-7b (the
-VLM: projected patch embeddings before the text), whisper-small (the
-encoder-decoder: layernorm, the tanh GELU, an encoder over frame
-embeddings, cross blocks, learned positions) and minicpm3-4b (multi-head
-latent attention), each at its smoke config, f32 on the CPU.
+"""The attention-family and recurrent-family architectures of the port
+against the JAX reference on the same weights (the reference's parameters
+carried across with `params_from_jax`) and the same numpy inputs:
+llava-next-mistral-7b (the VLM: projected patch embeddings before the
+text), whisper-small (the encoder-decoder: layernorm, the tanh GELU, an
+encoder over frame embeddings, cross blocks, learned positions),
+minicpm3-4b (multi-head latent attention), recurrentgemma-2b (the hybrid:
+RG-LRU blocks and causal local attention with a 64-key window at the smoke
+size, 4 query heads on 1 KV head, scaled embeddings, soft-capped logits)
+and mamba2-2.7b (the SSM: chunked SSD, no attention, so `kv_chunk` changes
+nothing), each at its smoke config, f32 on the CPU. The prompts of 90
+tokens in the recurrentgemma tests reach past its window into the ring.
 
 Tolerances: logits and caches atol 1e-4 (the sums are taken in another
 order); greedy tokens equal; decode against the full forward rel < 2e-2
@@ -27,7 +32,7 @@ import torch
 
 from repro import compat
 from repro.checkpoint import ckpt as jckpt
-from repro.configs import registry as jreg
+from repro.configs import base as jbase, registry as jreg
 from repro.core.planner import Planner as JPlanner
 from repro.data import pipeline as jpipe
 from repro.launch import mesh as jmesh
@@ -37,7 +42,7 @@ from repro.optim import optimizers as jopt, schedules as jsched
 from repro.serve import engine as jengine
 from repro.train import trainer as jtr
 from repro_torch import convert, tree as tree_lib
-from repro_torch.configs import registry as treg
+from repro_torch.configs import base as tbase, registry as treg
 from repro_torch.core import planner as tpl
 from repro_torch.launch import mesh as tmesh
 from repro_torch.launch import serve as serve_cli, train as train_cli
@@ -153,7 +158,8 @@ def test_chunked_sdpa_matches_reference(causal, window, sk, chunk):
 def test_registry_and_kinds():
     for arch in ARCHS:
         assert arch in treg.ARCH_IDS
-    assert {"enc", "cross", "mla"} <= set(blocks.PORTED_KINDS)
+    assert {"enc", "cross", "mla", "local", "ssm", "rglru"} <= set(
+        blocks.PORTED_KINDS)
     cfg = treg.get_smoke_config("whisper-small")
     assert set(blocks.norm_defs(8, cfg)) == {"scale", "bias"}
 
@@ -304,6 +310,79 @@ def test_mla_absorbed_decode_matches_full_apply():
                                    rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("n_layers", [3, 5])
+def test_recurrentgemma_ring_and_tail_match_reference(n_layers):
+    """recurrentgemma-2b's smoke config (window 64) on 90-token prompts,
+    past the window: the forward logits (both paths), the prefill's logits
+    and caches (the local blocks' rings compacted to 64 slots, the RG-LRU
+    states) and 5 teacher-forced decode steps on the ring, atol 1e-4. At 5
+    layers the pattern's one repeat is followed by the tail ("rglru",
+    "rglru"), with the scaled embeddings and soft-capped logits around
+    them."""
+    jcfg = jbase.reduce_for_smoke(jreg.get_config("recurrentgemma-2b"),
+                                  n_layers=n_layers)
+    tcfg = tbase.reduce_for_smoke(treg.get_config("recurrentgemma-2b"),
+                                  n_layers=n_layers)
+    assert tcfg.tail_layers == (("rglru", "rglru") if n_layers == 5 else ())
+    assert tcfg.embed_scale and tcfg.logit_softcap == 30.0
+    jm, tm = JModel(jcfg), TModel(tcfg)
+    params = jm.init(jax.random.PRNGKey(1))
+    tp = convert.params_from_jax(jax.tree_util.tree_map(np.asarray, params),
+                                 device="cpu")
+    tok = _tokens(jcfg.vocab, (2, 90), 12)
+    jb, tb = _batches(tok, {})
+    want = np.asarray(jm.forward(params, jb))
+    for grad in (True, False):
+        with torch.set_grad_enabled(grad):
+            got = tm.forward(tp, tb).detach().numpy()
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+    jlog, jcache, jS = jax.jit(lambda p, b: jm.prefill(p, b, 110))(params,
+                                                                  jb)
+    tlog, tcache, tS = tm.prefill(tp, tb, 110)
+    np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), rtol=0,
+                               atol=1e-4)
+    assert tcache["blocks"]["p2_local"]["k"].shape[2] == 64
+    _assert_trees_close(tcache, jcache)
+    jdec = jax.jit(jm.decode_step)
+    for i in range(5):
+        nxt = np.asarray(jnp.argmax(jlog, axis=-1)).astype(np.int32)[:, None]
+        jlog, jcache = jdec(params, jcache, jnp.asarray(nxt),
+                            jnp.int32(tS + i))
+        tlog, tcache = tm.decode_step(tp, tcache, torch.from_numpy(nxt),
+                                      tS + i)
+        np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), rtol=0,
+                                   atol=1e-4, err_msg=f"step {i}")
+        _assert_trees_close(tcache, jcache)
+
+
+@pytest.mark.parametrize("path", ["autograd", "no_grad"])
+def test_local_attention_is_causal_and_windowed(path):
+    """One "local" block of the smoke recurrentgemma (window 64): its
+    output at position i moves when inputs at i or up to 63 before it
+    move, and never when later inputs or those 64 or more before it move,
+    on the train path (the materialized attention) and the no-grad path
+    (the flash wrapper's plain version here)."""
+    cfg = treg.get_smoke_config("recurrentgemma-2b")
+    rng = np.random.default_rng(13)
+    p = tree_lib.tree_map(lambda pd: torch.from_numpy(
+        (rng.standard_normal(pd.shape) * 0.3).astype(np.float32)),
+        blocks.block_defs("local", cfg))
+    ctx = blocks.BlockCtx(cfg=cfg)
+    assert ctx.window_for("local") == 64
+    h = torch.from_numpy(rng.standard_normal((2, 150, cfg.d_model)).astype(
+        np.float32))
+    i = 100
+    with torch.set_grad_enabled(path == "autograd"):
+        base = blocks.block_apply("local", p, h, ctx).detach()
+        for j, moves in ((i + 1, False), (i, True), (i - 63, True),
+                         (i - 64, False)):
+            h2 = h.clone()
+            h2[:, j] += 1.0
+            out = blocks.block_apply("local", p, h2, ctx).detach()
+            changed = float((out[:, i] - base[:, i]).abs().max()) > 1e-6
+            assert changed == moves, (j, moves)
+
+
 def test_missing_frame_embeddings_raise():
     """The reference's serve path hands whisper no frame embeddings and
     crashes in its encoder; the port refuses with a ValueError that names
@@ -324,7 +403,9 @@ def test_tensor_parallelism_raises_naming_arch_and_kind(arch):
     new architectures raise, naming themselves and what is not ported."""
     model = TModel(treg.get_smoke_config(arch))
     part = {"llava-next-mistral-7b": "img_proj", "whisper-small": "'cross'",
-            "minicpm3-4b": "'mla'"}[arch]
+            "minicpm3-4b": "'mla'",
+            "recurrentgemma-2b": "'rglru'.*'local'",
+            "mamba2-2.7b": "'ssm'"}[arch]
     mesh = tmesh.make_host_mesh(1, 1, device="cpu")
     with pytest.raises(NotImplementedError, match=f"model parallelism .*"
                                                   f"{arch}.*{part}"):
@@ -378,7 +459,8 @@ def _train_both(jm, params, comm_kw, *, jax_mesh, steps=STEPS, port=True):
 def test_one_rank_train_losses_match_reference(models, comm, monkeypatch):
     """The train step at one rank against the reference's. gspmd_kv_chunk:
     both trainers with CommConfig(kv_chunk=16), and the port's attention
-    must have gone through `chunked_sdpa` with chunks of 16."""
+    must have gone through `chunked_sdpa` with chunks of 16 (mamba2-2.7b
+    has no attention: never, and kv_chunk changes nothing)."""
     jm, params, _, _ = models
     comm_kw = {"gspmd": dict(mode="gspmd"),
                "gspmd_kv_chunk": dict(mode="gspmd", kv_chunk=16),
@@ -393,7 +475,9 @@ def test_one_rank_train_losses_match_reference(models, comm, monkeypatch):
     monkeypatch.setattr(tattn, "chunked_sdpa", spy)
     want, got = _train_both(jm, params, comm_kw,
                             jax_mesh=jmesh.make_host_mesh(1, 1))
-    assert set(chunks) == ({16} if "kv_chunk" in comm_kw else set())
+    attends = jm.cfg.attn is not None or jm.cfg.mla is not None
+    assert set(chunks) == ({16} if "kv_chunk" in comm_kw and attends
+                           else set())
     rtol = 1e-3 if comm == "mlsl_int8_ef" else 1e-4
     np.testing.assert_allclose(got[0, 0], want[0, 0], rtol=1e-5)
     np.testing.assert_allclose(got, want, rtol=rtol)
@@ -462,7 +546,8 @@ def test_train_cli_runs_on_cpu(arch, capsys):
     assert len(losses) == 2 and all(np.isfinite(losses))
 
 
-@pytest.mark.parametrize("arch", ["llava-next-mistral-7b", "minicpm3-4b"])
+@pytest.mark.parametrize("arch", ["llava-next-mistral-7b", "minicpm3-4b",
+                                  "recurrentgemma-2b", "mamba2-2.7b"])
 def test_serve_cli_runs_on_cpu(arch, capsys):
     rc = serve_cli.main(["--arch", arch, "--batch", "2", "--prompt-len",
                          "12", "--new-tokens", "3", "--device", "cpu"])

@@ -5,8 +5,8 @@ same weights: the configs field by field, and on the smoke configs (f32 on
 the CPU, the reference's parameters carried across with `params_from_jax`)
 the forward logits (atol 1e-4), the loss (rtol 1e-5) and the greedy tokens
 of a prefill and its decode steps through each package's engine (equal).
-Every ported config (the attention family's too: tests/test_torch_archs.py
-holds their models) equals the reference's field by field, with the same
+Every ported config (the attention and recurrent families' too:
+tests/test_torch_archs.py holds their models) equals the reference's field by field, with the same
 parameter count and parameter-count estimate.
 """
 
@@ -28,7 +28,8 @@ from repro_torch.serve import engine as tengine
 
 ARCHS = ("chatglm3-6b", "deepseek-7b")
 CONFIG_ARCHS = ("yi-6b",) + ARCHS + ("llava-next-mistral-7b", "whisper-small",
-                                     "minicpm3-4b")
+                                     "minicpm3-4b", "recurrentgemma-2b",
+                                     "mamba2-2.7b")
 
 
 def _fields(cfg, names=None):

@@ -291,6 +291,16 @@ FLASH_CASES = [(1, 2, 64, 64, 32, True, None), (2, 3, 100, 100, 32, True, 24),
                (2, 3, 300, 300, 128, True, 24)]
 
 
+# bf16 only (the f32 kernel stops at D 128): the Hopper kernel at D 256,
+# recurrentgemma-2b's local attention, on 128-row query tiles and 64-key KV
+# tiles: row counts that are not multiples of either, a causal window
+# narrower than a query tile, Sq != Sk, and a non-causal case
+FLASH_CASES_256 = [(1, 2, 300, 300, 256, True, 100),
+                   (2, 3, 190, 190, 256, False, None),
+                   (1, 2, 129, 383, 256, True, 130),
+                   (1, 1, 200, 200, 256, True, None)]
+
+
 # (rtol, atol as a share of the RMS of the plain output's row), as in
 # chip_smoke.py: bf16 two output ulps and the probabilities' bf16 rounding
 # in P V; f32 summation order and exp
@@ -337,12 +347,33 @@ def test_flash_attention_vs_plain(cuda, case, dtype):
     assert _flash_excess(_control(q, k, v, causal, window), want, dtype) > 1
 
 
-@pytest.mark.parametrize("d", [128, 64])
+@pytest.mark.parametrize("case", FLASH_CASES_256, ids=str)
+def test_flash_attention_head_dim_256_vs_plain(cuda, case):
+    """The bf16 D-256 kernel on standard normal q, k, v, as above; f32 at
+    D 256 has no kernel and raises."""
+    from repro_torch.kernels import flashattn
+    B, H, Sq, Sk, D, causal, window = case
+    g = torch.Generator(device=cuda).manual_seed(Sq * D)
+    q, k, v = (torch.randn(s, generator=g, device=cuda).to(torch.bfloat16)
+               for s in ((B, H, Sq, D), (B, H, Sk, D), (B, H, Sk, D)))
+    flashattn.reset_launches()
+    got = flashattn.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flashattn.VARIANT_LAUNCHES["wgmma_bf16"] == 1
+    want = ref.flash_attention(q, k, v, causal=causal, window=window)
+    assert _flash_excess(got, want, torch.bfloat16) <= 1
+    assert _flash_excess(_control(q, k, v, causal, window), want,
+                         torch.bfloat16) > 1
+    with pytest.raises(ValueError, match="head dim 256"):
+        flashattn.flash_attention(q.float(), k.float(), v.float())
+
+
+@pytest.mark.parametrize("d", [128, 64, 256])
 def test_gqa_flash_attention_reads_kv_heads_through_strides(cuda, d):
     """8 query heads on 2 KV heads in the model's (B, S, H, D) layout,
     against the plain version on the transposed copies with the KV heads
-    repeated; both head dims run the Hopper kernel (D 64 on its 192-row
-    tiles)."""
+    repeated; every head dim runs the Hopper kernel (D 64 on its 192-row
+    tiles, D 256 on its 64-key tiles)."""
     from repro_torch.kernels import flashattn
     dtype = torch.bfloat16
     g = torch.Generator(device=cuda).manual_seed(3)
@@ -358,6 +389,28 @@ def test_gqa_flash_attention_reads_kv_heads_through_strides(cuda, d):
     want = ref.flash_attention(qt, kt, vt, causal=True, window=64)
     assert _flash_excess(got.transpose(1, 2), want, dtype) <= 1
     assert _flash_excess(_control(qt, kt, vt, True, 64), want, dtype) > 1
+
+
+@pytest.mark.parametrize("window", [None, 64])
+def test_gqa_flash_attention_at_recurrentgemma_head_ratio(cuda, window):
+    """recurrentgemma-2b's local attention scaled down: 10 query heads on
+    one KV head at D 256 (multi-query), a ragged length, causal, with and
+    without a window narrower than a query tile."""
+    from repro_torch.kernels import flashattn
+    dtype = torch.bfloat16
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q = torch.randn(2, 333, 10, 256, generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn(2, 333, 1, 256, generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    flashattn.reset_launches()
+    got = flashattn.gqa_flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert flashattn.VARIANT_LAUNCHES["wgmma_bf16"] == 1
+    qt, kt, vt = (t.repeat_interleave(10 // t.shape[2], dim=2).transpose(1, 2)
+                  for t in (q, k, v))
+    want = ref.flash_attention(qt, kt, vt, causal=True, window=window)
+    assert _flash_excess(got.transpose(1, 2), want, dtype) <= 1
+    assert _flash_excess(_control(qt, kt, vt, True, window), want, dtype) > 1
 
 
 @pytest.mark.parametrize("window", [None, 130])

@@ -50,6 +50,10 @@ MASKED_CASES = [(c, causal, window) for c in CASES
 # the encoder's self-attention at a length no tile divides (its 1500)
 MASKED_CASES += [((1, 3, 32, 300, 64, 32, 128), False, None),
                  ((1, 2, 150, 150, 64, 64, 64), False, None)]
+# recurrentgemma-2b's local attention at D 256, causal: a window narrower
+# than the length, and a length no tile divides
+MASKED_CASES += [((1, 2, 150, 150, 256, 64, 64), True, 64),
+                 ((2, 1, 70, 70, 256, 32, 32), True, None)]
 
 
 @pytest.mark.parametrize(

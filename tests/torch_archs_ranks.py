@@ -1,7 +1,7 @@
 """Rank body for tests/test_torch_archs.py: one gloo rank of the port's mlsl
 train step on a ("node"=2, "local"=4) DeviceMesh, fp32 and int8 + error
-feedback, for each attention-family architecture in turn, each from the
-reference's weights. Imports torch, numpy and repro_torch only, so the spawned ranks
+feedback, for each architecture of the attention and recurrent families in
+turn, each from the reference's weights. Imports torch, numpy and repro_torch only, so the spawned ranks
 never import JAX.
 
     python torch_archs_ranks.py RANK WORLD STORE_DIR WEIGHTS_DIR OUT_DIR
@@ -29,7 +29,8 @@ from repro_torch.models.transformer import Batch, Model
 from repro_torch.optim import optimizers as opt_lib, schedules
 from repro_torch.train import trainer as tr
 
-ARCHS = ("llava-next-mistral-7b", "whisper-small", "minicpm3-4b")
+ARCHS = ("llava-next-mistral-7b", "whisper-small", "minicpm3-4b",
+         "recurrentgemma-2b", "mamba2-2.7b")
 STEPS = 3
 SEQ = 32
 BATCH = 8
