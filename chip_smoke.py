@@ -34,7 +34,10 @@ Phases, each fatal on failure:
                  at D 64, llava's V-A (8, 2048, 32 on 8, 128) bf16 causal
                  window 4096, and recurrentgemma-2b's local attention at
                  D 256 on the prefill of R-A (8, 2048, 10 on 1, 256) and
-                 R-B (1, 8192, 10 on 1, 256), bf16 causal window 2048;
+                 R-B (1, 8192, 10 on 1, 256), bf16 causal window 2048,
+                 and the MoE family's prefill at D 128 bf16 causal:
+                 grok-1's G-A (8, 2048, 48 on 8) and arctic's AR-A (8,
+                 2048, 56 on 8);
                  both wrappers, the model's (B, S, H, D) layout with
                  KV heads read through strides and the reference's (B, H,
                  S, D) with heads repeated; scores of
@@ -43,7 +46,8 @@ Phases, each fatal on failure:
                  bf16 1.6e-2 and 2e-2, f32 2e-5 and 2e-5; a control with 64
                  keys' scores zeroed (W-dec: its last 16) must fail it; the
                  per-kernel counts must show S-A, S-B, V-A, W-enc, W-dec,
-                 W-cross, R-A and R-B on the Hopper kernel (`wgmma_bf16`),
+                 W-cross, R-A, R-B, G-A and AR-A on the Hopper kernel
+                 (`wgmma_bf16`),
                  the bf16
                  ragged case on `mma_bf16` and the f32 one on the FMA
                  kernel. Times kernel, plain version
@@ -62,10 +66,11 @@ Phases, each fatal on failure:
                  the same split for the library call (its kernels' device
                  time per call);
   4. model    -- the smoke models of yi-6b, llava-next-mistral-7b,
-                 whisper-small, minicpm3-4b, recurrentgemma-2b and
-                 mamba2-2.7b (standard-normal patch and
-                 frame embeddings) on the card against the CPU, same weights:
-                 loss and gradients (loss rtol 1e-5, gradients 1e-4 of their
+                 whisper-small, minicpm3-4b, recurrentgemma-2b,
+                 mamba2-2.7b, grok-1-314b and arctic-480b (standard-normal
+                 patch and frame embeddings) on the card against the CPU,
+                 same weights: loss (the MoE routers' aux term included)
+                 and gradients (loss rtol 1e-5, gradients 1e-4 of their
                  norm), prefill logits and one decode step (atol 1e-4, f32);
                  and the tensor-parallel f/g Functions (tp_replicate with
                  tp_psum, and with tp_psum_scatter) on bf16 CUDA tensors
@@ -151,25 +156,30 @@ Phases, each fatal on failure:
                  (files validate; launches are the steps' plus one quantize
                  and one dequantize per fusable bucket per replay) and the
                  serve CLI with `--stats --trace`;
- 14. family serve -- the attention family at full width and depth, random
-                 weights from a seed, through `Engine.generate`, greedy, 64
-                 new tokens: V-A llava-next-mistral-7b, batch 8 x (576
-                 standard-normal patch embeddings + 1472 tokens); W-A
-                 whisper-small, batch 16 x 1500 standard-normal frame
-                 embeddings, decoder prompt 32; M-A minicpm3-4b, batch 8 x
-                 2048. Each checks its flash launches per prefill (32 / 36
-                 on `wgmma_bf16` / 0), finite logits and
-                 tokens in the vocabulary, and prints prefill, first-token
-                 and decode times and peak memory; then one prefill and 3
-                 decode steps under torch.profiler: kernels, their summed
-                 time against the wall time, the top kernels by time;
+ 14. family serve -- the attention family at full width and depth and the
+                 MoE family at full width cut in depth, random weights from
+                 a seed, through `Engine.generate`, greedy, 64 new tokens:
+                 V-A llava-next-mistral-7b, batch 8 x (576 standard-normal
+                 patch embeddings + 1472 tokens); W-A whisper-small, batch
+                 16 x 1500 standard-normal frame embeddings, decoder prompt
+                 32; M-A minicpm3-4b, batch 8 x 2048; G-A grok-1-314b at 4
+                 of 64 layers (8 experts of d_ff 32768, 48 query heads on 8
+                 KV heads), batch 8 x 2048, run twice (equal tokens); AR-A
+                 arctic-480b at 2 of 35 layers (128 experts of 4864 and the
+                 dense residual MLP, 56 heads on 8), batch 8 x 2048. Each
+                 checks its flash launches per prefill (32 / 36 / 0 / 4 / 2,
+                 all on `wgmma_bf16`), finite logits and tokens in the
+                 vocabulary, and prints prefill, first-token and decode
+                 times and peak memory; then one prefill and 3 decode steps
+                 under torch.profiler: kernels, their summed time against
+                 the wall time, the top kernels by time;
  15. train H  -- cell A's configuration on llava-next-mistral-7b at full
                  width cut to 4 layers, 576 zero patch embeddings + 1472
                  tokens per row (the CLI's stub); its plan fuses the norms,
                  `ln_f` and `img_proj`; finite losses and the quant8
                  launches of its 3 fused buckets;
  16. family cli -- the train CLI (mlsl int8 + EF) and the serve CLI on the
-                 three smoke configs; the whisper serve CLI (no frame
+                 five smoke configs; the whisper serve CLI (no frame
                  embeddings, as the reference's) must stop with the
                  ValueError naming them;
  17. recurrent serve -- the recurrent family at full width and depth,
@@ -189,7 +199,15 @@ Phases, each fatal on failure:
                  quant8 launches of its fused buckets, autograd through
                  the chunked SSD;
  19. recurrent cli -- the train and serve CLIs on the two smoke configs;
- 20. report   -- the serve cells' numbers, one JSON line with every kernel
+ 20. ep       -- `moe_apply_ep` over one-rank NCCL ("data", "model")
+                 groups on one grok-1 layer at full width, x (2, 2048,
+                 6144) bf16: y and aux bitwise `moe_apply`'s; then with
+                 FSDP over the data group, forward and backward on the bf16
+                 and the int8 weight-gather wires: quantize_blocks and
+                 dequantize_blocks 3 launches each, expert gradients
+                 non-zero and within 5% of the bf16 wire's (of the largest
+                 element);
+ 21. report   -- the serve cells' numbers, one JSON line with every kernel
                  (the flash kernel's D-256 instance on a line of its own),
                  then the device line.
 
@@ -238,7 +256,10 @@ N_LAYERS = 32                   # yi-6b, served at full depth
 # Hopper kernel, and llava-next-mistral-7b's (V-A, 32 query heads on 8 KV
 # heads, window 4096); then recurrentgemma-2b's local attention at D 256
 # (10 query heads on one KV head, window 2048) on the prefill of serve
-# cells R-A (8 x 2048: the window hides nothing) and R-B (1 x 8192)
+# cells R-A (8 x 2048: the window hides nothing) and R-B (1 x 8192); then
+# the MoE family's causal prefill at D 128 in groups the other cells lack:
+# grok-1's 48 query heads on 8 KV heads (G-A, groups of 6) and arctic's 56
+# on 8 (AR-A, groups of 7)
 FLASH_SHAPES = {
     "S-A": (8, 2048, 2048, 32, 4, 128, "bfloat16", None, True, 32,
             "wgmma_bf16"),
@@ -258,7 +279,11 @@ FLASH_SHAPES = {
     "R-A": (8, 2048, 2048, 10, 1, 256, "bfloat16", 2048, True, 10,
             "wgmma_bf16"),
     "R-B": (1, 8192, 8192, 10, 1, 256, "bfloat16", 2048, True, 10,
-            "wgmma_bf16")}
+            "wgmma_bf16"),
+    "G-A": (8, 2048, 2048, 48, 8, 128, "bfloat16", None, True, 48,
+            "wgmma_bf16"),
+    "AR-A": (8, 2048, 2048, 56, 8, 128, "bfloat16", None, True, 56,
+             "wgmma_bf16")}
 # the shapes whose numbers go into the report's kernel lines: S-A for
 # flash_attention, R-A for its D-256 instance
 FLASH_REPORTED = {"S-A": "flash_attention", "R-A": "flash_attention[D256]"}
@@ -687,7 +712,8 @@ def flash_phase(torch):
 # --------------------------------------------------------------------------
 
 MODEL_ARCHS = ("yi-6b", "llava-next-mistral-7b", "whisper-small",
-               "minicpm3-4b", "recurrentgemma-2b", "mamba2-2.7b")
+               "minicpm3-4b", "recurrentgemma-2b", "mamba2-2.7b",
+               "grok-1-314b", "arctic-480b")
 
 
 def normal_embeds(torch, cfg, batch, gen):
@@ -1509,36 +1535,52 @@ def cli_obs_phase(torch):
 
 
 # --------------------------------------------------------------------------
-# 14-16. the attention-family workloads
+# 14-16. the attention-family workloads and the MoE family's serve cells
 # --------------------------------------------------------------------------
 
-# serve cells of the attention family, full width: (label, arch, shape,
-# (flash launches per prefill, the kernel they run on))
+# serve cells of the attention and MoE families, full width: (label, arch,
+# layers (None: full depth), shape, (flash launches per prefill, the kernel
+# they run on))
 FAMILY_SERVE = (
-    ("V-A", "llava-next-mistral-7b",
+    ("V-A", "llava-next-mistral-7b", None,
      dict(batch=8, prompt_len=1472, n_new=64), (32, "wgmma_bf16")),
-    ("W-A", "whisper-small",
+    ("W-A", "whisper-small", None,
      dict(batch=16, prompt_len=32, n_new=64, repeat=2), (36, "wgmma_bf16")),
-    ("M-A", "minicpm3-4b", dict(batch=8, prompt_len=2048, n_new=64),
-     (0, None)))
+    ("M-A", "minicpm3-4b", None, dict(batch=8, prompt_len=2048, n_new=64),
+     (0, None)),
+    ("G-A", "grok-1-314b", 4,
+     dict(batch=8, prompt_len=2048, n_new=64, repeat=2), (4, "wgmma_bf16")),
+    ("AR-A", "arctic-480b", 2, dict(batch=8, prompt_len=2048, n_new=64),
+     (2, "wgmma_bf16")))
 
 
 def family_serve_phase(torch):
-    """V-A, W-A and M-A: each model at full width and depth from seeded
+    """V-A, W-A, M-A, G-A and AR-A: each model at full width from seeded
     random weights, through `serve_phase`. V-A's 576 patch embeddings and
     1472 tokens fill 2048 positions (32 launches of `wgmma_bf16`, D 128, 32
     query heads on 8 KV heads); W-A's encoder takes 1500 frame embeddings
     per request (36 launches of `wgmma_bf16`, D 64: 12 encoder non-causal,
     12 decoder causal, 12 cross non-causal on 1500 keys); M-A's MLA attention
-    is plain PyTorch (no launch)."""
+    is plain PyTorch (no launch). G-A (grok-1-314b at 4 of 64 layers: 8
+    experts of d_ff 32768, 48 query heads on 8 KV heads) and AR-A
+    (arctic-480b at 2 of 35 layers: 128 experts of 4864 and the dense
+    residual MLP, 56 heads on 8) launch `wgmma_bf16` once a layer and
+    prefill; the prefill routes the batch's 8 x 2048 tokens together
+    (capacity 5120 a grok-1 expert, 320 an arctic one), a decode step its 8
+    tokens at the floor of 8 slots, so every expert's weights are read each
+    step."""
     from repro_torch.configs import registry
     from repro_torch.models.transformer import Model
     totals, serve = {}, {}
-    for label, arch, kw, flash in FAMILY_SERVE:
-        model = Model(registry.get_config(arch))
+    for label, arch, layers, kw, flash in FAMILY_SERVE:
+        cfg = registry.get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        model = Model(cfg)
         params = model.init(torch.Generator(device="cuda").manual_seed(0),
                             "cuda")
-        log(f"{arch}: {model.n_params():,} parameters on the card")
+        log(f"{arch} at {cfg.n_layers} layers: {model.n_params():,} "
+            f"parameters on the card")
         launches, serve[label] = serve_phase(torch, model, params, label,
                                              flash=flash, profile=True, **kw)
         serve[label]["n_params"] = model.n_params()
@@ -1633,7 +1675,7 @@ def family_cli_phase(torch, archs):
 
 
 # --------------------------------------------------------------------------
-# 18-20. the recurrent family
+# 17-19. the recurrent family
 # --------------------------------------------------------------------------
 
 # serve cells of the recurrent family, full width and depth: (label, arch,
@@ -1647,8 +1689,8 @@ RECURRENT_ARCHS = ("recurrentgemma-2b", "mamba2-2.7b")
 
 def flash_layers(cfg) -> int:
     """The layers whose attention a prefill runs on the flash kernel (the
-    attn and local kinds)."""
-    return sum(cfg.layer_kind(i) in ("attn", "local")
+    attn, local and moe kinds)."""
+    return sum(cfg.layer_kind(i) in ("attn", "local", "moe")
                for i in range(cfg.n_layers))
 
 
@@ -1748,6 +1790,98 @@ def train_i_phase(torch, zero):
     return train_phase(torch, "I", cfg, comm, steps=3, dp_only=False,
                        expect={**zero, "quantize_ef_blocks": n,
                                "dequantize_accumulate_blocks": n})
+
+
+# --------------------------------------------------------------------------
+# 20. the MoE family's expert-parallel path
+# --------------------------------------------------------------------------
+
+EP_X = (2, 2048)            # the ep phase's x: batch x tokens of d_model
+EP_GRAD_TOL = 0.05          # int8 against bf16 weight gather, of the largest
+
+
+def ep_phase(torch):
+    """`moe_apply_ep` over the one-rank NCCL ("data", "model") groups of
+    make_host_mesh(1, 1), on one MoE layer of grok-1 at full width (8
+    experts, d 6144, d_ff 32768, bf16, seeded random weights) and x of
+    EP_X x 6144 bf16 standard normal. Forward on the bf16 wire: y and aux
+    equal `moe_apply`'s on the same inputs bit for bit (at one rank the
+    capacity, the dispatch and the products are the same). Then with FSDP
+    over the one-rank data group, forward and backward of mean(y^2) +
+    router_aux_weight * aux on both weight-gather wires: the int8 run
+    launches quantize_blocks and dequantize_blocks once per expert matrix,
+    and its expert gradients are non-zero and within EP_GRAD_TOL of the
+    bf16 run's, relative to their largest element (the straight-through
+    rule)."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import common, moe
+    phase("ep: moe_apply_ep over one-rank NCCL groups, one grok-1 layer at "
+          "full width")
+    cfg = registry.get_config("grok-1-314b")
+    m, act = cfg.moe, cfg.mlp_act
+    mesh = mesh_lib.make_host_mesh(1, 1)
+    groups = dict(model_group=mesh.get_group("model"),
+                  batch_groups=[mesh.get_group("data")])
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    p = common.init_tree(gen, moe.moe_defs(cfg.d_model, m, cfg.dtype),
+                         "cuda")
+    x = torch.randn((*EP_X, cfg.d_model), generator=gen,
+                    device="cuda").to(cfg.dtype)
+    rec = {}
+    with torch.no_grad():
+        for name, fn in (
+                ("moe_apply", lambda: moe.moe_apply(p, x, m, act=act)),
+                ("moe_apply_ep", lambda: moe.moe_apply_ep(
+                    p, x, m, act=act, **groups))):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            rec[f"{name}_s"] = time.perf_counter() - t0
+            rec[name] = out
+    (y_ref, aux_ref), (y, aux) = rec.pop("moe_apply"), rec.pop("moe_apply_ep")
+    same = torch.equal(y, y_ref) and torch.equal(aux, aux_ref)
+    log(f"  forward: moe_apply {rec['moe_apply_s']:.4f} s, moe_apply_ep "
+        f"{rec['moe_apply_ep_s']:.4f} s; y and aux bitwise equal: {same} "
+        f"(max abs err {_max_err(torch, y, y_ref):.3e}, aux {float(aux):.6f}"
+        f" vs {float(aux_ref):.6f})")
+    check(same, "ep: moe_apply_ep differs from moe_apply at one rank")
+    check(bool(torch.isfinite(y).all()), "ep: y not finite")
+    del y, y_ref
+
+    def grads(wire):
+        leaves = [p[k].detach().requires_grad_(True)
+                  for k in ("w1", "w2", "w3")]
+        pp = {**p, **dict(zip(("w1", "w2", "w3"), leaves))}
+        reset_launches()
+        y, aux = moe.moe_apply_ep(pp, x, m, act=act, fsdp_groups=groups[
+            "batch_groups"], wgather_wire=wire, **groups)
+        loss = y.float().square().mean() + m.router_aux_weight * aux
+        out = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        return float(loss.detach()), out, read_launches()
+
+    l_bf16, g_bf16, _ = grads("bf16")
+    l_int8, g_int8, launches = grads("int8")
+    log(f"  FSDP over the data group: loss bf16 wire {l_bf16:.7f}, int8 wire "
+        f"{l_int8:.7f}; int8 launches {launches}")
+    check(launches["quantize_blocks"] == 3
+          and launches["dequantize_blocks"] == 3,
+          f"ep: the int8 weight gather launched {launches}")
+    for k, a, b in zip(("w1", "w2", "w3"), g_int8, g_bf16):
+        top = float(b.abs().max())
+        rel = float((a.float() - b.float()).abs().max()) / top
+        log(f"  d{k}: int8 vs bf16 weight gather {rel:.3e} of the largest "
+            f"element ({top:.3e}); int8 max {float(a.abs().max()):.3e}")
+        check(float(a.abs().max()) > 0 and rel <= EP_GRAD_TOL,
+              f"ep: d{k} on the int8 wire is {rel:.3e} from the bf16 wire's")
+        rec[f"d{k}_int8_vs_bf16"] = rel
+    rec.update(loss_bf16=l_bf16, loss_int8=l_int8)
+    del p, x, g_bf16, g_int8
+    torch.cuda.empty_cache()
+    return launches, rec
 
 
 def main() -> int:
@@ -1854,7 +1988,7 @@ def main() -> int:
     for k, v in launches.items():
         totals[k] += v
     for k, v in family_cli_phase(
-            torch, [arch for _, arch, _, _ in FAMILY_SERVE]).items():
+            torch, [arch for _, arch, *_ in FAMILY_SERVE]).items():
         totals[k] += v
     launches, recurrent, d256 = recurrent_serve_phase(torch)
     serve.update(recurrent)
@@ -1864,6 +1998,9 @@ def main() -> int:
     for k, v in launches.items():
         totals[k] += v
     for k, v in family_cli_phase(torch, RECURRENT_ARCHS).items():
+        totals[k] += v
+    launches, runs["ep"] = ep_phase(torch)
+    for k, v in launches.items():
         totals[k] += v
     check(d256 > 0, "the recurrent cells never launched flash at D 256")
     check(all(v > 0 for v in totals.values()),

@@ -3,7 +3,7 @@
 the cards of one host, against the data-parallel twin.
 
     python3 scripts/hybrid_cards.py [--nproc 4] [--device cuda]
-                                    [--parts check,cells,stats,mp]
+                                    [--parts check,cells,stats,mp,ep]
 
 Both parts run on --nproc ranks through torchrun, for each mesh (node,
 local) of --meshes (default 1x4 and 2x2), twice: hybrid (the C2C
@@ -65,6 +65,21 @@ data-parallel twin (4, 1) on the same weights and data, mlsl:
     allocated device memory; the losses must agree with the twin's within
     rtol 1e-3.
 
+ep (only when asked for: `--parts ep`): expert parallelism
+(`models.moe.moe_apply_ep`) over a model group of all --nproc ranks on
+one grok-1 MoE layer at full width (8 experts of d_ff 32768, d 6144, bf16,
+seeded random weights: 2 experts a card at 4 ranks), x (2, --cells-seq,
+6144) bf16 replicated on every rank, NCCL:
+  * at capacity factor 8.0 (nothing dropped), each rank's y against
+    `moe_apply` of rank 0 on the whole layer: the largest error within
+    EP_TOL of y's largest element (bf16 products of other shapes), and
+    aux equal to the mean of `moe_apply`'s aux over the ranks' token
+    slices within 1e-5;
+  * at capacity factor 1.25 (the config's): y finite;
+  * timed at 1.25, the medians of 5: the forward, the forward and
+    backward, and the two all-to-alls of the forward alone on buffers of
+    the exchange's shape, with their share of the forward.
+
 Writes everything to --out as JSON and exits non-zero if a run fails or a
 pair disagrees. `--device cpu` runs the same on gloo ranks (a rehearsal:
 no time it prints is a device's; `--cells-config smoke --cells-seq 32`
@@ -81,6 +96,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import time
 
 import numpy as np
 
@@ -89,6 +105,7 @@ LOSS_ATOL = 5e-4          # fp32 wire
 GNORM_ATOL = 1e-3         # fp32 wire, the CLI's printed precision
 PARAM_ATOL = 1e-4         # fp32 wire, parameters after the last step
 LOSS_RTOL = 1e-3          # int8 and bf16 wires
+EP_TOL = 2e-2             # ep part: bf16 y against moe_apply's, of its max
 
 
 def _torchrun(nproc: int, target: list, timeout: float):
@@ -383,6 +400,132 @@ def mp_part(args, work: pathlib.Path) -> tuple:
     return results, ok
 
 
+def ep_part(args, work: pathlib.Path) -> tuple:
+    out = work / "ep.json"
+    proc = _torchrun(args.nproc, [
+        str(pathlib.Path(__file__).resolve()), "--worker", "ep",
+        "--device", args.device, "--arch", "grok-1-314b", "--cells-config",
+        args.cells_config, "--cells-seq", str(args.cells_seq),
+        "--worker-out", str(out)], args.timeout)
+    r = json.loads(out.read_text()) if out.exists() else {}
+    r["rc"] = proc.returncode
+    for k, v in r.items():
+        print(f"ep {k}: {v}", flush=True)
+    ok = proc.returncode == 0 and r.get("agree", False)
+    if not ok:
+        print(proc.stdout[-2000:], proc.stderr[-3000:], file=sys.stderr)
+    return r, ok
+
+
+def _median_s(torch, fn, n=5):
+    """The median host time of fn() over n calls after one warm-up, each
+    ending in a device synchronize and a barrier."""
+    import torch.distributed as dist
+    times = []
+    for i in range(n + 1):
+        dist.barrier()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        if i:
+            times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def ep_worker(args) -> int:
+    """One rank of the ep part (see the module docstring)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import registry
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import common, moe
+    dev = mesh_lib.resolve_device(args.device)
+    cfg = (registry.get_config(args.arch) if args.cells_config == "cells"
+           else registry.get_smoke_config(args.arch))
+    mesh = mesh_lib.make_host_mesh(1, args.nproc, device=dev)
+    group = mesh.get_group("model")
+    ep, r = dist.get_world_size(group), dist.get_rank(group)
+    rank0 = dist.get_rank() == 0
+    gen = torch.Generator(device=dev).manual_seed(7)
+    # rank 0 draws the whole layer and x, and every rank receives them
+    defs = moe.moe_defs(cfg.d_model, cfg.moe, cfg.dtype)
+    full = (common.init_tree(gen, defs, dev) if rank0 else
+            tree_lib.tree_map(lambda pd: torch.empty(
+                pd.shape, dtype=pd.dtype, device=dev), defs))
+    x = (torch.randn((2, args.cells_seq, cfg.d_model), generator=gen,
+                     device=dev) if rank0 else
+         torch.empty((2, args.cells_seq, cfg.d_model), device=dev))
+    x = x.to(cfg.dtype)
+    for t in [x, *tree_lib.leaves(full)]:
+        dist.broadcast(t, 0)
+    e_loc = cfg.moe.n_experts // ep
+    mine = {k: (v[r * e_loc:(r + 1) * e_loc].clone()
+                if k in ("w1", "w2", "w3") else v) for k, v in full.items()}
+    rec = {"config": f"{cfg.name}: one MoE layer, {cfg.moe.n_experts} "
+                     f"experts of d_ff {cfg.moe.d_ff}, d {cfg.d_model}, "
+                     f"x {tuple(x.shape)}, model group {ep}",
+           "device": [torch.cuda.get_device_name(dev)]
+           if dev.type == "cuda" else ["cpu rehearsal"]}
+    m8 = dataclasses.replace(cfg.moe, capacity_factor=8.0)
+    with torch.no_grad():
+        y, aux = moe.moe_apply_ep(mine, x, m8, act=cfg.mlp_act,
+                                  model_group=group)
+        errs = torch.zeros(2, device=dev)
+        if rank0:
+            y_ref, _ = moe.moe_apply(full, x, m8, act=cfg.mlp_act)
+            t_loc = x.shape[0] * x.shape[1] // ep
+            xs = x.reshape(ep, 1, t_loc, cfg.d_model)
+            aux_ref = sum(float(moe.moe_apply(full, xs[i], m8,
+                                              act=cfg.mlp_act)[1])
+                          for i in range(ep)) / ep
+            errs[0] = (y.float() - y_ref.float()).abs().max() / \
+                y_ref.float().abs().max()
+            errs[1] = abs(float(aux) - aux_ref)
+            del y_ref
+        dist.broadcast(errs, 0)
+        rec["cap8_y_rel_err"], rec["cap8_aux_abs_err"] = map(float, errs)
+        y125, _ = moe.moe_apply_ep(mine, x, cfg.moe, act=cfg.mlp_act,
+                                   model_group=group)
+        finite = torch.tensor([float(torch.isfinite(y125).all())],
+                              device=dev)
+        dist.all_reduce(finite, op=dist.ReduceOp.MIN)
+        rec["cap1.25_finite"] = bool(finite.item())
+        del full, y, y125
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        rec["forward_s"] = _median_s(torch, lambda: moe.moe_apply_ep(
+            mine, x, cfg.moe, act=cfg.mlp_act, model_group=group))
+        cap = moe.capacity(x.shape[0] * x.shape[1] // ep, cfg.moe)
+        buf = torch.zeros((ep, e_loc * cap, cfg.d_model), dtype=cfg.dtype,
+                          device=dev)
+        rec["all_to_all_s"] = _median_s(torch, lambda: [
+            moe._all_to_all(buf, group) for _ in range(2)])
+    leaves = {k: v.requires_grad_(True) for k, v in mine.items()}
+
+    def fwd_bwd():
+        y, aux = moe.moe_apply_ep(leaves, x, cfg.moe, act=cfg.mlp_act,
+                                  model_group=group)
+        loss = y.float().square().mean() + cfg.moe.router_aux_weight * aux
+        torch.autograd.grad(loss, list(leaves.values()))
+
+    rec["forward_backward_s"] = _median_s(torch, fwd_bwd)
+    rec["all_to_all_share_of_forward"] = (rec["all_to_all_s"]
+                                          / rec["forward_s"])
+    rec["agree"] = (rec["cap8_y_rel_err"] <= EP_TOL
+                    and rec["cap8_aux_abs_err"] <= 1e-5
+                    and rec["cap1.25_finite"])
+    if rank0:
+        pathlib.Path(args.worker_out).write_text(json.dumps(rec))
+    dist.destroy_process_group()
+    return 0
+
+
 def worker(args) -> int:
     """One rank of a cells, stats or mp run: train() on the run's mesh,
     rank 0 writes the plan lines, the step records and every rank's peak
@@ -490,7 +633,8 @@ def main() -> int:
     ap.add_argument("--timeout", type=float, default=600)
     ap.add_argument("--out", default=str(ROOT / "build" /
                                          "hybrid_cards.json"))
-    ap.add_argument("--worker", choices=["hybrid", "dp", "stats", "mp"],
+    ap.add_argument("--worker", choices=["hybrid", "dp", "stats", "mp",
+                                         "ep"],
                     default=None,
                     help=argparse.SUPPRESS)
     ap.add_argument("--arch", default="yi-6b", help=argparse.SUPPRESS)
@@ -498,6 +642,8 @@ def main() -> int:
     ap.add_argument("--wire", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--worker-out", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.worker == "ep":
+        return ep_worker(args)
     if args.worker:
         return worker(args)
     if args.device == "cuda":
@@ -524,6 +670,9 @@ def main() -> int:
         ok = ok and good
     if "mp" in parts:
         report["mp"], good = mp_part(args, work)
+        ok = ok and good
+    if "ep" in parts:
+        report["ep"], good = ep_part(args, work)
         ok = ok and good
     shutil.rmtree(work, ignore_errors=True)
     pathlib.Path(args.out).write_text(json.dumps(report, indent=1))

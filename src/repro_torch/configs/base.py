@@ -2,8 +2,8 @@
 
 Ports `repro/configs/base.py` with torch dtypes. Every ported architecture
 is a `ModelConfig` in repro_torch/configs/<id>.py; the registry
-(repro_torch.configs.registry) resolves `--arch <id>` strings. The MoE
-config, and its terms in `param_count_estimate`, come with its slice.
+(repro_torch.configs.registry) resolves `--arch <id>` strings.
+`active_param_count_estimate` comes with the dry-run, its only reader.
 """
 
 from __future__ import annotations
@@ -36,6 +36,16 @@ class MLAConfig:
     qk_rope_dim: int
     v_head_dim: int
     rope_theta: float = 1e4
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff: int
+    capacity_factor: float = 1.25
+    dense_residual_ff: int = 0     # Arctic: parallel dense MLP of this width
+    router_aux_weight: float = 0.01
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,17 +82,18 @@ class EncoderConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    arch_type: str                 # dense | ssm | hybrid | audio | vlm
+    arch_type: str                 # dense | moe | ssm | hybrid | audio | vlm
     n_layers: int
     d_model: int
     vocab: int
-    # cycled over layers: attn | mla | ssm | rglru | local | cross
+    # cycled over layers: attn | mla | moe | ssm | rglru | local | cross
     block_pattern: Tuple[str, ...]
     d_ff: int = 0
     mlp_act: str = "silu"
     mlp_gated: bool = True
     attn: Optional[AttnConfig] = None
     mla: Optional[MLAConfig] = None
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     rglru: Optional[RGLRUConfig] = None
     encoder: Optional[EncoderConfig] = None
@@ -116,7 +127,7 @@ class ModelConfig:
 
 def reduce_for_smoke(cfg: ModelConfig, *, d_model: int = 256,
                      n_layers: int | None = None, vocab: int = 512,
-                     d_ff: int = 512) -> ModelConfig:
+                     d_ff: int = 512, n_experts: int = 4) -> ModelConfig:
     """Reduced same-family variant for CPU smoke tests (<=2 layers, d<=512),
     the reference's `reduce_for_smoke` for the ported block kinds."""
     n_layers = n_layers if n_layers is not None else min(
@@ -132,6 +143,11 @@ def reduce_for_smoke(cfg: ModelConfig, *, d_model: int = 256,
         kw["mla"] = dataclasses.replace(cfg.mla, n_heads=4, q_lora_rank=64,
                                         kv_lora_rank=32, qk_nope_dim=16,
                                         qk_rope_dim=8, v_head_dim=16)
+    if cfg.moe is not None:
+        kw["moe"] = dataclasses.replace(
+            cfg.moe, n_experts=n_experts, top_k=min(cfg.moe.top_k, 2),
+            d_ff=d_ff // 2,
+            dense_residual_ff=(d_ff // 2 if cfg.moe.dense_residual_ff else 0))
     if cfg.ssm is not None:
         kw["ssm"] = dataclasses.replace(cfg.ssm, d_state=16, head_dim=16,
                                         chunk=16)
@@ -173,6 +189,12 @@ def param_count_estimate(cfg: ModelConfig) -> float:
             n += m.kv_lora_rank * m.n_heads * (m.qk_nope_dim + m.v_head_dim)
             n += m.n_heads * m.v_head_dim * d
             n += (3 if cfg.mlp_gated else 2) * d * cfg.d_ff
+        elif k == "moe":
+            a = cfg.attn
+            n += d * (a.n_heads + 2 * a.n_kv + a.n_heads) * a.head_dim
+            n += (cfg.moe.n_experts * 3 * d * cfg.moe.d_ff
+                  + d * cfg.moe.n_experts)
+            n += 3 * d * cfg.moe.dense_residual_ff
         elif k == "ssm":
             s = cfg.ssm
             d_in = s.expand * d

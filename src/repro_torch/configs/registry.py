@@ -6,7 +6,7 @@ import importlib
 
 from repro_torch.configs.base import ModelConfig, reduce_for_smoke
 
-# only architectures whose every block kind is ported
+# every architecture of the reference
 _MODULES = {
     "yi-6b": "yi_6b",
     "llava-next-mistral-7b": "llava_next_mistral_7b",
@@ -16,6 +16,8 @@ _MODULES = {
     "deepseek-7b": "deepseek_7b",
     "recurrentgemma-2b": "recurrentgemma_2b",
     "mamba2-2.7b": "mamba2_2_7b",
+    "grok-1-314b": "grok_1_314b",
+    "arctic-480b": "arctic_480b",
 }
 
 ARCH_IDS = tuple(_MODULES)

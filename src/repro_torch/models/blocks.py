@@ -5,6 +5,8 @@ Ports these kinds of `repro/models/blocks.py`:
   local  -- sliding-window causal self-attention + dense MLP (hybrid
             models; a window of 2048 where the config names none)
   mla    -- multi-head latent attention + dense MLP
+  moe    -- the attn kind's attention and cache + a top-k MoE feed-forward
+            (plus a parallel dense residual MLP where the config has one)
   ssm    -- Mamba-2 SSD mixer (no separate MLP, as in the source arch)
   rglru  -- RG-LRU recurrent mixer + dense MLP
   enc    -- bidirectional self-attention + MLP (encoder towers)
@@ -12,7 +14,9 @@ Ports these kinds of `repro/models/blocks.py`:
 with rmsnorm or layernorm: full-sequence apply (the "attn" kind also with
 head/feature-sharded tensor parallelism under a hybrid plan or model
 parallelism), serving caches and one-token decode (unsharded, as in the
-reference). The "moe" kind comes with its slice.
+reference). `block_apply` returns (h, aux): the router's load-balance
+loss of a "moe" block, None for every other kind (the reference's zero
+scalar, which the port neither makes nor adds).
 """
 
 from __future__ import annotations
@@ -25,9 +29,10 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import planner as pl
 from repro_torch.models import attention as attn_mod
-from repro_torch.models import common, mlp, rglru, ssm
+from repro_torch.models import common, mlp, moe, rglru, ssm
 
-PORTED_KINDS = ("attn", "local", "mla", "ssm", "rglru", "enc", "cross")
+PORTED_KINDS = ("attn", "local", "mla", "moe", "ssm", "rglru", "enc",
+                "cross")
 
 
 def norm_defs(d: int, cfg: ModelConfig) -> dict:
@@ -65,9 +70,10 @@ def block_defs(kind: str, cfg: ModelConfig) -> dict:
     cross = ({"ln_x": norm_defs(d, cfg),
               "xattn": attn_mod.gqa_defs(d, cfg.attn, dt)}
              if kind == "cross" else {})
+    ff = ({"moe": moe.moe_defs(d, cfg.moe, dt)} if kind == "moe" else
+          {"mlp": mlp.mlp_defs(d, cfg.d_ff, dt, gated=cfg.mlp_gated)})
     return {"ln1": norm_defs(d, cfg), **mixer, **cross,
-            "ln2": norm_defs(d, cfg),
-            "mlp": mlp.mlp_defs(d, cfg.d_ff, dt, gated=cfg.mlp_gated)}
+            "ln2": norm_defs(d, cfg), **ff}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,6 +140,14 @@ def _mlp_residual(p: dict, h: torch.Tensor, cfg: ModelConfig,
                              tp_axis=tp_axis)
 
 
+def _moe_residual(p: dict, h: torch.Tensor, cfg: ModelConfig):
+    """A moe block's feed-forward (the gather dispatch) with its residual:
+    (h, aux)."""
+    x = norm_apply(p["ln2"], h, cfg)
+    y, aux = moe.moe_apply(p["moe"], x, cfg.moe, act=cfg.mlp_act)
+    return h + y, aux
+
+
 def _cross_residual(p: dict, h: torch.Tensor, kv: tuple,
                     cfg: ModelConfig) -> torch.Tensor:
     """A cross block's cross-attention over the encoder's (k, v), with its
@@ -142,37 +156,38 @@ def _cross_residual(p: dict, h: torch.Tensor, kv: tuple,
     return h + attn_mod.gqa_cross(p["xattn"], x, kv, cfg.attn)
 
 
-def block_apply(kind: str, p: dict, h: torch.Tensor,
-                ctx: BlockCtx) -> torch.Tensor:
-    """Returns the block's output. (The reference also returns an auxiliary
-    loss, which only its MoE kind makes.)"""
+def block_apply(kind: str, p: dict, h: torch.Tensor, ctx: BlockCtx):
+    """Returns (the block's output, its auxiliary loss: a moe block's
+    router loss, None for the other kinds)."""
     _check_kind(kind)
     cfg = ctx.cfg
     x = norm_apply(p["ln1"], h, cfg)
     if kind == "ssm":
-        return h + ssm.ssm_apply(p["ssm"], x, cfg.ssm)
+        return h + ssm.ssm_apply(p["ssm"], x, cfg.ssm), None
     if kind == "rglru":
         return _mlp_residual(p, h + rglru.rglru_apply(p["rec"], x, cfg.rglru),
-                             cfg)
+                             cfg), None
     if kind == "mla":
         h = h + attn_mod.mla_apply(p["mla"], x, cfg.mla,
                                    window=ctx.window_override,
                                    kv_chunk=ctx.kv_chunk)
-        return _mlp_residual(p, h, cfg)
+        return _mlp_residual(p, h, cfg), None
     if kind == "cross":
         h = h + attn_mod.gqa_apply(p["attn"], x, cfg.attn,
                                    kv_chunk=ctx.kv_chunk)
         h = _cross_residual(p, h, attn_mod.gqa_cross_kv(
             p["xattn"], ctx.enc_out, cfg.attn), cfg)
-        return _mlp_residual(p, h, cfg)
-    # attn and local are causal; only the encoder's attention is not
+        return _mlp_residual(p, h, cfg), None
+    # attn, local and moe are causal; only the encoder's attention is not
     a = (dataclasses.replace(cfg.attn, causal=False) if kind == "enc"
          else cfg.attn)
     h = h + attn_mod.gqa_apply(p["attn"], x, a, window=ctx.window_for(kind),
                                kv_chunk=ctx.kv_chunk,
                                tp_axis=ctx.attn_tp(p["attn"], a),
                                layout=ctx.attn_layout())
-    return _mlp_residual(p, h, cfg, ctx.mlp_tp(p["mlp"]))
+    if kind == "moe":
+        return _moe_residual(p, h, cfg)
+    return _mlp_residual(p, h, cfg, ctx.mlp_tp(p["mlp"])), None
 
 
 # --- caches ----------------------------------------------------------------------
@@ -234,6 +249,8 @@ def block_prefill(kind: str, p: dict, h: torch.Tensor, ctx: BlockCtx):
     y, cache = attn_mod.gqa_prefill(p["attn"], x, cfg.attn,
                                     window=ctx.window_for(kind),
                                     kv_dtype=ctx.kv_dtype)
+    if kind == "moe":
+        return _moe_residual(p, h + y, cfg)[0], cache
     return _mlp_residual(p, h + y, cfg), cache
 
 
@@ -265,4 +282,7 @@ def block_decode(kind: str, p: dict, h1: torch.Tensor, cache: dict, pos: int,
         return _mlp_residual(p, h1, cfg), cache
     y, cache = attn_mod.gqa_decode(p["attn"], x, cache, pos, cfg.attn,
                                    window=ctx.window_for(kind))
+    if kind == "moe":
+        # the B tokens of the step routed together, at their own capacity
+        return _moe_residual(p, h1 + y, cfg)[0], cache
     return _mlp_residual(p, h1 + y, cfg), cache

@@ -24,11 +24,22 @@ from repro_torch.core.planner import ParamDef
 
 # --- parameter initialization -----------------------------------------------
 
+# a leaf whose f32 draw passes INIT_ONE_DRAW_BYTES is drawn in groups of
+# its trailing matrices, INIT_CHUNK_BYTES of f32 a group. Only the MoE
+# archs' stacked expert leaves pass it (arctic-480b's at 2 layers is 8.9 G
+# elements: 36 GB as one f32 draw); every other arch's largest leaf
+# (llava-next-mistral-7b's stacked MLP, 7 GiB of f32) is drawn at once.
+INIT_ONE_DRAW_BYTES = 16 * 2 ** 30
+INIT_CHUNK_BYTES = 2 ** 30
+
+
 def init_param(generator: torch.Generator, pd: ParamDef,
                device: torch.device) -> torch.Tensor:
     """Random init drawn from `generator` (which must live on `device`).
     torch's and jax.random's streams differ, so the reference's weights are
-    carried over with repro_torch.convert rather than re-drawn."""
+    carried over with repro_torch.convert rather than re-drawn. A leaf
+    whose f32 draw would pass INIT_ONE_DRAW_BYTES is drawn in groups of
+    its trailing matrices, so that only one group's f32 copy is alive."""
     if pd.init == "zeros":
         return torch.zeros(pd.shape, dtype=pd.dtype, device=device)
     if pd.init == "ones":
@@ -36,9 +47,21 @@ def init_param(generator: torch.Generator, pd: ParamDef,
     fan_in = pd.shape[-2] if len(pd.shape) >= 2 else pd.shape[-1]
     scale = pd.init_scale if pd.init_scale is not None \
         else 1.0 / math.sqrt(fan_in)
-    x = torch.randn(pd.shape, generator=generator, dtype=torch.float32,
-                    device=device)
-    return x.mul_(scale).to(pd.dtype)
+
+    def draw(shape):
+        x = torch.randn(shape, generator=generator, dtype=torch.float32,
+                        device=device)
+        return x.mul_(scale).to(pd.dtype)
+
+    if len(pd.shape) <= 2 or 4 * math.prod(pd.shape) <= INIT_ONE_DRAW_BYTES:
+        return draw(pd.shape)
+    out = torch.empty(pd.shape, dtype=pd.dtype, device=device)
+    mats = out.view(-1, *pd.shape[-2:])
+    step = max(1, INIT_CHUNK_BYTES // (4 * math.prod(pd.shape[-2:])))
+    for i in range(0, mats.shape[0], step):
+        part = mats[i:i + step]
+        part.copy_(draw(part.shape))
+    return out
 
 
 def init_tree(generator: torch.Generator, defs_tree, device) -> Any:

@@ -1,0 +1,296 @@
+"""Mixture-of-Experts layers: top-k token-choice routing.
+
+Ports `repro/models/moe.py`. Two dispatch implementations, both
+capacity-based (GShard semantics: overflow tokens are dropped from the
+expert path and kept by the residual):
+
+  * `moe_apply` -- sort-based dispatch with static shapes: a stable sort
+    of the token choices by expert, a scatter into an (E, C, d) buffer,
+    batched expert matmuls, an `index_add_` back. The expert FFN and the
+    dispatch are plain PyTorch, as they are plain jnp in the reference.
+
+  * `moe_apply_ep` -- explicit expert parallelism over process groups:
+    each rank of the model group routes its 1/ep slice of the local tokens,
+    exchanges token slots with the expert owners through
+    `all_to_all_single`, runs its local experts and reverses the exchange
+    (the reference's hand-scheduled shard_map path). Expert weights may
+    arrive sharded on d over the FSDP groups and are gathered just in time,
+    on the int8 wire with `wgather_wire="int8"` (`_WeightGather`).
+
+Routing follows the reference to the tie: the router runs in f32, and the
+top k come from a stable descending sort, so equal probabilities take the
+lowest expert index first, as `jax.lax.top_k` does.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+import torch.distributed as dist
+import torch.nn.functional as F
+
+from repro_torch.configs.base import MoEConfig
+from repro_torch.core import collectives as cl
+from repro_torch.core import planner as pl
+from repro_torch.kernels import ops as kops
+from repro_torch.models import common, mlp
+
+WGATHER_BLOCK = 512      # quantization block of the int8 weight gather
+
+
+def moe_defs(d_model: int, m: MoEConfig, dtype) -> dict:
+    d = {
+        "router": pl.ParamDef((d_model, m.n_experts), pl.K_REPLICATED,
+                              torch.float32),
+        "w1": pl.ParamDef((m.n_experts, d_model, m.d_ff), pl.K_EXPERT_IN,
+                          dtype),
+        "w2": pl.ParamDef((m.n_experts, m.d_ff, d_model), pl.K_EXPERT_OUT,
+                          dtype),
+        "w3": pl.ParamDef((m.n_experts, d_model, m.d_ff), pl.K_EXPERT_IN,
+                          dtype),
+    }
+    if m.dense_residual_ff:
+        d["dense"] = mlp.mlp_defs(d_model, m.dense_residual_ff, dtype)
+    return d
+
+
+def capacity(n_tokens: int, m: MoEConfig) -> int:
+    c = int(math.ceil(n_tokens * m.top_k * m.capacity_factor / m.n_experts))
+    return max(8, ((c + 7) // 8) * 8)     # sublane-aligned
+
+
+def route(xf: torch.Tensor, router_w: torch.Tensor, m: MoEConfig):
+    """xf (T, d) -> (weights (T, k) f32, ids (T, k) int64, aux_loss f32
+    scalar)."""
+    logits = xf.to(torch.float32) @ router_w.to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)
+    top, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    weights, ids = top[:, :m.top_k], ids[:, :m.top_k]
+    weights = weights / torch.clamp_min(
+        torch.sum(weights, dim=-1, keepdim=True), 1e-9)
+    # load-balance auxiliary loss (Switch/GShard): E * sum_e f_e * p_e
+    me = torch.mean(probs, dim=0)
+    one_hot = F.one_hot(ids[:, 0], m.n_experts).to(torch.float32)
+    ce = torch.sum(one_hot, dim=0) / torch.tensor(
+        xf.shape[0], dtype=torch.float32, device=xf.device)
+    aux = m.n_experts * torch.sum(me * ce)
+    return weights, ids, aux
+
+
+def _expert_ffn(w1: torch.Tensor, w2: torch.Tensor, w3: torch.Tensor,
+                xe: torch.Tensor, act: str) -> torch.Tensor:
+    """xe (E, C, d) -> (E, C, d) with a per-expert gated FFN."""
+    f = common.act_fn(act)
+    h = f(torch.bmm(xe, w1)) * torch.bmm(xe, w3)
+    return torch.bmm(h, w2)
+
+
+def _dispatch_indices(ids: torch.Tensor, m: MoEConfig, cap: int):
+    """Sort-based capacity dispatch with static shapes.
+
+    Returns (slot_token (E*C,) token index feeding each expert slot,
+             slot_valid (E*C,) bool,
+             slot_wsrc (E*C,) index into the flat (T*k,) weight vector).
+    Every token choice past its expert's capacity writes the sentinel slot
+    E*C, which is sliced off."""
+    dev = ids.device
+    n_slots = m.n_experts * cap
+    flat_e = ids.reshape(-1)                          # (T*k,) expert of choice
+    order = torch.argsort(flat_e, stable=True)        # group by expert
+    sorted_e = flat_e[order]
+    group_start = torch.searchsorted(
+        sorted_e, torch.arange(m.n_experts, device=dev, dtype=sorted_e.dtype),
+        side="left")
+    pos_in_group = torch.arange(flat_e.shape[0], device=dev) \
+        - group_start[sorted_e]
+    dest = torch.where(pos_in_group < cap, sorted_e * cap + pos_in_group,
+                       n_slots)
+    slot_token = torch.zeros(n_slots + 1, dtype=torch.int64, device=dev)
+    slot_valid = torch.zeros(n_slots + 1, dtype=torch.bool, device=dev)
+    slot_wsrc = torch.zeros(n_slots + 1, dtype=torch.int64, device=dev)
+    slot_token[dest] = order // m.top_k
+    slot_valid[dest] = True
+    slot_wsrc[dest] = order
+    return slot_token[:-1], slot_valid[:-1], slot_wsrc[:-1]
+
+
+def _gather_slots(xf: torch.Tensor, slot_token: torch.Tensor,
+                  slot_valid: torch.Tensor) -> torch.Tensor:
+    """(E*C, d): each slot's token, zero where the slot is empty."""
+    return xf[slot_token] * slot_valid[:, None].to(xf.dtype)
+
+
+def _combine(yf: torch.Tensor, weights: torch.Tensor, slot_token, slot_valid,
+             slot_wsrc, n_tokens: int) -> torch.Tensor:
+    """(T, d): each token's expert outputs weighted by its routing weights,
+    added in the activations' dtype (at most top_k non-zero terms a token,
+    so the order of the adds does not change the sum)."""
+    w_slot = weights.reshape(-1)[slot_wsrc] * slot_valid.to(torch.float32)
+    contrib = yf * w_slot[:, None].to(yf.dtype)
+    return torch.zeros((n_tokens, yf.shape[-1]), dtype=yf.dtype,
+                       device=yf.device).index_add(0, slot_token, contrib)
+
+
+def moe_apply(p: dict, x: torch.Tensor, m: MoEConfig, *,
+              act: str = "silu"):
+    """x (B, S, d) -> (y (B, S, d), aux_loss). All B*S tokens are routed
+    together, at the capacity of that many tokens."""
+    B, S, d = x.shape
+    T = B * S
+    xf = x.reshape(T, d)
+    cap = capacity(T, m)
+    weights, ids, aux = route(xf, p["router"], m)
+    slot_token, slot_valid, slot_wsrc = _dispatch_indices(ids, m, cap)
+    xe = _gather_slots(xf, slot_token, slot_valid).reshape(m.n_experts, cap,
+                                                           d)
+    ye = _expert_ffn(p["w1"], p["w2"], p["w3"], xe, act)
+    y = _combine(ye.reshape(m.n_experts * cap, d), weights, slot_token,
+                 slot_valid, slot_wsrc, T).reshape(B, S, d)
+    if "dense" in p:
+        y = y + mlp.mlp_apply(p["dense"], x, act=act)
+    return y, aux
+
+
+# --- explicit expert parallelism over process groups ----------------------------
+#
+# Gradient convention: the outputs (y, aux) are replicated over the model
+# group and every rank of it computes the same loss from them, as under the
+# tensor-parallel f/g pair; over the batch (and FSDP) groups the ranks hold
+# different tokens and their losses add up. So the inputs replicated over
+# the model group (x, the router) get their whole gradient on every model
+# rank (the f operator all-reduces it there), y's all-gather keeps this
+# rank's slice of the cotangent, and gradients of weights replicated over
+# the batch groups are each rank's part of a sum the caller reduces.
+
+class _WeightGather(torch.autograd.Function):
+    """The ZeRO weight all-gather of a shard along `axis` over `group`, in
+    rank order. int8 (the reference's `_quantized_gather`, paper C6 applied
+    to the FSDP data path): each shard travels as int8 codes and f32 scales
+    (`kops.quantize`, blocks of 512) and is dequantized part by part. The
+    backward is the exact vjp of the unquantized gather, a reduce-scatter of
+    the cotangent along `axis`: the straight-through rule for int8, without
+    which round() would zero the weights' gradients."""
+
+    @staticmethod
+    def forward(ctx, w, group, axis, int8):
+        ctx.group, ctx.axis = group, axis
+        p = dist.get_world_size(group)
+        if not int8:
+            return cl._all_gather(w.movedim(axis, 0), group).movedim(
+                0, axis).contiguous()
+        q, s, meta = kops.quantize(w, block=WGATHER_BLOCK)
+        qg = cl._all_gather(q, group).chunk(p)
+        sg = cl._all_gather(s, group).chunk(p)
+        return torch.cat([kops.dequantize(qi, si, meta)
+                          for qi, si in zip(qg, sg)], dim=axis)
+
+    @staticmethod
+    def backward(ctx, ct):
+        g = cl._psum_scatter(ct.movedim(ctx.axis, 0), ctx.group)
+        return g.movedim(0, ctx.axis).contiguous(), None, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    """Tiled all-to-all along dim 0 over `group`: block j goes to rank j;
+    the received blocks come back in rank order. Its own transpose."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _all_to_all(ct, ctx.group), None
+
+
+def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    out = torch.empty_like(x, memory_format=torch.contiguous_format)
+    dist.all_to_all_single(out, x.contiguous(), group=group)
+    return out
+
+
+class _GroupMean(torch.autograd.Function):
+    """The mean of a replicated-per-rank scalar over the model and batch
+    groups. Under the convention above its cotangent is the same on the
+    ranks of a model group and adds up over the batch groups."""
+
+    @staticmethod
+    def forward(ctx, x, model_group, batch_groups):
+        groups = [model_group, *batch_groups]
+        ctx.batch_groups, ctx.n = batch_groups, cl.axis_size(groups)
+        return cl._div(cl._psum(x, groups), ctx.n)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return cl._div(cl._psum(ct, ctx.batch_groups), ctx.n), None, None
+
+
+def moe_apply_ep(p: dict, x: torch.Tensor, m: MoEConfig, *, act: str,
+                 model_group, batch_groups: Sequence = (),
+                 fsdp_groups: Sequence = (), wire_bf16_a2a: bool = False,
+                 wgather_wire: str = "bf16"):
+    """Expert parallelism over the process group `model_group` (ep ranks).
+
+    x (b_loc, S, d) is this rank's batch shard, replicated over the model
+    group; the router is replicated; p's expert leaves are this rank's
+    shard, experts [r*E/ep, (r+1)*E/ep) of model rank r, and with
+    `fsdp_groups` also a 1/size slice of d over each (gathered in reverse
+    order, on the int8 wire when `wgather_wire="int8"`). Each model rank
+    routes its t_loc = b_loc*S/ep tokens at the capacity of t_loc tokens,
+    exchanges the slots with `all_to_all_single` (in bf16 with
+    `wire_bf16_a2a`), runs its experts, exchanges back and adds its tokens'
+    outputs; y is all-gathered over the model group, and aux is the mean of
+    every source rank's aux over the model and batch groups. Returns (y,
+    aux); the dense residual MLP, when p has one, runs on the whole x."""
+    if wgather_wire not in ("bf16", "int8"):
+        raise ValueError(f"unknown weight-gather wire {wgather_wire!r}")
+    ep = dist.get_world_size(model_group)
+    r = dist.get_rank(model_group)
+    if m.n_experts % ep:
+        raise ValueError(f"{m.n_experts} experts do not split over {ep} "
+                         f"model ranks")
+    e_local = m.n_experts // ep
+    w1, w2, w3 = p["w1"], p["w2"], p["w3"]
+    int8 = wgather_wire == "int8"
+    for g in reversed(list(fsdp_groups)):
+        w1, w3, w2 = (_WeightGather.apply(w, g, axis, int8)
+                      for w, axis in ((w1, 1), (w3, 1), (w2, 2)))
+    b, S, d = x.shape
+    T = b * S
+    if T % ep:
+        raise ValueError(f"{T} local tokens do not split over {ep} model "
+                         f"ranks")
+    t_loc = T // ep
+    xr = cl.tp_replicate(x, [model_group])
+    my = xr.reshape(T, d)[r * t_loc:(r + 1) * t_loc]
+    router = cl.tp_replicate(p["router"], [model_group])
+    weights, ids, aux = route(my, router, m)
+    cap = capacity(t_loc, m)            # per source rank, per expert
+    slot_token, slot_valid, slot_wsrc = _dispatch_indices(ids, m, cap)
+    # (E*C, d) -> (ep, e_local*C, d): block j goes to expert-owner rank j
+    send = _gather_slots(my, slot_token, slot_valid).reshape(
+        ep, e_local * cap, d)
+    if wire_bf16_a2a:
+        send = send.to(torch.bfloat16)
+    recv = _AllToAll.apply(send, model_group).to(x.dtype)
+    # recv: the slots of every source rank for my experts
+    xe_mine = recv.reshape(ep, e_local, cap, d).transpose(0, 1).reshape(
+        e_local, ep * cap, d)
+    ye = _expert_ffn(w1, w2, w3, xe_mine, act)
+    back = ye.reshape(e_local, ep, cap, d).transpose(0, 1).reshape(
+        ep, e_local * cap, d)
+    if wire_bf16_a2a:
+        back = back.to(torch.bfloat16)
+    got = _AllToAll.apply(back, model_group).to(x.dtype)
+    y_my = _combine(got.reshape(m.n_experts * cap, d), weights, slot_token,
+                    slot_valid, slot_wsrc, t_loc)
+    # every model rank's tokens, in rank order (gathered along dim 0
+    # through the last-dimension gather)
+    y = cl.tp_all_gather(y_my.T, model_group).T.reshape(b, S, d)
+    aux = _GroupMean.apply(aux, model_group, list(batch_groups))
+    if "dense" in p:
+        y = y + mlp.mlp_apply(p["dense"], x, act=act)
+    return y, aux

@@ -7,7 +7,10 @@ the text) and the encoder-decoder (an encoder over frame embeddings, cross
 blocks, learned positions); and for the recurrent family: the SSM
 (mamba2, ssm blocks only) and the hybrid (recurrentgemma: rglru and local
 blocks, scaled embeddings, soft-capped logits, a tail of blocks after the
-repeats of the pattern). The modality frontends are stubs, as in the
+repeats of the pattern); and for the MoE family (grok-1, arctic: moe
+blocks, whose routers' load-balance losses `loss` adds, weighted, to the
+cross-entropy; the port returns them where the reference keeps them in
+`self._last_aux`). The modality frontends are stubs, as in the
 reference: the model takes precomputed patch or frame embeddings. The
 parameter tree keeps the reference's paths and shapes, including the
 stacked `blocks/p{i}_{kind}/...` and `encoder/blocks/...` leaves with their
@@ -224,12 +227,15 @@ class Model:
         h = h + p["pos"][None]
         ctx = self._ctx()
         for r in range(cfg.encoder.n_layers):
-            h = blocks.block_apply("enc", _slice_tree(p["blocks"], r), h, ctx)
+            h, _ = blocks.block_apply("enc", _slice_tree(p["blocks"], r), h,
+                                      ctx)
         return blocks.norm_apply(p["ln_f"], h, cfg)
 
     def _run_blocks(self, params: dict, h: torch.Tensor,
-                    ctx: blocks.BlockCtx,
-                    layout: Optional[dict] = None) -> torch.Tensor:
+                    ctx: blocks.BlockCtx, layout: Optional[dict] = None):
+        """The pattern repeats, then the tail: (h, the moe blocks'
+        auxiliary losses summed in the reference's order; None without
+        moe blocks)."""
         cfg = self.cfg
 
         def block_ctx(part: str, key: str) -> blocks.BlockCtx:
@@ -237,27 +243,30 @@ class Model:
                 return ctx
             return dataclasses.replace(ctx, layout=layout[part][key])
 
+        aux = None
         if cfg.pattern_repeats > 0:
             keys = [f"p{i}_{k}" for i, k in enumerate(cfg.block_pattern)]
             stacked = [params["blocks"][key] for key in keys]
             ctxs = [block_ctx("blocks", key) for key in keys]
 
-            def body(hh, r):
+            def body(hh, aa, r):
                 for kind, ps, c in zip(cfg.block_pattern, stacked, ctxs):
-                    pslice = _slice_tree(ps, r)
-                    hh = blocks.block_apply(kind, pslice, hh, c)
-                return hh
+                    hh, a = blocks.block_apply(kind, _slice_tree(ps, r), hh,
+                                               c)
+                    aa = _add_aux(aa, a)
+                return hh, aa
 
             for r in range(cfg.pattern_repeats):
                 if cfg.remat and torch.is_grad_enabled():
-                    h = checkpoint(body, h, r, use_reentrant=False)
+                    h, aux = checkpoint(body, h, aux, r, use_reentrant=False)
                 else:
-                    h = body(h, r)
+                    h, aux = body(h, aux, r)
         for i, kind in enumerate(cfg.tail_layers):
             key = f"t{i}_{kind}"
-            h = blocks.block_apply(kind, params["tail"][key], h,
-                                   block_ctx("tail", key))
-        return h
+            h, a = blocks.block_apply(kind, params["tail"][key], h,
+                                      block_ctx("tail", key))
+            aux = _add_aux(aux, a)
+        return h, aux
 
     def _head_dim(self, layout: Optional[dict]) -> Optional[int]:
         """The (d, vocab) head's model-sharded dimension: -1 by vocabulary,
@@ -304,27 +313,40 @@ class Model:
         `kv_chunk`: the attention runs online-softmax over chunks of that
         many keys (`attention.chunked_sdpa`) where it would materialize
         the scores. A VLM's logits cover the image positions too."""
+        return self._forward(params, batch, tp_axis=tp_axis, layout=layout,
+                             kv_chunk=kv_chunk)[0]
+
+    def _forward(self, params: dict, batch: Batch, *, tp_axis=None,
+                 layout: Optional[dict] = None,
+                 kv_chunk: Optional[int] = None):
+        """(`forward`'s logits, the moe blocks' summed auxiliary loss or
+        None)."""
         ctx = self._ctx(tp_axis=tp_axis, enc_out=self._encode(params, batch),
                         kv_chunk=kv_chunk)
         h = self._embed(params, batch, group=tp_axis, layout=layout)
-        h = self._run_blocks(params, h, ctx, layout)
-        return self._head(params, h, group=tp_axis, layout=layout)
+        h, aux = self._run_blocks(params, h, ctx, layout)
+        return self._head(params, h, group=tp_axis, layout=layout), aux
 
     def loss(self, params: dict, batch: Batch, *, tp_axis=None,
              layout: Optional[dict] = None,
              kv_chunk: Optional[int] = None) -> torch.Tensor:
         """Next-token cross-entropy over the text positions (a VLM's image
-        positions are dropped)."""
-        logits = self.forward(params, batch, tp_axis=tp_axis, layout=layout,
-                              kv_chunk=kv_chunk)
+        positions are dropped), plus `router_aux_weight` times the MoE
+        blocks' summed load-balance loss."""
+        logits, aux = self._forward(params, batch, tp_axis=tp_axis,
+                                    layout=layout, kv_chunk=kv_chunk)
         if self.cfg.vlm_img_tokens and batch.img_embeds is not None:
             logits = logits[:, batch.img_embeds.shape[1]:]
         labels = batch.labels[:, 1:]
         mask = None if batch.mask is None else batch.mask[:, 1:]
         if self._head_dim(layout) == -1:
-            return common.vocab_parallel_xent(logits[:, :-1], labels,
+            loss = common.vocab_parallel_xent(logits[:, :-1], labels,
                                               tp_axis, mask)
-        return common.softmax_xent(logits[:, :-1], labels, mask)
+        else:
+            loss = common.softmax_xent(logits[:, :-1], labels, mask)
+        if aux is not None:
+            loss = loss + self.cfg.moe.router_aux_weight * aux
+        return loss
 
     # ---------------- serving ----------------
 
@@ -440,6 +462,14 @@ class Model:
                 kind, params["tail"][key], h, cache["tail"][key], pos, ctx)
         logits = self._head(params, h)
         return logits[:, 0, :], new_cache
+
+
+def _add_aux(total, a):
+    """The running sum of the blocks' auxiliary losses; None (a block
+    without one) adds nothing."""
+    if a is None:
+        return total
+    return a if total is None else total + a
 
 
 def _slice_tree(tree: dict, r: int) -> dict:

@@ -50,7 +50,12 @@ model group, and LARS and LAMB take norms of the whole tensors
 (`optimizers` with `sharded`/`group`, which `launch.train.train` passes),
 as the reference's automatic model axis does.
 
-FSDP is not ported; asking for it raises.
+MoE models train on the gather dispatch (`models.moe.moe_apply`), as the
+reference's CLIs do; their loss carries the routers' load-balance term.
+
+FSDP is not ported; asking for it raises. The expert-parallel MoE
+dispatch (`models.moe.moe_apply_ep`) is a function the step does not call:
+it needs FSDP and a model axis inside the mlsl step.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""The attention-family and recurrent-family architectures of the port
+"""The attention-family, recurrent-family and MoE architectures of the port
 against the JAX reference on the same weights (the reference's parameters
 carried across with `params_from_jax`) and the same numpy inputs:
 llava-next-mistral-7b (the VLM: projected patch embeddings before the
@@ -7,16 +7,23 @@ encoder over frame embeddings, cross blocks, learned positions),
 minicpm3-4b (multi-head latent attention), recurrentgemma-2b (the hybrid:
 RG-LRU blocks and causal local attention with a 64-key window at the smoke
 size, 4 query heads on 1 KV head, scaled embeddings, soft-capped logits)
-and mamba2-2.7b (the SSM: chunked SSD, no attention, so `kv_chunk` changes
-nothing), each at its smoke config, f32 on the CPU. The prompts of 90
-tokens in the recurrentgemma tests reach past its window into the ring.
+mamba2-2.7b (the SSM: chunked SSD, no attention, so `kv_chunk` changes
+nothing), grok-1-314b (moe blocks: 4 experts top-2 at the smoke size, the
+tanh GELU, scaled embeddings, soft-capped logits) and arctic-480b (moe
+blocks with the dense residual MLP), each at its smoke config, f32 on the
+CPU. The prompts of 90 tokens in the recurrentgemma tests reach past its
+window into the ring. The MoE losses carry the routers' aux term; a prefill
+routes the prompt's B*S tokens together and a decode step its B tokens, each
+at its own capacity, as the reference's paths do.
 
 Tolerances: logits and caches atol 1e-4 (the sums are taken in another
 order); greedy tokens equal; decode against the full forward rel < 2e-2
 and `kv_chunk=16` against dense rel < 1e-3 (the reference's own bounds,
 tests/test_models.py and tests/test_models_chunked.py); the train step's
 step-0 loss rtol 1e-5, later losses rtol 1e-4 on gspmd and 1e-3 on the
-int8 wire (a rounding tie can move an int8 code). On the CPU the prefill's
+int8 wire (a rounding tie can move an int8 code); the decode-vs-forward case
+runs the MoE archs at capacity factor 8.0, as the reference's own test does
+(tests/test_models.py), so that neither path drops a token. On the CPU the prefill's
 attention takes the flash kernel's plain version; the kernel itself is
 held on the card by `chip_smoke.py`.
 """
@@ -36,7 +43,7 @@ from repro.configs import base as jbase, registry as jreg
 from repro.core.planner import Planner as JPlanner
 from repro.data import pipeline as jpipe
 from repro.launch import mesh as jmesh
-from repro.models import attention as jattn, common as jcommon
+from repro.models import attention as jattn, common as jcommon, moe as jmoe
 from repro.models.transformer import Batch as JBatch, Model as JModel
 from repro.optim import optimizers as jopt, schedules as jsched
 from repro.serve import engine as jengine
@@ -57,6 +64,9 @@ from torch_archs_ranks import ARCHS, BATCH, CASES, COMM, SEQ, STEPS, \
     stub_inputs
 
 MAX_SEQ = 48
+# the 8-rank int8 + EF MoE runs: the most tokens of a moe layer's 256 whose
+# top-k experts may differ from the reference's at a later step
+FLIP_MAX = 32
 
 
 def _stub(cfg, batch: int, seed: int) -> dict:
@@ -158,8 +168,9 @@ def test_chunked_sdpa_matches_reference(causal, window, sk, chunk):
 def test_registry_and_kinds():
     for arch in ARCHS:
         assert arch in treg.ARCH_IDS
-    assert {"enc", "cross", "mla", "local", "ssm", "rglru"} <= set(
+    assert {"enc", "cross", "mla", "local", "moe", "ssm", "rglru"} <= set(
         blocks.PORTED_KINDS)
+    assert set(treg.ARCH_IDS) == set(jreg.ARCH_IDS)
     cfg = treg.get_smoke_config("whisper-small")
     assert set(blocks.norm_defs(8, cfg)) == {"scale", "bias"}
 
@@ -260,8 +271,11 @@ def test_greedy_tokens_through_engine_match_reference(models):
 def test_decode_matches_forward(models):
     """The KV-cache invariant at the reference's bound: the prefill of the
     first 19 tokens and one decode step give the full forward's last
-    logits."""
+    logits (the MoE archs at capacity factor 8.0)."""
     jm, _, tm, tp = models
+    if tm.cfg.moe is not None:
+        tm = TModel(dataclasses.replace(tm.cfg, moe=dataclasses.replace(
+            tm.cfg.moe, capacity_factor=8.0)))
     tok = _tokens(tm.cfg.vocab, (2, 20), 6)
     _, tb = _batches(tok, _stub(tm.cfg, 2, 7))
     with torch.no_grad():
@@ -373,12 +387,12 @@ def test_local_attention_is_causal_and_windowed(path):
         np.float32))
     i = 100
     with torch.set_grad_enabled(path == "autograd"):
-        base = blocks.block_apply("local", p, h, ctx).detach()
+        base = blocks.block_apply("local", p, h, ctx)[0].detach()
         for j, moves in ((i + 1, False), (i, True), (i - 63, True),
                          (i - 64, False)):
             h2 = h.clone()
             h2[:, j] += 1.0
-            out = blocks.block_apply("local", p, h2, ctx).detach()
+            out = blocks.block_apply("local", p, h2, ctx)[0].detach()
             changed = float((out[:, i] - base[:, i]).abs().max()) > 1e-6
             assert changed == moves, (j, moves)
 
@@ -405,7 +419,8 @@ def test_tensor_parallelism_raises_naming_arch_and_kind(arch):
     part = {"llava-next-mistral-7b": "img_proj", "whisper-small": "'cross'",
             "minicpm3-4b": "'mla'",
             "recurrentgemma-2b": "'rglru'.*'local'",
-            "mamba2-2.7b": "'ssm'"}[arch]
+            "mamba2-2.7b": "'ssm'", "grok-1-314b": "'moe'",
+            "arctic-480b": "'moe'"}[arch]
     mesh = tmesh.make_host_mesh(1, 1, device="cpu")
     with pytest.raises(NotImplementedError, match=f"model parallelism .*"
                                                   f"{arch}.*{part}"):
@@ -417,10 +432,32 @@ def test_tensor_parallelism_raises_naming_arch_and_kind(arch):
 
 # --- training -------------------------------------------------------------------
 
-def _train_both(jm, params, comm_kw, *, jax_mesh, steps=STEPS, port=True):
+def _jax_route_ids(jm, params, batch) -> list:
+    """The reference's top-k expert ids of every moe layer, in the
+    forward's order (the repeats unrolled), on `batch` from `params`:
+    [layer][token] of k ids in ascending order."""
+    ids, route = [], jmoe.route
+
+    def spy(*args, **kw):
+        out = route(*args, **kw)
+        ids.append(np.sort(np.asarray(out[1]), axis=-1).tolist())
+        return out
+
+    jmoe.route = spy
+    try:
+        jm.loss(params, batch, unroll=True)
+    finally:
+        jmoe.route = route
+    return ids
+
+
+def _train_both(jm, params, comm_kw, *, jax_mesh, steps=STEPS, port=True,
+                route_ids=None):
     """The reference's trainer on `jax_mesh` and (with `port`) the port's
     at one rank, from the same weights and data (stub embeddings
-    included): (losses, grad norms) of each (None for a port not run)."""
+    included): (losses, grad norms) of each (None for a port not run).
+    A `route_ids` list gains the reference's `_jax_route_ids` of each step,
+    from the parameters the step starts from."""
     cfg_j = jm.cfg
     tm = TModel(treg.get_smoke_config(cfg_j.name[:-len("-smoke")]))
     tmesh11 = tmesh.make_host_mesh(1, 1, device="cpu")
@@ -437,7 +474,10 @@ def _train_both(jm, params, comm_kw, *, jax_mesh, steps=STEPS, port=True):
             jtr.CommConfig(**comm_kw)))
         jrec = []
         for raw, stub in zip(data, stubs):
-            js, m = jstep(js, _batches(raw["tokens"], stub, True)[0])
+            jb = _batches(raw["tokens"], stub, True)[0]
+            if route_ids is not None:
+                route_ids.append(_jax_route_ids(jm, js.params, jb))
+            js, m = jstep(js, jb)
             jrec.append((float(m["loss"]), float(m["grad_norm"])))
     if not port:
         return np.array(jrec), None
@@ -515,20 +555,52 @@ def test_eight_gloo_ranks_match_reference_on_mesh8(ranks8, mesh8, arch,
     XLA rounds once, which moves int8 codes by up to two steps
     (tests/test_torch_train_hier.py); the error feedback carries the moved
     codes of steps 0 and 1 into step 2's gradient (minicpm3-4b's step-2
-    norm: 1.7e-3 apart, where the fp32 run agrees within 1e-6)."""
+    norm: 1.7e-3 apart, where the fp32 run agrees within 1e-6).
+
+    The MoE archs also route each step's batch from the parameters the
+    step starts from, on both sides: the top-k expert sets of every moe
+    layer equal at step 0, and on fp32 at every step. On int8 + EF a later
+    step differs in at most FLIP_MAX of a layer's 256 tokens, and its loss
+    and gradient norm are held to rtol 5e-3 and 2e-2; step 0's loss rtol
+    1e-5 and gradient norm rtol 1e-4. AdamW's first step moves each
+    parameter by about the learning rate whatever its gradient's size, so a
+    moved code that flips a near-zero gradient's sign moves the parameters
+    after step 0, which flips top-k choices; a flipped choice sends a token
+    to another expert. Readings over data seeds 0-7 (this test runs seed
+    0), grok-1 and arctic: step 0's loss within 1.4e-7 and norm within
+    1.6e-5; later steps 0-13 flipped tokens a layer (a router left at its
+    step-0 weights flips 35-131), losses within 1.4e-3 and norms within
+    7.1e-3 (seed 0: 9.0e-4 and 5.4e-3)."""
     recs = ranks8[(arch, case)]
     for r in recs[1:]:
         assert r == recs[0]
     jm = JModel(jreg.get_smoke_config(arch))
+    ids = [] if jm.cfg.moe is not None else None
     want, _ = _train_both(jm, jm.init(jax.random.PRNGKey(0)), CASES[case],
-                          jax_mesh=mesh8, port=False)
+                          jax_mesh=mesh8, port=False, route_ids=ids)
     got = np.array([recs[0]["loss"], recs[0]["grad_norm"]]).T
     np.testing.assert_allclose(got[0, 0], want[0, 0], rtol=1e-5)
     int8 = case == "int8_ef"
+    if int8 and ids is not None:
+        flips = _route_flips(recs[0]["route_ids"], ids)
+        assert not any(flips[0]) and max(map(max, flips)) <= FLIP_MAX, flips
+        np.testing.assert_allclose(got[0, 1], want[0, 1], rtol=1e-4)
+        np.testing.assert_allclose(got[1:, 0], want[1:, 0], rtol=5e-3)
+        np.testing.assert_allclose(got[1:, 1], want[1:, 1], rtol=2e-2)
+        return
+    if ids is not None:
+        assert recs[0]["route_ids"] == ids
     np.testing.assert_allclose(got[:, 0], want[:, 0],
                                rtol=1e-3 if int8 else 1e-4)
     np.testing.assert_allclose(got[:, 1], want[:, 1],
                                rtol=2e-3 if int8 else 1e-4)
+
+
+def _route_flips(got, want) -> list:
+    """Per step and moe layer, the tokens whose set of top-k experts
+    differs between two `route_ids` records."""
+    return [[int(np.any(np.asarray(g) != np.asarray(w), axis=-1).sum())
+             for g, w in zip(gs, ws)] for gs, ws in zip(got, want)]
 
 
 # --- CLIs -----------------------------------------------------------------------
@@ -547,7 +619,8 @@ def test_train_cli_runs_on_cpu(arch, capsys):
 
 
 @pytest.mark.parametrize("arch", ["llava-next-mistral-7b", "minicpm3-4b",
-                                  "recurrentgemma-2b", "mamba2-2.7b"])
+                                  "recurrentgemma-2b", "mamba2-2.7b",
+                                  "grok-1-314b", "arctic-480b"])
 def test_serve_cli_runs_on_cpu(arch, capsys):
     rc = serve_cli.main(["--arch", arch, "--batch", "2", "--prompt-len",
                          "12", "--new-tokens", "3", "--device", "cpu"])

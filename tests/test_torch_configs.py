@@ -5,9 +5,10 @@ same weights: the configs field by field, and on the smoke configs (f32 on
 the CPU, the reference's parameters carried across with `params_from_jax`)
 the forward logits (atol 1e-4), the loss (rtol 1e-5) and the greedy tokens
 of a prefill and its decode steps through each package's engine (equal).
-Every ported config (the attention and recurrent families' too:
-tests/test_torch_archs.py holds their models) equals the reference's field by field, with the same
-parameter count and parameter-count estimate.
+Every ported config (the attention, recurrent and MoE families' too:
+tests/test_torch_archs.py holds their models) equals the reference's field
+by field, with the same parameter count and parameter-count estimate, and
+the registry holds every architecture of the reference's.
 """
 
 import dataclasses
@@ -29,7 +30,8 @@ from repro_torch.serve import engine as tengine
 ARCHS = ("chatglm3-6b", "deepseek-7b")
 CONFIG_ARCHS = ("yi-6b",) + ARCHS + ("llava-next-mistral-7b", "whisper-small",
                                      "minicpm3-4b", "recurrentgemma-2b",
-                                     "mamba2-2.7b")
+                                     "mamba2-2.7b", "grok-1-314b",
+                                     "arctic-480b")
 
 
 def _fields(cfg, names=None):
@@ -102,3 +104,7 @@ def test_greedy_prefill_and_decode_tokens_match_reference(models):
     got = tengine.Engine(tm, tp, tengine.EngineConfig(max_seq=40)).generate(
         prompts, 8)
     np.testing.assert_array_equal(got, want)
+
+
+def test_registry_holds_every_reference_arch():
+    assert set(treg.ARCH_IDS) == set(jreg.ARCH_IDS) and len(treg.ARCH_IDS) == 10

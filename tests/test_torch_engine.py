@@ -1,7 +1,7 @@
 """The port's EnginePlan and CommEngine against the JAX reference's.
 
-Plans are compared for the yi-6b smoke config and for yi-6b at full width
-cut to 4 layers (shapes only: meta tensors on the port's side, eval_shape
+Plans are compared for the yi-6b, grok-1-314b and arctic-480b smoke configs
+and for yi-6b at full width cut to 4 layers (shapes only: meta tensors on the port's side, eval_shape
 on the reference's), under the default planner and under dp_only. Under the
 default planner the reference puts the model axis on every matrix (even
 with a model axis of size 1), so only the norm-scale buckets may fuse; with
@@ -36,6 +36,8 @@ from repro_torch.models.transformer import Model as TModel
 from repro_torch.train import trainer as ttr
 
 COMM = dict(mode="mlsl", wire="int8", error_feedback=True)
+# the MoE smoke configs: f32 routers beside the expert leaves (E, d, ff)
+MOE_SMOKE = {"grok_smoke": "grok-1-314b", "arctic_smoke": "arctic-480b"}
 # the (2, 4) hier mesh's shape, without ranks: plans need only the shape
 HIER8 = types.SimpleNamespace(mesh_dim_names=("node", "local"), shape=(2, 4),
                               device_type="cpu", get_group=lambda a: None)
@@ -50,6 +52,9 @@ def meshes():
 def _configs(name):
     if name == "smoke":
         return jreg.get_smoke_config("yi-6b"), treg.get_smoke_config("yi-6b")
+    if name in MOE_SMOKE:
+        arch = MOE_SMOKE[name]
+        return jreg.get_smoke_config(arch), treg.get_smoke_config(arch)
     return (dataclasses.replace(jreg.get_config("yi-6b"), n_layers=4),
             dataclasses.replace(treg.get_config("yi-6b"), n_layers=4))
 
@@ -74,7 +79,7 @@ def _jax_bucket_paths(plan):
     return [[paths[i] for i in b.leaf_ids] for b in plan.buckets.buckets]
 
 
-@pytest.mark.parametrize("name", ["smoke", "yi6b_4layers"])
+@pytest.mark.parametrize("name", ["smoke", "yi6b_4layers", *MOE_SMOKE])
 @pytest.mark.parametrize("dp_only", [False, True])
 def test_plan_matches_reference(meshes, name, dp_only):
     jp, tp = _plans(meshes, name, dp_only)

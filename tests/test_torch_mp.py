@@ -6,7 +6,8 @@ smoke yi-6b's 4 heads of 32 then split into half heads), and the two-level
 
 One group of 8 ranks is spawned once for the file (tests/torch_mp_ranks.py,
 torch only). It runs each new operator at model sizes 2 and 4 (forward and
-backward), the engine's leafwise-bucket and replay checks at (4, 2), then 3
+backward), the expert-parallel MoE layer (`moe_apply_ep`) on (data 2, model
+4), the engine's leafwise-bucket and replay checks at (4, 2), then 3
 steps (SGD at 0.1, LARS or LAMB; data seed 3, batch 8, seq 16) of every
 case of CASES from converted weights.
 
@@ -18,7 +19,10 @@ wires, on which the reference aborts under a model axis (XLA's "Invalid
 binary instruction opcode copy"), are held to the port's own fp32 run at
 rtol 1e-3, the int8 tolerance of tests/test_torch_train_hier.py.
 `CommStats.from_plan` and the bucket boundaries equal the reference's
-exactly.
+exactly. `moe_apply_ep`: y and aux against the reference's `moe_apply_ep`
+and the port's `moe_apply`, rtol 2e-3 and atol 2e-4 (the reference's own
+bound, tests/test_multidevice.py); gradients against `jax.grad` of the
+reference's, within 1e-4 of each gradient's largest element.
 """
 
 import dataclasses
@@ -43,7 +47,8 @@ from repro.configs.base import AttnConfig as JAttnConfig
 from repro.core import planner as jpl
 from repro.data import pipeline as jpipe
 from repro.launch import mesh as jmesh
-from repro.models import attention as jattn, common as jcommon
+from repro.configs.base import MoEConfig as JMoE
+from repro.models import attention as jattn, common as jcommon, moe as jmoe
 from repro.models.transformer import Batch as JBatch, Model as JModel
 from repro.optim import optimizers as jopt
 from repro.train import trainer as jtr
@@ -52,12 +57,15 @@ from repro_torch.checkpoint import ckpt as tckpt
 from repro_torch.configs import registry as treg
 from repro_torch.core import planner as tpl
 from repro_torch.launch import mesh as tmesh
+from repro_torch.models import moe as tmoe
 from repro_torch.models.transformer import Model as TModel
 from repro_torch.train import trainer as ttr
 
 import torch_spawn
-from torch_mp_ranks import (BATCH, CASES, DATA_SEED, LR, MESHES, OPS_ATTN,
-                            OPS_SIZES, RESUME_FROM, SEQ, STEPS)
+from torch_mp_ranks import (BATCH, CASES, DATA_SEED, EP_AUX_WEIGHT,
+                            EP_CASES, EP_D, EP_DENSE, EP_E, EP_FF, LR, MESHES,
+                            OPS_ATTN, OPS_SIZES, RESUME_FROM, SEQ, STEPS,
+                            ep_config)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 WORLD = 8
@@ -119,11 +127,26 @@ def _ops_inputs():
             "w_attn": normal(2, 6, d)}
 
 
+def _ep_inputs():
+    """One MoE layer's weights (the router unscaled) and x, seeded."""
+    rng = np.random.default_rng(11)
+
+    def normal(*shape, scale=0.1):
+        return (scale * rng.standard_normal(shape)).astype(np.float32)
+
+    d, e, f, g = EP_D, EP_E, EP_FF, EP_DENSE
+    return {"router": normal(d, e, scale=1.0), "w1": normal(e, d, f),
+            "w2": normal(e, f, d), "w3": normal(e, d, f),
+            "dense_w1": normal(d, g), "dense_w2": normal(g, d),
+            "dense_w3": normal(d, g), "x": normal(4, 8, d, scale=0.5)}
+
+
 @pytest.fixture(scope="module")
 def inputs(tmp_path_factory):
     path = tmp_path_factory.mktemp("mp_inputs")
     ops = _ops_inputs()
     np.savez(path / "ops.npz", **ops)
+    np.savez(path / "ep.npz", **_ep_inputs())
     params = {}
     for name in {c for c, *_ in CASES.values()}:
         params[name] = jax.tree_util.tree_map(
@@ -150,7 +173,10 @@ def port(inputs, tmp_path_factory):
     res = {"ops": {m: [dict(np.load(out / "ops" / f"m{m}" / f"rank{r}.npz"))
                        for r in range(WORLD)] for m in OPS_SIZES},
            "engine": [json.loads((out / "engine" / f"rank{r}.json")
-                                 .read_text()) for r in range(WORLD)]}
+                                 .read_text()) for r in range(WORLD)],
+           "ep": {name: [dict(np.load(out / "ep" / name / f"rank{r}.npz"))
+                         for r in range(WORLD)]
+                  for name in EP_CASES}}
     for name, (cfg_name, *_) in CASES.items():
         recs = [json.loads((out / name / f"rank{r}.json").read_text())
                 for r in range(WORLD)]
@@ -296,6 +322,128 @@ def test_attention_dispatches_on_whole_heads(port):
     (the hybrid path), half a KV head at 4 (the gathered path)."""
     assert all(bool(o["aligned"]) for o in port["ops"][2])
     assert not any(bool(o["aligned"]) for o in port["ops"][4])
+
+
+@pytest.fixture(scope="module")
+def ep_ref():
+    """The reference's `moe_apply_ep` on the (data 2, model 4) mesh of the
+    8 virtual devices, per case of EP_CASES: y, aux, and the gradients of
+    mean(y^2) + EP_AUX_WEIGHT * aux with respect to x and every weight."""
+    mesh = compat.make_mesh((2, 4), ("data", "model"),
+                            axis_types=(compat.AxisType.Auto,) * 2)
+    data = _ep_inputs()
+    out = {}
+    for name, (cap, dense, fsdp, a2a, wire) in EP_CASES.items():
+        m = JMoE(n_experts=EP_E, top_k=2, d_ff=EP_FF, capacity_factor=cap,
+                 dense_residual_ff=dense)
+        p = {k: jnp.asarray(data[k]) for k in ("router", "w1", "w2", "w3")}
+        if dense:
+            p["dense"] = {k: jnp.asarray(data[f"dense_{k}"])
+                          for k in ("w1", "w2", "w3")}
+
+        def fwd(pp, xx, m=m, fsdp=fsdp, a2a=a2a, wire=wire):
+            return jmoe.moe_apply_ep(
+                pp, xx, m, act="silu", mesh=mesh, batch_axes=("data",),
+                fsdp_axes=("data",) if fsdp else (), wire_bf16_a2a=a2a,
+                wgather_wire=wire)
+
+        def loss(pp, xx, fwd=fwd):
+            y, aux = fwd(pp, xx)
+            return jnp.mean(y ** 2) + EP_AUX_WEIGHT * aux
+
+        with compat.set_mesh(mesh):
+            x = jnp.asarray(data["x"])
+            y, aux = jax.jit(fwd)(p, x)
+            gp, gx = jax.jit(jax.grad(loss, argnums=(0, 1)))(p, x)
+        out[name] = {"y": np.asarray(y), "aux": float(aux),
+                     "g_x": np.asarray(gx),
+                     **{"g_" + "/".join(k): np.asarray(v) for k, v in zip(
+                         tree_lib.paths(gp), jax.tree_util.tree_leaves(gp))}}
+    return out
+
+
+def _by_coords(outs):
+    """{(data rank, model rank): that rank's record}."""
+    return {tuple(int(c) for c in o["coords"]): o for o in outs}
+
+
+@pytest.mark.parametrize("name", list(EP_CASES))
+def test_ep_moe_output_matches_reference(port, ep_ref, name):
+    """Every rank's y (its data rank's rows, the same on the 4 model ranks)
+    and aux against the reference's moe_apply_ep: rtol 2e-3, atol 2e-4."""
+    want = ep_ref[name]
+    for (dr, _), o in _by_coords(port["ep"][name]).items():
+        np.testing.assert_allclose(o["y"], want["y"][2 * dr:2 * dr + 2],
+                                   rtol=2e-3, atol=2e-4)
+        np.testing.assert_allclose(float(o["aux"]), want["aux"], rtol=2e-3,
+                                   atol=2e-4)
+
+
+@pytest.mark.parametrize("name", ["cap8", "cap8_dense", "cap8_a2a_bf16"])
+def test_ep_moe_matches_the_gather_path(port, name):
+    """At capacity factor 8 nothing is dropped: y equals the port's
+    moe_apply over the whole batch (rtol 2e-3, atol 2e-4), and aux the mean
+    of moe_apply's aux over the 8 source ranks' token slices (4 tokens of
+    each data rank's 16 a model rank), each routed at its own capacity."""
+    data = _ep_inputs()
+    p = {k: torch.from_numpy(data[k]) for k in ("router", "w1", "w2", "w3")}
+    m = ep_config(name)
+    if m.dense_residual_ff:
+        p["dense"] = {k: torch.from_numpy(data[f"dense_{k}"])
+                      for k in ("w1", "w2", "w3")}
+    x = torch.from_numpy(data["x"])
+    with torch.no_grad():
+        y, _ = tmoe.moe_apply(p, x, m)
+        slices = x.reshape(2, 4, 4, EP_D)     # (data, model, t_loc, d)
+        aux = np.mean([float(tmoe.moe_apply(p, slices[dr, r][None], m)[1])
+                       for dr in range(2) for r in range(4)])
+    for (dr, _), o in _by_coords(port["ep"][name]).items():
+        np.testing.assert_allclose(o["y"], y[2 * dr:2 * dr + 2].numpy(),
+                                   rtol=2e-3, atol=2e-4)
+        np.testing.assert_allclose(float(o["aux"]), aux, rtol=1e-6)
+
+
+def _assert_grad(got, want, what):
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-4 * np.abs(want).max(), err_msg=what)
+    assert np.abs(want).max() > 0, what
+
+
+@pytest.mark.parametrize("name", list(EP_CASES))
+def test_ep_moe_gradients_match_reference(port, ep_ref, name):
+    """The gradients against jax.grad of the reference's moe_apply_ep:
+    x's and the router's the same on the model ranks of a data rank (the
+    f operator all-reduces them there), x's rows per data rank and the
+    router's summed over the data ranks; each model rank's experts' summed
+    over the data ranks, or with FSDP each rank's (expert, d) shard as the
+    reduce-scatter left it. The int8 weight gather's straight-through
+    gradients are non-zero and are held to the reference's int8 run."""
+    want, recs = ep_ref[name], _by_coords(port["ep"][name])
+    fsdp = EP_CASES[name][2]
+    e_loc, half = EP_E // 4, EP_D // 2
+    for k in [k for k in want if k.startswith("g_")]:
+        expert = k in ("g_w1", "g_w2", "g_w3")
+        if not expert:
+            for dr in range(2):
+                for r in range(1, 4):
+                    np.testing.assert_array_equal(recs[dr, r][k],
+                                                  recs[dr, 0][k])
+        if k == "g_x":
+            _assert_grad(np.concatenate([recs[dr, 0][k] for dr in range(2)]),
+                         want[k], k)
+        elif not expert:
+            _assert_grad(recs[0, 0][k] + recs[1, 0][k], want[k], k)
+        elif not fsdp:
+            for r in range(4):
+                _assert_grad(recs[0, r][k] + recs[1, r][k],
+                             want[k][r * e_loc:(r + 1) * e_loc], f"{k} {r}")
+        else:
+            for (dr, r), o in recs.items():
+                w = want[k][r * e_loc:(r + 1) * e_loc]
+                w = (w[..., dr * half:(dr + 1) * half] if k == "g_w2"
+                     else w[:, dr * half:(dr + 1) * half])
+                _assert_grad(o[k], w, f"{k} {dr} {r}")
+                assert np.abs(o[k]).max() > 0, (k, dr, r)
 
 
 # ---------------------------------------------------------------------------

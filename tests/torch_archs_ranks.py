@@ -1,14 +1,15 @@
 """Rank body for tests/test_torch_archs.py: one gloo rank of the port's mlsl
 train step on a ("node"=2, "local"=4) DeviceMesh, fp32 and int8 + error
-feedback, for each architecture of the attention and recurrent families in
-turn, each from the reference's weights. Imports torch, numpy and repro_torch only, so the spawned ranks
+feedback, for each architecture of the attention, recurrent and MoE
+families in turn, each from the reference's weights. Imports torch, numpy and repro_torch only, so the spawned ranks
 never import JAX.
 
     python torch_archs_ranks.py RANK WORLD STORE_DIR WEIGHTS_DIR OUT_DIR
 
 WEIGHTS_DIR/<arch> is a checkpoint of {"params": ...} (either package's
 format). Writes OUT_DIR/<arch>/<case>/rank<RANK>.json (losses and grad
-norms).
+norms; for the MoE archs also each step's top-k expert ids of every moe
+layer, from the parameters the step starts from).
 """
 
 import json
@@ -25,12 +26,13 @@ from repro_torch.configs import registry
 from repro_torch.core.planner import Planner
 from repro_torch.data import pipeline
 from repro_torch.launch import mesh as mesh_lib
+from repro_torch.models import moe
 from repro_torch.models.transformer import Batch, Model
 from repro_torch.optim import optimizers as opt_lib, schedules
 from repro_torch.train import trainer as tr
 
 ARCHS = ("llava-next-mistral-7b", "whisper-small", "minicpm3-4b",
-         "recurrentgemma-2b", "mamba2-2.7b")
+         "recurrentgemma-2b", "mamba2-2.7b", "grok-1-314b", "arctic-480b")
 STEPS = 3
 SEQ = 32
 BATCH = 8
@@ -53,6 +55,25 @@ def stub_inputs(cfg, batch: int, step: int) -> dict:
     return kw
 
 
+def route_ids(model, params, batch) -> list:
+    """The top-k expert ids of every moe layer, in the forward's order, on
+    `batch` from `params`: [layer][token] of k ids in ascending order."""
+    ids, route = [], moe.route
+
+    def spy(*args, **kw):
+        out = route(*args, **kw)
+        ids.append(torch.sort(out[1], dim=-1).values.tolist())
+        return out
+
+    moe.route = spy
+    try:
+        with torch.no_grad():
+            model.loss(params, batch)
+    finally:
+        moe.route = route
+    return ids
+
+
 def run_case(arch, case, mesh, weights_dir, out_dir, rank):
     cfg = registry.get_smoke_config(arch)
     model = Model(cfg)
@@ -71,9 +92,12 @@ def run_case(arch, case, mesh, weights_dir, out_dir, rank):
     for s, raw in enumerate(pipeline.iterate(dcfg, STEPS)):
         kw = {k: torch.from_numpy(v)
               for k, v in stub_inputs(cfg, BATCH, s).items()}
-        state, m = step(state, Batch(tokens=torch.from_numpy(raw["tokens"]),
-                                     labels=torch.from_numpy(raw["labels"]),
-                                     **kw))
+        batch = Batch(tokens=torch.from_numpy(raw["tokens"]),
+                      labels=torch.from_numpy(raw["labels"]), **kw)
+        if cfg.moe is not None:
+            rec.setdefault("route_ids", []).append(
+                route_ids(model, state.params, batch))
+        state, m = step(state, batch)
         rec["loss"].append(float(m["loss"]))
         rec["grad_norm"].append(float(m["grad_norm"]))
     case_dir = os.path.join(out_dir, arch, case)

@@ -5,10 +5,13 @@ ranks never import JAX.
 
     python torch_mp_ranks.py RANK WORLD STORE_DIR INPUTS_DIR OUT_DIR
 
-INPUTS_DIR holds ops.npz (the operators' inputs) and one checkpoint of
-{"params": ...} per config of CONFIGS. Writes OUT_DIR/ops/m<M>/rank<RANK>.npz
-(each operator's output and gradients at model size M), OUT_DIR/engine/
-rank<RANK>.json (the leafwise-bucket and replay checks) and, per case of
+INPUTS_DIR holds ops.npz (the operators' inputs), ep.npz (one MoE layer's
+weights and its input x) and one checkpoint of {"params": ...} per config of
+CONFIGS. Writes OUT_DIR/ops/m<M>/rank<RANK>.npz (each operator's output and
+gradients at model size M), OUT_DIR/ep/<case>/rank<RANK>.npz (the
+expert-parallel MoE layer's output, aux and gradients on (data 2, model 4)),
+OUT_DIR/engine/rank<RANK>.json (the leafwise-bucket and replay checks) and,
+per case of
 CASES, OUT_DIR/<case>/rank<RANK>.json (losses, gradient norms, local
 shapes, whether the final checkpoint restores this rank's shards bit for
 bit) and, from rank 0, the final parameters gathered over the model group
@@ -27,12 +30,12 @@ import torch.distributed as dist
 from repro_torch import convert, tree as tree_lib
 from repro_torch.checkpoint import ckpt
 from repro_torch.configs import registry
-from repro_torch.configs.base import AttnConfig
+from repro_torch.configs.base import AttnConfig, MoEConfig
 from repro_torch.core import collectives as cl
 from repro_torch.core import planner as pl
 from repro_torch.data import pipeline
 from repro_torch.launch import mesh as mesh_lib
-from repro_torch.models import attention, common
+from repro_torch.models import attention, common, moe
 from repro_torch.models.transformer import Batch, Model
 from repro_torch.optim import optimizers as opt_lib
 from repro_torch.train import trainer as tr
@@ -42,6 +45,28 @@ STEPS, SEQ, BATCH, DATA_SEED, LR = 3, 16, 8, 3, 0.1
 # head rotated (as chatglm3-6b); a KV shard at model size 4 is half a head
 OPS_ATTN = AttnConfig(n_heads=4, n_kv=2, head_dim=8, rotary_frac=0.5)
 OPS_SIZES = (2, 4)
+
+
+# moe_apply_ep on (data 2, model 4): one layer of 8 experts (2 a model
+# rank), d 16, d_ff 32, top-2, silu, x (4, 8, 16); case -> (capacity
+# factor, dense residual width, FSDP over "data", bf16 all-to-all, the
+# weight-gather wire). Each rank's loss is sum(y^2) / y.size of the whole
+# batch + EP_AUX_WEIGHT * aux / 2 (the data ranks' losses add up to the
+# reference's mean(y^2) + EP_AUX_WEIGHT * aux)
+EP_D, EP_E, EP_FF, EP_DENSE = 16, 8, 32, 24
+EP_AUX_WEIGHT = 0.5
+EP_CASES = {"cap8": (8.0, 0, False, False, "bf16"),
+            "cap8_dense": (8.0, EP_DENSE, False, False, "bf16"),
+            "cap8_a2a_bf16": (8.0, 0, False, True, "bf16"),
+            "cap1.25": (1.25, 0, False, False, "bf16"),
+            "fsdp_bf16": (8.0, 0, True, False, "bf16"),
+            "fsdp_int8": (8.0, 0, True, False, "int8")}
+
+
+def ep_config(name: str) -> MoEConfig:
+    cap, dense, *_ = EP_CASES[name]
+    return MoEConfig(n_experts=EP_E, top_k=2, d_ff=EP_FF,
+                     capacity_factor=cap, dense_residual_ff=dense)
 
 
 def smoke_config():
@@ -172,6 +197,43 @@ def ops(mesh, data: dict, out_dir: str, m: int):
                 for k, v in out.items()})
 
 
+def ep_checks(data: dict, out_dir: str):
+    """Each case of EP_CASES on this rank's shards: x's rows of this data
+    rank, experts of this model rank (with FSDP, also this data rank's half
+    of d), forward and backward."""
+    mesh = mesh_lib.make_host_mesh(2, 4, device="cpu")
+    mg, dg = mesh.get_group("model"), mesh.get_group("data")
+    r, dr = mesh.get_local_rank("model"), mesh.get_local_rank("data")
+    T = {k: torch.from_numpy(v) for k, v in data.items()}
+    e_loc, half = EP_E // 4, EP_D // 2
+    x = _rows(T["x"], dr, 2)
+    for name, (_, dense, fsdp, a2a, wire) in EP_CASES.items():
+        p = {k: T[k][r * e_loc:(r + 1) * e_loc] for k in ("w1", "w2", "w3")}
+        if fsdp:
+            p["w1"], p["w3"] = (t[:, dr * half:(dr + 1) * half]
+                                for t in (p["w1"], p["w3"]))
+            p["w2"] = p["w2"][..., dr * half:(dr + 1) * half]
+        p["router"] = T["router"]
+        if dense:
+            p["dense"] = {k: T[f"dense_{k}"] for k in ("w1", "w2", "w3")}
+        paths = tree_lib.paths(p)
+        leaves = [t.clone().requires_grad_(True)
+                  for t in [x] + tree_lib.leaves(p)]
+        y, aux = moe.moe_apply_ep(
+            tree_lib.unflatten(paths, leaves[1:]), leaves[0],
+            ep_config(name), act="silu", model_group=mg, batch_groups=[dg],
+            fsdp_groups=[dg] if fsdp else [], wire_bf16_a2a=a2a,
+            wgather_wire=wire)
+        loss = (torch.sum(y ** 2) / (y.numel() * 2)
+                + EP_AUX_WEIGHT * aux / 2)
+        grads = torch.autograd.grad(loss, leaves)
+        path = os.path.join(out_dir, "ep", name)
+        os.makedirs(path, exist_ok=True)
+        np.savez(os.path.join(path, f"rank{dist.get_rank()}.npz"), y=_np(y),
+                 aux=_np(aux), coords=np.array([dr, r]), **{"g_" + "/".join(k): _np(g) for k, g in
+                                  zip([("x",)] + paths, grads)})
+
+
 def engine_checks(out_dir: str, rank: int):
     """At (4, 2), int8 wire with error feedback: each leafwise bucket's
     output is collectives.allreduce of the leaf's local shard over the data
@@ -281,6 +343,8 @@ def run(rank: int, world: int, store_dir: str, inputs_dir: str,
         for m in OPS_SIZES:
             ops(mesh_lib.make_host_mesh(world // m, m, device="cpu"), data,
                 out_dir, m)
+        ep_checks(dict(np.load(os.path.join(inputs_dir, "ep.npz"))),
+                  out_dir)
         engine_checks(out_dir, rank)
         for name in CASES:
             run_case(name, inputs_dir, out_dir, rank)
