@@ -207,7 +207,27 @@ Phases, each fatal on failure:
                  dequantize_blocks 3 launches each, expert gradients
                  non-zero and within 5% of the bf16 wire's (of the largest
                  element);
- 21. report   -- the serve cells' numbers, one JSON line with every kernel
+ 21. session  -- `Session.create(mesh, n_params=, comm=<cell A's>,
+                 hbm_budget=<the card's memory>)`: `decide_fsdp` false (1.2
+                 B parameters x 14 B under 55% of the card); 3 steps
+                 through `sess.make_train_step`: losses bit for bit cell
+                 A's and A's quant8 launches; the parameters saved,
+                 restored bitwise and served through `Engine.generate`;
+ 22. fsdp     -- the same model at the reference's default budget (16e9
+                 B): `decide_fsdp` true, mlsl refuses it; 3 gspmd steps
+                 under FSDP over the one-rank data group (NCCL all-gathers
+                 and reduce-scatters, counted) against E's configuration
+                 for 3 steps: losses and the gathered parameters bitwise,
+                 step time and peak beside E's, the peak within E's plus
+                 one gathered repeat;
+ 23. moe ep block -- one grok-1 layer at full width through `Model.loss`
+                 under FSDP, batch 2 x 2048: the moe block's ep branch
+                 (`CommConfig(moe_impl="ep")`'s) against its gather
+                 branch: with the bf16 weight gather logits, aux and every
+                 gradient bitwise; with the int8 one quantize_blocks and
+                 dequantize_blocks 3 launches per forward (6 under remat)
+                 and expert gradients within 5% of the bf16 gather's;
+ 24. report   -- the serve cells' numbers, one JSON line with every kernel
                  (the flash kernel's D-256 instance on a line of its own),
                  then the device line.
 
@@ -1884,6 +1904,369 @@ def ep_phase(torch):
     return launches, rec
 
 
+# --------------------------------------------------------------------------
+# 21-23. the Session facade, FSDP and the moe block's ep branch
+# --------------------------------------------------------------------------
+
+A_COMM = dict(mode="mlsl", wire="int8", error_feedback=True, accum_steps=2)
+
+
+def session_run(torch, sess, model, *, steps, batch=8, seq=2048, lr=3e-4,
+                seed=0):
+    """`steps` train steps through `sess.make_train_step`, set up as
+    `launch.train.train` sets up a cell (warmup-cosine AdamW at `lr`,
+    weights and data from `seed`), the state from `make_train_state` with
+    the session's planner. Returns (the state, a record: losses, step
+    seconds, steady step, peak allocated bytes, the launches)."""
+    from repro_torch.data import pipeline
+    from repro_torch.models.transformer import Batch
+    from repro_torch.optim import optimizers as opt_lib, schedules
+    from repro_torch.train import trainer as tr
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    opt = opt_lib.make_optimizer(
+        "adamw", schedules.warmup_cosine(lr, max(steps // 10, 1), steps))
+    state = tr.make_train_state(
+        model, opt, torch.Generator(device="cuda").manual_seed(seed), "cuda",
+        planner=sess.planner)
+    step = sess.make_train_step(model, opt, device="cuda")
+    dcfg = pipeline.DataConfig(vocab=model.cfg.vocab, seq_len=seq,
+                               global_batch=batch, seed=seed)
+    losses, secs = [], []
+    for raw in pipeline.iterate(dcfg, steps):
+        b = Batch(tokens=torch.from_numpy(raw["tokens"]).to("cuda"),
+                  labels=torch.from_numpy(raw["labels"]).to("cuda"))
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+        secs.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    steady = secs[1:] or secs
+    rec = {"losses": losses, "step_s_each": secs,
+           "step_s": sum(steady) / len(steady),
+           "tokens_per_s": batch * seq * len(steady) / sum(steady),
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "launches": read_launches()}
+    for i, (loss, sec) in enumerate(zip(losses, secs)):
+        log(f"  step {i} loss {loss:.6f} step_s {sec:.4f}")
+    log(f"  steady step {rec['step_s']:.4f} s, {rec['tokens_per_s']:.0f} "
+        f"tok/s, peak_memory_allocated {rec['peak_bytes']} B "
+        f"({rec['peak_bytes'] / 2**30:.2f} GiB); launches {rec['launches']}")
+    return state, rec
+
+
+def session_phase(torch, cfg, a_run, a_expect):
+    """(a) `Session.create` with the card's memory as the budget: at 1.2 B
+    parameters x 14 B = 17 GB, under 55% of 80 GB, `decide_fsdp` is false,
+    so the planner is cell A's. Three steps of cell A's exchange through
+    `sess.make_train_step`: losses bit for bit A's (the same seed) and A's
+    quant8 launches. Then the parameters saved, restored bit for bit, and
+    served through `Engine.generate`."""
+    import tempfile
+    from repro_torch import tree as tree_lib
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.core.api import Session
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models.transformer import Model
+    from repro_torch.serve.engine import Engine, EngineConfig
+    from repro_torch.train import trainer as tr
+    phase("session: Session.create on the card's memory, cell A through "
+          "make_train_step, save, restore, serve")
+    model = Model(cfg)
+    total = torch.cuda.get_device_properties(0).total_memory
+    sess = Session.create(mesh_lib.make_host_mesh(1, 1),
+                          n_params=model.n_params(),
+                          comm=tr.CommConfig(**A_COMM), hbm_budget=total)
+    log(f"  decide_fsdp {sess.planner.fsdp}: {model.n_params():,} parameters "
+        f"x 14 B = {model.n_params() * 14:.4g} B against 0.55 x {total} B; "
+        f"wire saving {sess.wire_savings():.3f}x")
+    check(not sess.planner.fsdp, "session: decide_fsdp chose FSDP for cell A")
+    state, rec = session_run(torch, sess, model, steps=3)
+    log(f"  losses {rec['losses']}; cell A's {a_run['losses']}")
+    check(rec["losses"] == a_run["losses"],
+          "session: the losses differ from cell A's")
+    check(rec["launches"] == a_expect,
+          f"session: launches {rec['launches']} != cell A's {a_expect}")
+    params = state.params
+    del state
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        d = ckpt.save(os.path.join(tmp, "ck"), {"params": params}, step=3)
+        back = ckpt.restore(d, {"params": params})["params"]
+        rec["save_restore_s"] = time.perf_counter() - t0
+    same = all(a.dtype == b.dtype and torch.equal(a, b) for a, b in
+               zip(tree_lib.leaves(params), tree_lib.leaves(back)))
+    log(f"  checkpoint saved and restored in {rec['save_restore_s']:.2f} s; "
+        f"bitwise {same}")
+    check(same, "session: the restored parameters differ")
+    del params
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 16)).astype(np.int32)
+    out = Engine(model, back, EngineConfig(max_seq=64)).generate(prompts, 8)
+    log(f"  generated {out.tolist()}")
+    check(out.shape == (2, 8) and ((out >= 0) & (out < cfg.vocab)).all(),
+          "session: generated tokens out of the vocabulary")
+    del back
+    torch.cuda.empty_cache()
+    return rec["launches"], rec
+
+
+def _chunked_rel_err(torch, got, want, rows=2**26) -> float:
+    """`_rel_err` in f32 over slices of `rows` elements (a gradient of
+    billions of bf16 elements would not fit twice more in f32)."""
+    g, w = got.reshape(-1), want.reshape(-1)
+    err = top = 0.0
+    for i in range(0, g.numel(), rows):
+        a, b = g[i:i + rows].float(), w[i:i + rows].float()
+        err = max(err, float((a - b).abs().max()))
+        top = max(top, float(b.abs().max()))
+    return err / (top or 1.0)
+
+
+def one_repeat_bytes(model) -> int:
+    """Bytes of one pattern repeat's weights (the stacked leaves' slices):
+    what FSDP's gather holds in full at a time."""
+    from repro_torch import tree as tree_lib
+    return sum(math.prod(pd.shape[1:]) * pd.dtype.itemsize
+               for pd in tree_lib.leaves(model.param_defs()["blocks"]))
+
+
+class CollectiveCount:
+    """Counts the all-gathers and reduce-scatters torch.distributed issues
+    while it is entered."""
+
+    NAMES = ("all_gather_into_tensor", "reduce_scatter_tensor")
+
+    def __init__(self, dist):
+        self.dist, self.counts = dist, dict.fromkeys(self.NAMES, 0)
+
+    def __enter__(self):
+        self.saved = {n: getattr(self.dist, n) for n in self.NAMES}
+        for n, fn in self.saved.items():
+            def counted(*a, _n=n, _fn=fn, **kw):
+                self.counts[_n] += 1
+                return _fn(*a, **kw)
+            setattr(self.dist, n, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.dist, n, fn)
+
+
+def held_after_forward(torch, model, params, batch, **kw) -> int:
+    """Bytes the autograd graph of one `Model.loss` forward holds for its
+    backward (allocated after the forward, less before it)."""
+    from repro_torch import tree as tree_lib
+    leaves = tree_lib.leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    loss = model.loss(params, batch, **kw)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    del loss
+    for t in leaves:
+        t.requires_grad_(False)
+    return held
+
+
+def fsdp_phase(torch, cfg):
+    """(b) The same model with the reference's default budget (16e9):
+    `decide_fsdp` is true, and mlsl must refuse it. Three gspmd steps
+    under FSDP (every matrix split over the one-rank data group: NCCL
+    all-gathers and reduce-scatters of a group of one) against E's
+    configuration run beside it for 3 steps: losses and the gathered
+    parameters bit for bit. Memory: the graph of one forward (a step's
+    microbatch) must hold less above E's than one repeat's gathered
+    weights (each repeat's gather sits inside its checkpoint, so none is
+    kept; a gather outside would keep all 4), and the peak must stay within
+    E's plus one gathered repeat."""
+    import torch.distributed as dist
+    from repro_torch import convert, tree as tree_lib
+    from repro_torch.core.api import Session
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models.transformer import Batch, Model
+    from repro_torch.optim import optimizers as opt_lib
+    from repro_torch.train import trainer as tr
+    phase("fsdp: Session.create on the reference's 16e9 budget, 3 gspmd "
+          "steps under FSDP against E's")
+    model = Model(cfg)
+    mesh = mesh_lib.make_host_mesh(1, 1)
+    total = torch.cuda.get_device_properties(0).total_memory
+    gspmd = tr.CommConfig(mode="gspmd")
+    sess_e = Session.create(mesh, n_params=model.n_params(), comm=gspmd,
+                            hbm_budget=total)
+    sess = Session.create(mesh, n_params=model.n_params(), comm=gspmd)
+    log(f"  decide_fsdp {sess.planner.fsdp} at 16e9 B ({sess_e.planner.fsdp} "
+        f"at the card's {total} B)")
+    check(sess.planner.fsdp and not sess_e.planner.fsdp,
+          "fsdp: decide_fsdp did not choose FSDP at 16e9 B")
+    mlsl = Session.create(mesh, n_params=model.n_params(),
+                          comm=tr.CommConfig(mode="mlsl"))
+    try:
+        mlsl.make_train_step(model, opt_lib.adamw(3e-4))
+        check(False, "fsdp: mlsl accepted FSDP")
+    except ValueError as e:
+        log(f"  mlsl under FSDP raises: {e}")
+    splits = tree_lib.leaves(sess.planner.fsdp_dims(
+        model.param_defs(), stacked_paths=Model.stacked_path))
+    log(f"  {sum(s is not None for s in splits)} of {len(splits)} leaves "
+        f"split over the data group")
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    tok = torch.randint(0, cfg.vocab, (8, 2048), generator=gen,
+                        device="cuda")
+    batch = Batch(tokens=tok, labels=tok)
+    log("  E (replicated gspmd):")
+    state_e, rec_e = session_run(torch, sess_e, model, steps=3)
+    held_e = held_after_forward(torch, model, state_e.params, batch)
+    # kept on the host, so that the FSDP run's peak is its own
+    want = tree_lib.tree_map(lambda t: t.cpu(), state_e.params)
+    del state_e
+    log("  FSDP:")
+    with CollectiveCount(dist) as cc:
+        state, rec = session_run(torch, sess, model, steps=3)
+    rec["collectives"] = cc.counts
+    held = held_after_forward(torch, model, state.params, batch,
+                              fsdp=tr.fsdp_splits(model, sess.planner, mesh))
+    got = convert.gather_params(state.params,
+                                tr.param_specs(model, sess.planner), mesh)
+    same = all(torch.equal(a.cpu(), b) for a, b in
+               zip(tree_lib.leaves(got), tree_lib.leaves(want)))
+    repeat = one_repeat_bytes(model)
+    bound = rec_e["peak_bytes"] + repeat
+    rec.update(e_losses=rec_e["losses"], e_step_s=rec_e["step_s"],
+               e_peak_bytes=rec_e["peak_bytes"], repeat_bytes=repeat,
+               held_after_forward=held, e_held_after_forward=held_e,
+               params_bitwise=same)
+    log(f"  collectives in the 3 steps: {cc.counts}")
+    log(f"  losses {rec['losses']}; E's {rec_e['losses']}; parameters "
+        f"bitwise {same}")
+    log(f"  held after one forward {held} B against E's {held_e} B "
+        f"({(held - held_e) / 2**30:+.3f} GiB; one gathered repeat "
+        f"{repeat / 2**30:.3f} GiB)")
+    log(f"  steady step {rec['step_s']:.4f} s against E's "
+        f"{rec_e['step_s']:.4f} s ({rec['step_s'] / rec_e['step_s']:.4f}x); "
+        f"peak {rec['peak_bytes']} B against E's {rec_e['peak_bytes']} B "
+        f"({(rec['peak_bytes'] - rec_e['peak_bytes']) / 2**30:+.3f} GiB; "
+        f"one gathered repeat {repeat / 2**30:.3f} GiB)")
+    check(cc.counts["all_gather_into_tensor"] > 0
+          and cc.counts["reduce_scatter_tensor"] > 0,
+          "fsdp: no NCCL all-gather or reduce-scatter ran")
+    check(rec["losses"] == rec_e["losses"] and same,
+          "fsdp: losses or parameters differ from E's")
+    check(held - held_e < repeat,
+          "fsdp: the forward keeps gathered weights for the backward")
+    check(rec["peak_bytes"] <= bound,
+          "fsdp: the peak exceeds E's plus one gathered repeat")
+    del state, got, want
+    torch.cuda.empty_cache()
+    return rec
+
+
+def moe_ep_block_phase(torch):
+    """(c) One grok-1 layer at full width (the model cut to 1 of 64
+    layers), forward and backward through `Model.loss` on batch 2 x 2048
+    under FSDP over the one-rank data group: the moe block's gather branch
+    against its ep branch (`moe_apply_ep` over the one-rank model group,
+    gathering its expert leaves itself) on the same weights. bf16 weight
+    gather: logits, aux and every weight gradient bitwise. int8: the quant8
+    quantize and dequantize kernels launch inside the step, and the expert
+    gradients are within EP_GRAD_TOL of the bf16 gather's, of the largest
+    element. A train step with AdamW would need about 100 GB on one card,
+    so the check stops at the gradients."""
+    from repro_torch import convert, tree as tree_lib
+    from repro_torch.configs import registry
+    from repro_torch.core import planner as pl
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models.transformer import Batch, Model
+    from repro_torch.train import trainer as tr
+    phase("moe ep block: one grok-1 layer at full width, the ep branch "
+          "against the gather branch under FSDP")
+    cfg = dataclasses.replace(registry.get_config("grok-1-314b"), n_layers=1)
+    model = Model(cfg)
+    mesh = mesh_lib.make_host_mesh(1, 1)
+    planner = pl.Planner(mesh=mesh, fsdp=True)
+    fsdp = tr.fsdp_splits(model, planner, mesh)
+    params = model.init(torch.Generator(device="cuda").manual_seed(6), "cuda")
+    params = convert.shard_params(params, tr.param_specs(model, planner),
+                                  mesh)
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    tok = torch.randint(0, cfg.vocab, EP_X, generator=gen, device="cuda")
+    batch = Batch(tokens=tok, labels=tok)
+    groups = dict(model_group=mesh.get_group("model"),
+                  batch_groups=(mesh.get_group("data"),))
+    leaves = tree_lib.leaves(params)
+    paths = tree_lib.paths(params)
+    experts = [i for i, p in enumerate(paths)
+               if p[-2:] in (("moe", "w1"), ("moe", "w2"), ("moe", "w3"))]
+    log(f"  {model.n_params():,} parameters; expert leaves "
+        f"{[paths[i] for i in experts]}")
+
+    def run(moe):
+        with torch.no_grad():
+            logits, aux = model._forward(params, batch, fsdp=fsdp, moe=moe)
+        for t in leaves:
+            t.requires_grad_(True)
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = model.loss(params, batch, fsdp=fsdp, moe=moe)
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches = read_launches()
+        for t in leaves:
+            t.requires_grad_(False)
+        return logits, aux, float(loss.detach()), grads, launches, sec
+
+    rec = {}
+    ref = run(None)
+    rec["gather_s"] = ref[5]
+    log(f"  gather branch: loss {ref[2]:.7f} aux {float(ref[1]):.7f}, "
+        f"forward and backward {ref[5]:.3f} s")
+    ep = run(dict(moe_impl="ep", wgather_wire="bf16", **groups))
+    same = (torch.equal(ep[0], ref[0]) and torch.equal(ep[1], ref[1])
+            and all(torch.equal(a, b) for a, b in zip(ep[3], ref[3])))
+    worst = max(_chunked_rel_err(torch, a, b) for a, b in zip(ep[3], ref[3]))
+    rec.update(ep_bf16_s=ep[5], ep_bf16_bitwise=same,
+               ep_bf16_worst_grad_err=worst)
+    log(f"  ep branch, bf16 weight gather: loss {ep[2]:.7f}, {ep[5]:.3f} s; "
+        f"logits, aux and gradients bitwise {same} (worst gradient "
+        f"{worst:.3e} of its largest element)")
+    check(same, "moe ep block: the ep branch differs from the gather branch")
+    bf16_experts = [ep[3][i] for i in experts]
+    rec.update(gather_loss=ref[2])
+    del ep, ref
+    torch.cuda.empty_cache()
+    q = run(dict(moe_impl="ep", wgather_wire="int8", **groups))
+    launches = q[4]
+    n_fwd = 2 if cfg.remat else 1       # the checkpoint gathers again
+    log(f"  ep branch, int8 weight gather: loss {q[2]:.7f}, {q[5]:.3f} s; "
+        f"launches {launches}")
+    check(launches["quantize_blocks"] == 3 * n_fwd
+          and launches["dequantize_blocks"] == 3 * n_fwd,
+          f"moe ep block: the int8 weight gather launched {launches}")
+    for i, b in zip(experts, bf16_experts):
+        a = q[3][i]
+        rel = _chunked_rel_err(torch, a, b)
+        name = "/".join(paths[i])
+        log(f"  d{name}: int8 vs bf16 weight gather {rel:.3e} of the largest "
+            f"element; int8 max {float(a.abs().max()):.3e}")
+        check(float(a.abs().max()) > 0 and rel <= EP_GRAD_TOL,
+              f"moe ep block: d{name} on the int8 wire is {rel:.3e} from "
+              f"the bf16 wire's")
+        rec[f"d{paths[i][-1]}_int8_vs_bf16"] = rel
+    rec.update(ep_int8_s=q[5], loss_int8=q[2])
+    del q, bf16_experts, params, leaves
+    torch.cuda.empty_cache()
+    return launches, rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1906,13 +2289,13 @@ def main() -> int:
 
     cfg = dataclasses.replace(registry.get_config("yi-6b"), n_layers=4)
     zero = dict.fromkeys(KERNELS, 0)
+    # cell A: the 2 norm buckets x 2 microbatches x 3 steps
+    a_launches = {**zero, "quantize_ef_blocks": 12,
+                  "dequantize_accumulate_blocks": 12}
     totals = dict(zero)
     runs = {}
     for label, comm, steps, dp_only, expect in (
-            ("A", tr.CommConfig(mode="mlsl", wire="int8",
-                                error_feedback=True, accum_steps=2), 3, False,
-             {**zero, "quantize_ef_blocks": 12,
-              "dequantize_accumulate_blocks": 12}),
+            ("A", tr.CommConfig(**A_COMM), 3, False, a_launches),
             ("B", tr.CommConfig(mode="mlsl", wire="int8",
                                 error_feedback=True, accum_steps=2), 3, True,
              {**zero, "quantize_ef_blocks": 66,
@@ -1968,9 +2351,7 @@ def main() -> int:
           "the train step launched the flash kernel")
     # model parallelism at one rank: A's exchange (the 2 norm buckets on
     # the EF int8 wire), 2 buckets x 2 microbatches x 3 steps
-    launches, runs["G"] = mp_phase(
-        torch, cfg, runs["A"], {**zero, "quantize_ef_blocks": 12,
-                                "dequantize_accumulate_blocks": 12})
+    launches, runs["G"] = mp_phase(torch, cfg, runs["A"], a_launches)
     for k, v in launches.items():
         totals[k] += v
     launches, runs["obs B"] = obs_train_phase(torch, cfg, runs["B"]["step_s"])
@@ -2000,6 +2381,14 @@ def main() -> int:
     for k, v in family_cli_phase(torch, RECURRENT_ARCHS).items():
         totals[k] += v
     launches, runs["ep"] = ep_phase(torch)
+    for k, v in launches.items():
+        totals[k] += v
+    launches, runs["session"] = session_phase(torch, cfg, runs["A"],
+                                              a_launches)
+    for k, v in launches.items():
+        totals[k] += v
+    runs["fsdp"] = fsdp_phase(torch, cfg)
+    launches, runs["moe ep block"] = moe_ep_block_phase(torch)
     for k, v in launches.items():
         totals[k] += v
     check(d256 > 0, "the recurrent cells never launched flash at D 256")

@@ -3,7 +3,7 @@
 the cards of one host, against the data-parallel twin.
 
     python3 scripts/hybrid_cards.py [--nproc 4] [--device cuda]
-                                    [--parts check,cells,stats,mp,ep]
+                                    [--parts check,cells,stats,mp,ep,fsdp]
 
 Both parts run on --nproc ranks through torchrun, for each mesh (node,
 local) of --meshes (default 1x4 and 2x2), twice: hybrid (the C2C
@@ -80,6 +80,30 @@ seeded random weights: 2 experts a card at 4 ranks), x (2, --cells-seq,
     backward, and the two all-to-alls of the forward alone on buffers of
     the exchange's shape, with their share of the forward.
 
+fsdp (only when asked for: `--parts fsdp`): FSDP (`Planner(mesh,
+fsdp=True)`, gspmd) on the (--nproc, 1) data mesh, NCCL:
+  * pair: yi-6b at the train cells' width cut to 4 layers (global batch 8,
+    seq --cells-seq, 2 microbatches, AdamW with warmup-cosine at 3e-4,
+    FSDP_STEPS steps, the same weights and data), FSDP against the
+    replicated gspmd step on the same cards, in one process a rank: every
+    step's loss and gradient norm within LOSS_RTOL, and the final
+    parameters gathered over the data axis against the replicated run's
+    within the bf16 bound `bf16_param_bound`; each run's steps, median
+    step and peak a rank. Two witnesses of that bound: the replicated
+    mlsl step (fp32 wire, bucketed all-reduces: no shard anywhere, only
+    another order of the gradient sums) against the replicated gspmd
+    step, whose share of elements beyond one rounding step says what
+    reduction order alone gives; and the FSDP parameters with each split
+    leaf's shards rotated by one rank (a misplaced shard), which must
+    exceed the bound in every split leaf;
+  * full: full-depth yi-6b (32 layers, 6.06 B parameters) through
+    `Session.create(mesh, n_params=, comm=gspmd with 2 microbatches,
+    hbm_budget=<the card's memory>)`, which must choose FSDP (85 GB of
+    replicated train state over 55% of the card), FSDP_STEPS steps at
+    global batch 8 and seq --cells-seq: each step's seconds, the median,
+    tok/s and each rank's peak (after the state is built, and while every
+    rank draws the full weights before keeping its shards).
+
 Writes everything to --out as JSON and exits non-zero if a run fails or a
 pair disagrees. `--device cpu` runs the same on gloo ranks (a rehearsal:
 no time it prints is a device's; `--cells-config smoke --cells-seq 32`
@@ -106,6 +130,27 @@ GNORM_ATOL = 1e-3         # fp32 wire, the CLI's printed precision
 PARAM_ATOL = 1e-4         # fp32 wire, parameters after the last step
 LOSS_RTOL = 1e-3          # int8 and bf16 wires
 EP_TOL = 2e-2             # ep part: bf16 y against moe_apply's, of its max
+FSDP_STEPS = 3
+
+
+def bf16_param_bound(a, b, lrs):
+    """(max excess over the bound, share of elements beyond one rounding
+    step) of two bf16 parameter tensors after AdamW steps at the rates
+    `lrs`. An element may differ by one bf16 rounding step of its
+    magnitude (2^-7 of it), and by two steps of every learning rate where
+    its update's sign differs: AdamW's step is about the learning rate
+    whatever the gradient's size, and the reduce-scatter and the all-reduce
+    sum the bf16 gradients in other orders. A shard in the wrong place
+    moves elements by their own size, far past the bound. The share is
+    reported, not bounded: the pair's witnesses read it for a replicated
+    pair summed in another order, and show that a misplaced shard
+    exceeds the bound."""
+    a, b = a.float(), b.float()
+    diff = (a - b).abs()
+    step = 2.0 ** -7 * a.abs().maximum(b.abs())
+    share = float((diff > step).float().mean())
+    excess = float((diff - step - 2.0 * sum(lrs)).max())
+    return excess, share
 
 
 def _torchrun(nproc: int, target: list, timeout: float):
@@ -417,6 +462,183 @@ def ep_part(args, work: pathlib.Path) -> tuple:
     return r, ok
 
 
+def fsdp_part(args, work: pathlib.Path) -> tuple:
+    results, ok = {}, True
+    for kind in ("pair", "full"):
+        out = work / f"fsdp_{kind}.json"
+        proc = _torchrun(args.nproc, [
+            str(pathlib.Path(__file__).resolve()), "--worker", f"fsdp-{kind}",
+            "--device", args.device, "--cells-config", args.cells_config,
+            "--cells-seq", str(args.cells_seq), "--steps", str(FSDP_STEPS),
+            "--worker-out", str(out)], args.timeout)
+        r = json.loads(out.read_text()) if out.exists() else {}
+        r["rc"] = proc.returncode
+        for k, v in r.items():
+            print(f"fsdp {kind} {k}: {v}", flush=True)
+        good = proc.returncode == 0 and r.get("agree", False)
+        if not good:
+            print(proc.stdout[-2000:], proc.stderr[-3000:], file=sys.stderr)
+        ok = ok and good
+        results[kind] = r
+    return results, ok
+
+
+def _fsdp_run(torch, sess, model, *, steps, seq, dev, lr=3e-4, seed=0):
+    """`steps` train steps through `sess.make_train_step` at global batch
+    8 (warmup-cosine AdamW at `lr`, weights and data from `seed`): (the
+    state, each step's loss and seconds, the peak allocated bytes while
+    the state was built and during the steps)."""
+    import torch.distributed as dist
+    from repro_torch.data import pipeline
+    from repro_torch.models.transformer import Batch
+    from repro_torch.optim import optimizers as opt_lib, schedules
+    from repro_torch.train import trainer as tr
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    sched = schedules.warmup_cosine(lr, max(steps // 10, 1), steps)
+    opt = opt_lib.make_optimizer("adamw", sched)
+    state = tr.make_train_state(
+        model, opt, torch.Generator(device=dev).manual_seed(seed), dev,
+        planner=sess.planner)
+    peak_init = torch.cuda.max_memory_allocated(dev) if cuda else None
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    step = sess.make_train_step(model, opt, device=dev)
+    dcfg = pipeline.DataConfig(vocab=model.cfg.vocab, seq_len=seq,
+                               global_batch=8, seed=seed)
+    recs = []
+    for s, raw in enumerate(pipeline.iterate(dcfg, steps)):
+        b = Batch(tokens=torch.from_numpy(raw["tokens"]).to(dev),
+                  labels=torch.from_numpy(raw["labels"]).to(dev))
+        dist.barrier()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        loss = float(m["loss"])
+        recs.append({"step": s, "loss": loss,
+                     "grad_norm": float(m["grad_norm"]),
+                     "seconds": time.perf_counter() - t0})
+    peak = torch.cuda.max_memory_allocated(dev) if cuda else None
+    peaks = [None] * dist.get_world_size()
+    dist.all_gather_object(peaks, (peak_init, peak))
+    steady = [r["seconds"] for r in recs[1:]]
+    return state, {"steps": recs,
+                   "median_step_s": statistics.median(steady)
+                   if steady else None,
+                   "peak_bytes_init": [p[0] for p in peaks],
+                   "peak_bytes": [p[1] for p in peaks],
+                   "lrs": [float(sched(s)) for s in range(steps)]}
+
+
+def fsdp_worker(args) -> int:
+    """One rank of the fsdp part (see the module docstring)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch import convert, tree as tree_lib
+    from repro_torch.configs import registry
+    from repro_torch.core.api import Session
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models.transformer import Model
+    from repro_torch.train import trainer as tr
+    dev = mesh_lib.resolve_device(args.device)
+    mesh = mesh_lib.make_host_mesh(args.nproc, 1, device=dev)
+    rank0 = dist.get_rank() == 0
+    base = (registry.get_config("yi-6b") if args.cells_config == "cells"
+            else registry.get_smoke_config("yi-6b"))
+    comm = tr.CommConfig(mode="gspmd", accum_steps=2)
+    # a CPU rehearsal has no card: a budget of one byte chooses FSDP
+    memory = (torch.cuda.get_device_properties(dev).total_memory
+              if dev.type == "cuda" else 1.0)
+    rec = {"device": [torch.cuda.get_device_name(dev)]
+           if dev.type == "cuda" else ["cpu rehearsal"],
+           "mesh": f"data {args.nproc} x model 1"}
+    if args.worker == "fsdp-pair":
+        cfg = (dataclasses.replace(base, n_layers=4)
+               if args.cells_config == "cells" else base)
+        model = Model(cfg)
+        rec["config"] = (f"{cfg.name} n_layers={cfg.n_layers} batch 8 seq "
+                         f"{args.cells_seq}, 2 microbatches")
+        rep = Session.create(mesh, n_params=model.n_params(), comm=comm,
+                             hbm_budget=1e15)
+        fsdp = Session.create(mesh, n_params=model.n_params(), comm=comm,
+                              hbm_budget=1.0)
+        state, rec["replicated"] = _fsdp_run(torch, rep, model,
+                                             steps=args.steps,
+                                             seq=args.cells_seq, dev=dev)
+        want = tree_lib.tree_map(lambda t: t.cpu(), state.params)
+        del state
+        mlsl = Session.create(mesh, n_params=model.n_params(),
+                              comm=tr.CommConfig(mode="mlsl", accum_steps=2),
+                              hbm_budget=1e15)
+        state, rec["replicated_mlsl"] = _fsdp_run(
+            torch, mlsl, model, steps=args.steps, seq=args.cells_seq,
+            dev=dev)
+        other = [t.cpu() for t in tree_lib.leaves(state.params)]
+        del state
+        state, rec["fsdp"] = _fsdp_run(torch, fsdp, model, steps=args.steps,
+                                       seq=args.cells_seq, dev=dev)
+        got = convert.gather_params(state.params,
+                                    tr.param_specs(model, fsdp.planner),
+                                    mesh)
+        del state
+        lrs = rec["fsdp"]["lrs"]
+        excess, share = -float("inf"), 0.0
+        w_excess, w_share = -float("inf"), 0.0
+        planted = float("inf")
+        specs = tree_lib.leaves(tr.param_specs(model, fsdp.planner))
+        for a, b, o, spec in zip(tree_lib.leaves(got),
+                                 tree_lib.leaves(want), other, specs):
+            b = b.to(dev)
+            e, sh = bf16_param_bound(a, b, lrs)
+            excess, share = max(excess, e), max(share, sh)
+            e, sh = bf16_param_bound(o.to(dev), b, lrs)
+            w_excess, w_share = max(w_excess, e), max(w_share, sh)
+            split = [d for d, ax in enumerate(spec) if ax is not None]
+            if split:
+                d = split[0]
+                rolled = torch.roll(a, a.shape[d] // args.nproc, dims=d)
+                planted = min(planted, bf16_param_bound(rolled, b, lrs)[0])
+        hy, dp = rec["fsdp"]["steps"], rec["replicated"]["steps"]
+        for key in ("loss", "grad_norm"):
+            rec[f"max_{key}_rel_diff"] = max(abs(a[key] - b[key]) / abs(b[key])
+                                             for a, b in zip(hy, dp))
+        rec["param_excess_over_bound"] = excess
+        rec["param_share_beyond_one_rounding"] = share
+        rec["witness_mlsl_excess_over_bound"] = w_excess
+        rec["witness_mlsl_share_beyond_one_rounding"] = w_share
+        rec["planted_roll_min_excess_over_bound"] = planted
+        rec["agree"] = (len(hy) == len(dp) == args.steps
+                        and rec["max_loss_rel_diff"] <= LOSS_RTOL
+                        and rec["max_grad_norm_rel_diff"] <= LOSS_RTOL
+                        and excess <= 0 and planted > 0)
+    else:
+        model = Model(base)
+        sess = Session.create(mesh, n_params=model.n_params(), comm=comm,
+                              hbm_budget=memory)
+        rec["config"] = (f"{base.name} n_layers={base.n_layers} "
+                         f"({model.n_params():,} parameters) batch 8 seq "
+                         f"{args.cells_seq}, 2 microbatches")
+        rec["decide_fsdp"] = sess.planner.fsdp
+        rec["replicated_state_bytes"] = model.n_params() * 14.0
+        rec["hbm_budget"] = memory
+        state, run = _fsdp_run(torch, sess, model, steps=args.steps,
+                               seq=args.cells_seq, dev=dev)
+        del state
+        rec.update(run)
+        rec["tokens_per_s"] = (8 * args.cells_seq / run["median_step_s"]
+                               if run["median_step_s"] else None)
+        rec["agree"] = bool(sess.planner.fsdp) and all(
+            np.isfinite(s["loss"]) for s in run["steps"])
+    if rank0:
+        pathlib.Path(args.worker_out).write_text(json.dumps(rec))
+    dist.destroy_process_group()
+    return 0
+
+
 def _median_s(torch, fn, n=5):
     """The median host time of fn() over n calls after one warm-up, each
     ending in a device synchronize and a barrier."""
@@ -634,7 +856,7 @@ def main() -> int:
     ap.add_argument("--out", default=str(ROOT / "build" /
                                          "hybrid_cards.json"))
     ap.add_argument("--worker", choices=["hybrid", "dp", "stats", "mp",
-                                         "ep"],
+                                         "ep", "fsdp-pair", "fsdp-full"],
                     default=None,
                     help=argparse.SUPPRESS)
     ap.add_argument("--arch", default="yi-6b", help=argparse.SUPPRESS)
@@ -644,6 +866,8 @@ def main() -> int:
     args = ap.parse_args()
     if args.worker == "ep":
         return ep_worker(args)
+    if args.worker in ("fsdp-pair", "fsdp-full"):
+        return fsdp_worker(args)
     if args.worker:
         return worker(args)
     if args.device == "cuda":
@@ -673,6 +897,9 @@ def main() -> int:
         ok = ok and good
     if "ep" in parts:
         report["ep"], good = ep_part(args, work)
+        ok = ok and good
+    if "fsdp" in parts:
+        report["fsdp"], good = fsdp_part(args, work)
         ok = ok and good
     shutil.rmtree(work, ignore_errors=True)
     pathlib.Path(args.out).write_text(json.dumps(report, indent=1))

@@ -8,14 +8,17 @@ in both packages (the stacked `blocks/...` leaves included), so the
 conversion is a copy; bfloat16 arrays (numpy's ml_dtypes extension type)
 are reinterpreted bit for bit.
 
-Under a hybrid plan or model parallelism each rank holds only its shard of
-a model-sharded parameter (on a flat or a ("node", "local", "model")
+Under a hybrid plan, model parallelism or FSDP each rank holds only its
+shard of a sharded parameter (on a flat or a ("node", "local", "model")
 mesh). `shard_params` cuts a full tree (numpy arrays or tensors) into
 one rank's shards by the planner's specs; `gather_params` is its inverse
 over the ranks of a mesh, collective on every rank. A spec's entry per
-dimension names the mesh axis that dimension splits over (None: not
-split); the leading dimension of the stacked `blocks/...` leaves is never
-split, and an axis the mesh lacks has size 1.
+dimension names the mesh axis that dimension splits over, or a tuple of
+axes (FSDP over ("node", "local")), cut node-major: rank (n, l) holds
+part n * local + l, the part the reference's sharding places on that
+device (None: not split); the leading dimension of the stacked
+`blocks/...` leaves is never split, and an axis the mesh lacks has size
+1.
 """
 
 from __future__ import annotations
@@ -61,12 +64,14 @@ def shard_params(tree, specs, mesh, coord: dict | None = None):
     def one(_, leaf, spec):
         index = []
         for d, a in enumerate(spec):
-            n = sizes.get(a, 1) if a is not None else 1
+            n, k = 1, 0
+            for ax in _axes(a):             # node-major
+                n, k = n * sizes.get(ax, 1), k * sizes.get(ax, 1) + (
+                    coord[ax] if sizes.get(ax, 1) > 1 else 0)
             if leaf.shape[d] % n:
                 raise ValueError(f"dimension {d} of {tuple(leaf.shape)} does "
                                  f"not split over {n} ranks")
             m = leaf.shape[d] // n
-            k = coord[a] if n > 1 else 0
             index.append(slice(k * m, (k + 1) * m))
         part = leaf[tuple(index)]
         if isinstance(part, torch.Tensor):
@@ -84,11 +89,20 @@ def gather_params(tree, specs, mesh):
 
     def one(_, leaf, spec):
         for d, a in enumerate(spec):
-            if a is None or sizes.get(a, 1) == 1:
-                continue
-            parts = [torch.empty_like(leaf) for _ in range(sizes[a])]
-            dist.all_gather(parts, leaf.contiguous(), group=mesh.get_group(a))
-            leaf = torch.cat(parts, dim=d)
+            for ax in reversed(_axes(a)):   # the innermost axis first
+                if sizes.get(ax, 1) == 1:
+                    continue
+                parts = [torch.empty_like(leaf) for _ in range(sizes[ax])]
+                dist.all_gather(parts, leaf.contiguous(),
+                                group=mesh.get_group(ax))
+                leaf = torch.cat(parts, dim=d)
         return leaf
 
     return tree_lib.map_with_path(one, tree, specs)
+
+
+def _axes(entry) -> tuple:
+    """The mesh axes of one spec entry: none, one name or a tuple."""
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)

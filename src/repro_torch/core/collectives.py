@@ -19,7 +19,9 @@ same order. Every call goes through
   * the tensor-parallel f/g activation pair (`tp_replicate`, `tp_psum`,
     `tp_psum_scatter`) and the column exchange of model parallelism
     (`tp_all_gather`, `tp_split`, and `tp_max` outside autograd), with
-    explicit backward rules, and `TPComm`.
+    explicit backward rules, and `TPComm`;
+  * FSDP's weight gather (`fsdp_gather`: all-gather forward,
+    reduce-scatter backward).
 """
 
 from __future__ import annotations
@@ -416,6 +418,34 @@ def tp_split(x: torch.Tensor, group) -> torch.Tensor:
     """This rank's slice of the last dimension (which must divide by the
     group size); the backward all-gathers the cotangent over `group`."""
     return _SplitLast.apply(x, group)
+
+
+class _FsdpGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, groups, dim):
+        ctx.groups, ctx.dim = groups, dim
+        y = x.movedim(dim, 0)
+        for g in reversed(groups):       # the innermost axis first
+            y = _all_gather(y, g)
+        return y.movedim(0, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, ct):
+        y = ct.movedim(ctx.dim, 0)
+        for g in ctx.groups:
+            y = _psum_scatter(y, g)
+        return y.movedim(0, ctx.dim).contiguous(), None, None
+
+
+def fsdp_gather(x: torch.Tensor, groups, dim: int) -> torch.Tensor:
+    """FSDP's just-in-time weight gather: the tiled all-gather of this
+    rank's shard along `dim` over `groups` (the axes of one spec entry, in
+    order; gathered innermost first, so rank (n, l) of ("node", "local")
+    contributes part n * local + l). The backward reduce-scatters (sums)
+    the cotangent back to the shard over the groups in order: each rank
+    gets the sum over the group of the gradients of its part, which the
+    step divides by the data-parallel size."""
+    return _FsdpGather.apply(x, _group_list(groups), dim)
 
 
 def tp_max(x: torch.Tensor, group) -> torch.Tensor:

@@ -46,6 +46,12 @@ class CommConfig:
     prioritize: bool = True
     bucket_bytes: float = 25e6
     error_feedback: bool = False     # int8 wire only
+    # the moe blocks' dispatch: "gather" (models.moe.moe_apply) or "ep"
+    # (moe_apply_ep: all-to-all expert parallelism over the model group);
+    # under FSDP the ep path gathers its expert weights itself, on the int8
+    # wire with wgather_wire="int8"
+    moe_impl: str = "gather"
+    wgather_wire: str = "bf16"
     accum_steps: int = 1             # microbatch gradient accumulation
     # two-level collectives over a ("node", "local") factored data dimension
     # (repro_torch.core.hier): `wire` selects the fabric leg and

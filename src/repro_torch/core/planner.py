@@ -8,6 +8,12 @@ hybrid plan of `repro/core/planner.py`. Models declare their parameters as
 spec is a tuple with one entry per dimension: a mesh axis name, a tuple of
 names, or None (replicated along that dimension).
 
+With `fsdp` (the reference's ZeRO/FSDP rule, `try_fsdp`) the specs also
+split each matrix over the batch axes, where the dimension divides by
+their size and holds at least two rows a rank; `decide_fsdp` and
+`make_planner` turn it on when the replicated train state would not fit
+the device (`fsdp_dims` gives each leaf's split).
+
 The data-parallel step reads the specs for one thing: which gradient
 buckets may travel fused (only fully replicated leaves may). The hybrid
 step (`make_hybrid_planner`) and the model-parallel step (a model axis of
@@ -91,11 +97,6 @@ class Planner:
     hybrid: "HybridPlan | None" = None
 
     def __post_init__(self):
-        if self.fsdp:
-            raise ValueError(
-                "Planner(fsdp=True) is not supported: the mlsl step manages "
-                "gradient communication explicitly and needs parameters "
-                "replicated over the batch axes")
         shape = mesh_shape(self.mesh)
         names = tuple(shape)
         if self.dp_only:
@@ -104,6 +105,7 @@ class Planner:
         else:
             self.batch_axes = tuple(a for a in names if a != self.model_axis)
             self.model_size = shape.get(self.model_axis, 1)
+        self.batch_size_total = math.prod(shape[a] for a in self.batch_axes)
 
     def spec_for(self, pd: ParamDef, *, stacked: bool = False,
                  model_ok: bool = True) -> tuple:
@@ -117,27 +119,40 @@ class Planner:
 
         def try_model(cands):
             if self.dp_only or not model_ok:
-                return
+                return None
             for d in cands:
                 if _divides(shape[d], self.model_size):
                     dims[d + offset] = self.model_axis
-                    return
+                    return d
+            return None
+
+        def try_fsdp(cands, taken):
+            if not self.fsdp:
+                return
+            for d in cands:
+                if d == taken:
+                    continue
+                for axes in (self.batch_axes, self.batch_axes[-1:]):
+                    sz = self._axes_size(axes)
+                    if _divides(shape[d], sz) and shape[d] >= 2 * sz:
+                        dims[d + offset] = axes if len(axes) > 1 else axes[0]
+                        return
 
         kind = pd.kind
         if kind in (K_NORM, K_SCALAR, K_REPLICATED):
             pass
         elif kind == K_EMBED:
-            try_model([0, 1])
+            try_fsdp([1, 0], try_model([0, 1]))
         elif kind == K_HEAD:
-            try_model([1, 0])
+            try_fsdp([0, 1], try_model([1, 0]))
         elif kind == K_PROJ_IN:
-            try_model([len(shape) - 1])
+            try_fsdp([0], try_model([len(shape) - 1]))
         elif kind == K_PROJ_OUT:
-            try_model([0])
+            try_fsdp([len(shape) - 1], try_model([0]))
         elif kind == K_EXPERT_IN:
-            try_model([0, 2])
+            try_fsdp([1], try_model([0, 2]))
         elif kind == K_EXPERT_OUT:
-            try_model([0, 1])
+            try_fsdp([2], try_model([0, 1]))
         elif kind in (K_VEC_MODEL, K_CONV_MODEL):
             try_model([0])
         else:
@@ -164,6 +179,23 @@ class Planner:
             for d, ax in enumerate(spec):
                 if ax == self.model_axis:
                     return d - len(spec)
+            return None
+        return tree_lib.map_with_path(
+            one, self.tree_specs(defs_tree, stacked_paths=stacked_paths))
+
+    def fsdp_dims(self, defs_tree,
+                  *, stacked_paths: Callable[[tuple], bool] | None = None):
+        """ParamDef tree -> tree of each leaf's FSDP split: (its dimension
+        counted from the end, the tuple of batch axes it splits over), or
+        None where the spec names no batch axis. A spec entry names the
+        axes node-major: ("node", "local") puts shard n * local + l on
+        rank (n, l)."""
+        def one(_, spec):
+            for d, ax in enumerate(spec):
+                # every other entry is try_model's (outside dp_only)
+                if ax is not None and (self.dp_only or ax != self.model_axis):
+                    return d - len(spec), ax if isinstance(ax, tuple) \
+                        else (ax,)
             return None
         return tree_lib.map_with_path(
             one, self.tree_specs(defs_tree, stacked_paths=stacked_paths))
@@ -209,6 +241,31 @@ class Planner:
         """(B, dim, ...) recurrent state: dim over model if divisible."""
         d = self.model_axis if _divides(dim, self.model_size) else None
         return (self._lead(batch), d)
+
+
+def decide_fsdp(n_params: float, model_size: int, *, train: bool = True,
+                bytes_per_param_state: float = 14.0,
+                hbm_budget: float = 16e9, frac: float = 0.55) -> bool:
+    """Should parameters/optimizer state also shard over the batch axes?
+
+    Replicated-across-groups footprint = N * state_bytes / model_group_size;
+    enable FSDP when that exceeds `frac` of per-chip HBM. The constants are
+    the reference's model data (14 B a trained parameter, a 16 GB chip),
+    not measurements of any device."""
+    bpp = bytes_per_param_state if train else 2.0
+    return (n_params * bpp / max(model_size, 1)) > frac * hbm_budget
+
+
+def make_planner(mesh, n_params: float, *, train: bool = True,
+                 bytes_per_param_state: float = 14.0,
+                 hbm_budget: float = 16e9) -> Planner:
+    """`Planner(mesh)`, with FSDP when `decide_fsdp` says the replicated
+    state would not fit `hbm_budget` bytes a device."""
+    model_size = mesh_shape(mesh).get("model", 1)
+    fsdp = decide_fsdp(n_params, model_size, train=train,
+                       bytes_per_param_state=bytes_per_param_state,
+                       hbm_budget=hbm_budget)
+    return Planner(mesh=mesh, fsdp=fsdp)
 
 
 # --- flat vs hierarchical collective choice (machine-hierarchy planning) -----

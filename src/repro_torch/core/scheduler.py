@@ -126,30 +126,6 @@ def default_layer_index(path: tuple) -> float:
     return 1e6
 
 
-def reduce_with_priority(grad_tree, reduce_fn: Callable, plan: BucketPlan, *,
-                         prioritize: bool = True, fuse: bool = True):
-    """Apply `reduce_fn(message, bucket)` per bucket, in plan (priority)
-    order. `fuse=False` keeps each leaf its own message (what the gspmd
-    mode needs: it reduces leaf by leaf).
-
-    The reference chains the buckets with optimization_barrier tokens so
-    XLA keeps them in order, and leaves them unordered without
-    `prioritize`; eagerly the calls run in plan order either way, so
-    `prioritize` changes nothing here."""
-    del prioritize
-    leaves = tree_lib.leaves(grad_tree)
-    new_leaves = list(leaves)
-    for bucket in plan.buckets:
-        if fuse:
-            reduced = reduce_fn(fuse_bucket(leaves, bucket), bucket)
-            for lid, leaf in unfuse_bucket(reduced, bucket).items():
-                new_leaves[lid] = leaf
-        else:
-            for lid in bucket.leaf_ids:
-                new_leaves[lid] = reduce_fn(leaves[lid], bucket)
-    return tree_lib.unflatten(list(plan.paths), new_leaves)
-
-
 def route_buckets(plan: BucketPlan, topo, nodes: int, *,
                   bytes_per_elem: float = 4.0, fault=None,
                   wire: str = "fp32", ef: bool = False,

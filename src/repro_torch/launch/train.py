@@ -101,9 +101,9 @@ def train(cfg: ModelConfig, comm: tr.CommConfig, *, steps: int, batch: int,
     `Planner(mesh, dp_only=dp_only)`; under a hybrid planner
     (`make_hybrid_planner`) or model parallelism (a planner whose model
     axis has more than one rank, or `force_model_parallel`:
-    `trainer.make_train_step`) every rank draws the full weights and keeps
-    its shards, and the state holds shards; LARS and LAMB then take the
-    norms of whole tensors. With `ckpt_dir`, rank 0 saves {"params": ...}
+    `trainer.make_train_step`) or FSDP (`planner.fsdp`, gspmd) every rank
+    draws the full weights and keeps its shards, and the state holds
+    shards; LARS and LAMB then take the norms of whole tensors. With `ckpt_dir`, rank 0 saves {"params": ...}
     there after the last step, the full tensors.
 
     Observability hooks (repro_torch.obs), each optional: `meter`
@@ -128,15 +128,10 @@ def train(cfg: ModelConfig, comm: tr.CommConfig, *, steps: int, batch: int,
     model = Model(cfg)
     sched = schedules.warmup_cosine(lr, max(steps // 10, 1), steps)
     mp = force_model_parallel or tr.model_parallel(planner)
-    opt_kw = {}
-    if mp and optimizer in opt_lib.LAYERWISE:
-        opt_kw = dict(sharded=tr.sharded_flags(model, planner,
-                                               planner.model_axis),
-                      group=mesh.get_group(planner.model_axis))
-    opt = opt_lib.make_optimizer(optimizer, sched, **opt_kw)
+    opt = opt_lib.make_optimizer(optimizer, sched)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    specs = (tr.param_specs(model, planner) if planner.hybrid or mp
-             else None)
+    specs = (tr.param_specs(model, planner)
+             if planner.hybrid or mp or planner.fsdp else None)
     params = model.init(gen, dev)
     if specs is not None:
         params = convert.shard_params(params, specs, mesh)

@@ -16,7 +16,9 @@ head/feature-sharded tensor parallelism under a hybrid plan or model
 parallelism), serving caches and one-token decode (unsharded, as in the
 reference). `block_apply` returns (h, aux): the router's load-balance
 loss of a "moe" block, None for every other kind (the reference's zero
-scalar, which the port neither makes nor adds).
+scalar, which the port neither makes nor adds). A moe block trains on the
+gather dispatch or, with `BlockCtx.moe_impl == "ep"`, on the
+expert-parallel one (`moe.moe_apply_ep`); serving gathers.
 """
 
 from __future__ import annotations
@@ -97,6 +99,17 @@ class BlockCtx:
     # (Planner.model_dims), which shard shapes cannot tell (a shard of
     # half a head has a shape a whole head could have)
     layout: Optional[dict] = None
+    # the moe blocks' dispatch (CommConfig.moe_impl): "ep" runs
+    # moe_apply_ep over `model_group` with the tokens split over
+    # `batch_groups`; its expert leaves arrive split on d over
+    # `fsdp_groups` (this block's FSDP axes; () when they are whole) and
+    # are gathered there, on the `wgather_wire`. The gather dispatch with
+    # `batch_groups` routes the batch their ranks hold together (gspmd)
+    moe_impl: str = "gather"
+    model_group: object = None
+    batch_groups: tuple = ()
+    fsdp_groups: tuple = ()
+    wgather_wire: str = "bf16"
 
     def attn_tp(self, p_attn: dict, a):
         if self.tp_axis is None:
@@ -140,11 +153,19 @@ def _mlp_residual(p: dict, h: torch.Tensor, cfg: ModelConfig,
                              tp_axis=tp_axis)
 
 
-def _moe_residual(p: dict, h: torch.Tensor, cfg: ModelConfig):
-    """A moe block's feed-forward (the gather dispatch) with its residual:
-    (h, aux)."""
+def _moe_residual(p: dict, h: torch.Tensor, ctx: BlockCtx):
+    """A moe block's feed-forward with its residual: (h, aux). The gather
+    dispatch, or with `ctx.moe_impl == "ep"` the expert-parallel one."""
+    cfg = ctx.cfg
     x = norm_apply(p["ln2"], h, cfg)
-    y, aux = moe.moe_apply(p["moe"], x, cfg.moe, act=cfg.mlp_act)
+    if ctx.moe_impl == "ep":
+        y, aux = moe.moe_apply_ep(
+            p["moe"], x, cfg.moe, act=cfg.mlp_act,
+            model_group=ctx.model_group, batch_groups=ctx.batch_groups,
+            fsdp_groups=ctx.fsdp_groups, wgather_wire=ctx.wgather_wire)
+    else:
+        y, aux = moe.moe_apply(p["moe"], x, cfg.moe, act=cfg.mlp_act,
+                               batch_groups=ctx.batch_groups)
     return h + y, aux
 
 
@@ -186,7 +207,7 @@ def block_apply(kind: str, p: dict, h: torch.Tensor, ctx: BlockCtx):
                                tp_axis=ctx.attn_tp(p["attn"], a),
                                layout=ctx.attn_layout())
     if kind == "moe":
-        return _moe_residual(p, h, cfg)
+        return _moe_residual(p, h, ctx)
     return _mlp_residual(p, h, cfg, ctx.mlp_tp(p["mlp"])), None
 
 
@@ -250,7 +271,7 @@ def block_prefill(kind: str, p: dict, h: torch.Tensor, ctx: BlockCtx):
                                     window=ctx.window_for(kind),
                                     kv_dtype=ctx.kv_dtype)
     if kind == "moe":
-        return _moe_residual(p, h + y, cfg)[0], cache
+        return _moe_residual(p, h + y, ctx)[0], cache
     return _mlp_residual(p, h + y, cfg), cache
 
 
@@ -284,5 +305,5 @@ def block_decode(kind: str, p: dict, h1: torch.Tensor, cache: dict, pos: int,
                                    window=ctx.window_for(kind))
     if kind == "moe":
         # the B tokens of the step routed together, at their own capacity
-        return _moe_residual(p, h1 + y, cfg)[0], cache
+        return _moe_residual(p, h1 + y, ctx)[0], cache
     return _mlp_residual(p, h1 + y, cfg), cache

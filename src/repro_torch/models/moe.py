@@ -14,8 +14,10 @@ expert path and kept by the residual):
     exchanges token slots with the expert owners through
     `all_to_all_single`, runs its local experts and reverses the exchange
     (the reference's hand-scheduled shard_map path). Expert weights may
-    arrive sharded on d over the FSDP groups and are gathered just in time,
-    on the int8 wire with `wgather_wire="int8"` (`_WeightGather`).
+    arrive sharded on d over the FSDP groups and are gathered just in time
+    (`collectives.fsdp_gather`), on the int8 wire with
+    `wgather_wire="int8"` (`_Int8WeightGather`). The train step reaches it
+    through the moe block with `CommConfig(moe_impl="ep")`.
 
 Routing follows the reference to the tie: the router runs in f32, and the
 top k come from a stable descending sort, so equal probabilities take the
@@ -61,22 +63,65 @@ def capacity(n_tokens: int, m: MoEConfig) -> int:
     return max(8, ((c + 7) // 8) * 8)     # sublane-aligned
 
 
-def route(xf: torch.Tensor, router_w: torch.Tensor, m: MoEConfig):
-    """xf (T, d) -> (weights (T, k) f32, ids (T, k) int64, aux_loss f32
-    scalar)."""
+def _router(xf: torch.Tensor, router_w: torch.Tensor, m: MoEConfig):
+    """xf (T, d) -> (probs (T, E) f32, weights (T, k) f32, ids (T, k)
+    int64)."""
     logits = xf.to(torch.float32) @ router_w.to(torch.float32)
     probs = torch.softmax(logits, dim=-1)
     top, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
     weights, ids = top[:, :m.top_k], ids[:, :m.top_k]
     weights = weights / torch.clamp_min(
         torch.sum(weights, dim=-1, keepdim=True), 1e-9)
-    # load-balance auxiliary loss (Switch/GShard): E * sum_e f_e * p_e
+    return probs, weights, ids
+
+
+def _load_balance(probs: torch.Tensor, top1: torch.Tensor, n_tokens: int,
+                  m: MoEConfig) -> torch.Tensor:
+    """The load-balance auxiliary loss (Switch/GShard), E * sum_e f_e * p_e:
+    p the mean of `probs`, f the share of `n_tokens` whose first choice is
+    e (`top1`, f32 counts per expert)."""
     me = torch.mean(probs, dim=0)
+    ce = top1 / torch.tensor(n_tokens, dtype=torch.float32,
+                             device=probs.device)
+    return m.n_experts * torch.sum(me * ce)
+
+
+def route(xf: torch.Tensor, router_w: torch.Tensor, m: MoEConfig):
+    """xf (T, d) -> (weights (T, k) f32, ids (T, k) int64, aux_loss f32
+    scalar)."""
+    probs, weights, ids = _router(xf, router_w, m)
     one_hot = F.one_hot(ids[:, 0], m.n_experts).to(torch.float32)
-    ce = torch.sum(one_hot, dim=0) / torch.tensor(
-        xf.shape[0], dtype=torch.float32, device=xf.device)
-    aux = m.n_experts * torch.sum(me * ce)
-    return weights, ids, aux
+    return weights, ids, _load_balance(probs, torch.sum(one_hot, dim=0),
+                                       xf.shape[0], m)
+
+
+def _global_routing(probs: torch.Tensor, ids: torch.Tensor, m: MoEConfig,
+                    batch_groups: Sequence):
+    """The routing of the whole batch when the data ranks hold its rows in
+    rank order (row-major over `batch_groups`), as the reference's gspmd
+    step routes the global batch in one piece. From every rank's count of
+    choices per expert: (this rank's offset in each expert's queue (E,),
+    the capacity of the whole batch, the slots a rank's expert buffer needs
+    (its most choices of one expert inside the capacity, rounded up to 8),
+    the load-balance term: the whole batch's top-1 shares against this
+    rank's mean probabilities, so that its mean over the ranks is the
+    whole batch's)."""
+    E = m.n_experts
+    counts = torch.stack([torch.bincount(ids.reshape(-1), minlength=E),
+                          torch.bincount(ids[:, 0], minlength=E)])
+    table, rank = counts[None], 0
+    for g in reversed(batch_groups):     # innermost axis first
+        table = cl._all_gather(table, g)
+    for g in batch_groups:
+        rank = rank * dist.get_world_size(g) + dist.get_rank(g)
+    n_tokens = table.shape[0] * ids.shape[0]
+    cap = capacity(n_tokens, m)
+    offset = torch.sum(table[:rank, 0], dim=0)
+    kept = torch.clamp(torch.minimum(counts[0], cap - offset), min=0)
+    slots = max(8, (int(kept.max()) + 7) // 8 * 8)
+    aux = _load_balance(probs, torch.sum(table[:, 1], dim=0).to(
+        torch.float32), n_tokens, m)
+    return offset, cap, slots, aux
 
 
 def _expert_ffn(w1: torch.Tensor, w2: torch.Tensor, w3: torch.Tensor,
@@ -87,16 +132,23 @@ def _expert_ffn(w1: torch.Tensor, w2: torch.Tensor, w3: torch.Tensor,
     return torch.bmm(h, w2)
 
 
-def _dispatch_indices(ids: torch.Tensor, m: MoEConfig, cap: int):
+def _dispatch_indices(ids: torch.Tensor, m: MoEConfig, cap: int, *,
+                      offset: torch.Tensor | None = None,
+                      slots: int | None = None):
     """Sort-based capacity dispatch with static shapes.
 
     Returns (slot_token (E*C,) token index feeding each expert slot,
              slot_valid (E*C,) bool,
              slot_wsrc (E*C,) index into the flat (T*k,) weight vector).
     Every token choice past its expert's capacity writes the sentinel slot
-    E*C, which is sliced off."""
+    E*C, which is sliced off. With `offset` (E,) the tokens are a rank's
+    rows of a larger batch, preceded in each expert's queue by `offset`
+    choices: a choice is kept while its place in the whole queue is under
+    `cap`, and its slot is its place among this rank's choices, C = `slots`
+    of them an expert."""
     dev = ids.device
-    n_slots = m.n_experts * cap
+    slots = cap if slots is None else slots
+    n_slots = m.n_experts * slots
     flat_e = ids.reshape(-1)                          # (T*k,) expert of choice
     order = torch.argsort(flat_e, stable=True)        # group by expert
     sorted_e = flat_e[order]
@@ -105,8 +157,8 @@ def _dispatch_indices(ids: torch.Tensor, m: MoEConfig, cap: int):
         side="left")
     pos_in_group = torch.arange(flat_e.shape[0], device=dev) \
         - group_start[sorted_e]
-    dest = torch.where(pos_in_group < cap, sorted_e * cap + pos_in_group,
-                       n_slots)
+    place = pos_in_group if offset is None else pos_in_group + offset[sorted_e]
+    dest = torch.where(place < cap, sorted_e * slots + pos_in_group, n_slots)
     slot_token = torch.zeros(n_slots + 1, dtype=torch.int64, device=dev)
     slot_valid = torch.zeros(n_slots + 1, dtype=torch.bool, device=dev)
     slot_wsrc = torch.zeros(n_slots + 1, dtype=torch.int64, device=dev)
@@ -134,19 +186,29 @@ def _combine(yf: torch.Tensor, weights: torch.Tensor, slot_token, slot_valid,
 
 
 def moe_apply(p: dict, x: torch.Tensor, m: MoEConfig, *,
-              act: str = "silu"):
+              act: str = "silu", batch_groups: Sequence = ()):
     """x (B, S, d) -> (y (B, S, d), aux_loss). All B*S tokens are routed
-    together, at the capacity of that many tokens."""
+    together, at the capacity of that many tokens. With `batch_groups` of
+    more than one rank, x is this rank's rows of the batch the data ranks
+    hold together, and the whole batch is routed as one
+    (`_global_routing`: the reference's gspmd step)."""
     B, S, d = x.shape
     T = B * S
     xf = x.reshape(T, d)
-    cap = capacity(T, m)
-    weights, ids, aux = route(xf, p["router"], m)
-    slot_token, slot_valid, slot_wsrc = _dispatch_indices(ids, m, cap)
-    xe = _gather_slots(xf, slot_token, slot_valid).reshape(m.n_experts, cap,
-                                                           d)
+    offset = None
+    if batch_groups and cl.axis_size(batch_groups) > 1:
+        probs, weights, ids = _router(xf, p["router"], m)
+        offset, cap, slots, aux = _global_routing(probs, ids, m,
+                                                  batch_groups)
+    else:
+        cap = slots = capacity(T, m)
+        weights, ids, aux = route(xf, p["router"], m)
+    slot_token, slot_valid, slot_wsrc = _dispatch_indices(
+        ids, m, cap, offset=offset, slots=slots)
+    xe = _gather_slots(xf, slot_token, slot_valid).reshape(m.n_experts,
+                                                           slots, d)
     ye = _expert_ffn(p["w1"], p["w2"], p["w3"], xe, act)
-    y = _combine(ye.reshape(m.n_experts * cap, d), weights, slot_token,
+    y = _combine(ye.reshape(m.n_experts * slots, d), weights, slot_token,
                  slot_valid, slot_wsrc, T).reshape(B, S, d)
     if "dense" in p:
         y = y + mlp.mlp_apply(p["dense"], x, act=act)
@@ -164,22 +226,20 @@ def moe_apply(p: dict, x: torch.Tensor, m: MoEConfig, *,
 # rank's slice of the cotangent, and gradients of weights replicated over
 # the batch groups are each rank's part of a sum the caller reduces.
 
-class _WeightGather(torch.autograd.Function):
+class _Int8WeightGather(torch.autograd.Function):
     """The ZeRO weight all-gather of a shard along `axis` over `group`, in
-    rank order. int8 (the reference's `_quantized_gather`, paper C6 applied
-    to the FSDP data path): each shard travels as int8 codes and f32 scales
-    (`kops.quantize`, blocks of 512) and is dequantized part by part. The
-    backward is the exact vjp of the unquantized gather, a reduce-scatter of
-    the cotangent along `axis`: the straight-through rule for int8, without
-    which round() would zero the weights' gradients."""
+    rank order, on the int8 wire (the reference's `_quantized_gather`,
+    paper C6 applied to the FSDP data path): each shard travels as int8
+    codes and f32 scales (`kops.quantize`, blocks of 512) and is
+    dequantized part by part. The backward is the exact vjp of the
+    unquantized gather (`collectives.fsdp_gather`'s), a reduce-scatter of
+    the cotangent along `axis`: the straight-through rule, without which
+    round() would zero the weights' gradients."""
 
     @staticmethod
-    def forward(ctx, w, group, axis, int8):
+    def forward(ctx, w, group, axis):
         ctx.group, ctx.axis = group, axis
         p = dist.get_world_size(group)
-        if not int8:
-            return cl._all_gather(w.movedim(axis, 0), group).movedim(
-                0, axis).contiguous()
         q, s, meta = kops.quantize(w, block=WGATHER_BLOCK)
         qg = cl._all_gather(q, group).chunk(p)
         sg = cl._all_gather(s, group).chunk(p)
@@ -189,7 +249,7 @@ class _WeightGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct):
         g = cl._psum_scatter(ct.movedim(ctx.axis, 0), ctx.group)
-        return g.movedim(0, ctx.axis).contiguous(), None, None, None
+        return g.movedim(0, ctx.axis).contiguous(), None, None
 
 
 class _AllToAll(torch.autograd.Function):
@@ -254,9 +314,12 @@ def moe_apply_ep(p: dict, x: torch.Tensor, m: MoEConfig, *, act: str,
                          f"model ranks")
     e_local = m.n_experts // ep
     w1, w2, w3 = p["w1"], p["w2"], p["w3"]
-    int8 = wgather_wire == "int8"
-    for g in reversed(list(fsdp_groups)):
-        w1, w3, w2 = (_WeightGather.apply(w, g, axis, int8)
+    if fsdp_groups and wgather_wire == "int8":
+        for g in reversed(list(fsdp_groups)):
+            w1, w3, w2 = (_Int8WeightGather.apply(w, g, axis)
+                          for w, axis in ((w1, 1), (w3, 1), (w2, 2)))
+    elif fsdp_groups:
+        w1, w3, w2 = (cl.fsdp_gather(w, list(fsdp_groups), axis)
                       for w, axis in ((w1, 1), (w3, 1), (w2, 2)))
     b, S, d = x.shape
     T = b * S

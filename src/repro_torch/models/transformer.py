@@ -26,6 +26,13 @@ vocab- or column-split embedding, head-sharded or gathered attention,
 feature-sharded MLPs, a vocab- or row-parallel head and the vocab-parallel
 cross-entropy.
 
+Under FSDP (`forward(..., fsdp=...)`) the parameters are this rank's
+shards over the batch axes, gathered just in time: each pattern repeat's
+inside its checkpointed body, the head's once a forward and again in the
+backward (the graph keeps its shard), the embedding, the encoder's and the
+tail's blocks once a forward. With
+`moe=` the moe blocks take the expert-parallel dispatch.
+
 The serving cache has the reference's tree, `cache["blocks"]["p0_attn"]["k"]`
 with the leading `pattern_repeats` dimension (MLA: `"ckv"`, `"kpe"`; a
 cross block: `{"self": {"k", "v"}, "cross": {"k", "v"}}`; ssm: `"state"`
@@ -37,6 +44,7 @@ into the cache's tensors in place and returns them.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional
 
@@ -179,17 +187,22 @@ class Model:
 
     def _ctx(self, window_override: Optional[int] = None,
              kv_dtype: str = "native", tp_axis=None, enc_out=None,
-             kv_chunk: Optional[int] = None) -> blocks.BlockCtx:
+             kv_chunk: Optional[int] = None,
+             moe: Optional[dict] = None) -> blocks.BlockCtx:
         return blocks.BlockCtx(cfg=self.cfg, window_override=window_override,
                                enc_out=enc_out, kv_chunk=kv_chunk,
-                               kv_dtype=kv_dtype, tp_axis=tp_axis)
+                               kv_dtype=kv_dtype, tp_axis=tp_axis,
+                               **(moe or {}))
 
     def _embed(self, params: dict, batch: Batch, *, pos0: int = 0,
-               group=None, layout: Optional[dict] = None) -> torch.Tensor:
+               group=None, layout: Optional[dict] = None,
+               fsdp: Optional[dict] = None) -> torch.Tensor:
         """Token embeddings, with the projected image tokens first (VLM)
         and the learned positions from `pos0` on added."""
         cfg = self.cfg
-        h = common.embed_lookup(params["embed"], batch.tokens, group=group,
+        table = gather_tree(params["embed"],
+                            None if fsdp is None else fsdp["embed"])
+        h = common.embed_lookup(table, batch.tokens, group=group,
                                 dim=None if layout is None
                                 else layout["embed"])
         if cfg.embed_scale:
@@ -205,10 +218,12 @@ class Model:
             h = h + params["pos_emb"][start:start + S][None]
         return h
 
-    def _encode(self, params: dict, batch: Batch) -> Optional[torch.Tensor]:
+    def _encode(self, params: dict, batch: Batch,
+                fsdp: Optional[dict] = None) -> Optional[torch.Tensor]:
         """The encoder over the batch's frame embeddings (B, n_frames,
         d_input): bidirectional blocks over learned frame positions, then
-        its final norm. None for a model without an encoder."""
+        its final norm. None for a model without an encoder. Under FSDP
+        each layer's weights are gathered just before it runs."""
         cfg = self.cfg
         if cfg.encoder is None:
             return None
@@ -226,33 +241,50 @@ class Model:
             h = h @ p["in_proj"]
         h = h + p["pos"][None]
         ctx = self._ctx()
+        fs = None if fsdp is None else fsdp["encoder"]["blocks"]
         for r in range(cfg.encoder.n_layers):
-            h, _ = blocks.block_apply("enc", _slice_tree(p["blocks"], r), h,
-                                      ctx)
+            h, _ = blocks.block_apply(
+                "enc", gather_tree(_slice_tree(p["blocks"], r), fs), h, ctx)
         return blocks.norm_apply(p["ln_f"], h, cfg)
 
     def _run_blocks(self, params: dict, h: torch.Tensor,
-                    ctx: blocks.BlockCtx, layout: Optional[dict] = None):
+                    ctx: blocks.BlockCtx, layout: Optional[dict] = None,
+                    fsdp: Optional[dict] = None):
         """The pattern repeats, then the tail: (h, the moe blocks'
         auxiliary losses summed in the reference's order; None without
-        moe blocks)."""
+        moe blocks).
+
+        Under FSDP (`fsdp`: each leaf's (dimension, groups) or None) every
+        repeat gathers its slice of the stacked leaves inside the repeat's
+        body, so under remat the checkpoint gathers them again in the
+        backward and only one repeat's full weights are alive at a time; a
+        moe block on the ep dispatch leaves its expert leaves to
+        `moe_apply_ep`, which gathers them itself. The tail gathers each
+        block's leaves just before it runs."""
         cfg = self.cfg
 
-        def block_ctx(part: str, key: str) -> blocks.BlockCtx:
-            if layout is None:
-                return ctx
-            return dataclasses.replace(ctx, layout=layout[part][key])
+        def block_ctx(part: str, key: str, kind: str):
+            """(the block's context, the FSDP splits its body gathers)."""
+            c = ctx
+            if layout is not None:
+                c = dataclasses.replace(c, layout=layout[part][key])
+            fs = None if fsdp is None else fsdp[part][key]
+            if fs is not None and kind == "moe" and ctx.moe_impl == "ep":
+                fs, c = _ep_experts(fs, c)
+            return c, fs
 
         aux = None
         if cfg.pattern_repeats > 0:
             keys = [f"p{i}_{k}" for i, k in enumerate(cfg.block_pattern)]
             stacked = [params["blocks"][key] for key in keys]
-            ctxs = [block_ctx("blocks", key) for key in keys]
+            ctxs = [block_ctx("blocks", key, kind)
+                    for key, kind in zip(keys, cfg.block_pattern)]
 
             def body(hh, aa, r):
-                for kind, ps, c in zip(cfg.block_pattern, stacked, ctxs):
-                    hh, a = blocks.block_apply(kind, _slice_tree(ps, r), hh,
-                                               c)
+                for kind, ps, (c, fs) in zip(cfg.block_pattern, stacked,
+                                             ctxs):
+                    hh, a = blocks.block_apply(
+                        kind, gather_tree(_slice_tree(ps, r), fs), hh, c)
                     aa = _add_aux(aa, a)
                 return hh, aa
 
@@ -263,8 +295,9 @@ class Model:
                     h, aux = body(h, aux, r)
         for i, kind in enumerate(cfg.tail_layers):
             key = f"t{i}_{kind}"
-            h, a = blocks.block_apply(kind, params["tail"][key], h,
-                                      block_ctx("tail", key))
+            c, fs = block_ctx("tail", key, kind)
+            h, a = blocks.block_apply(kind, gather_tree(params["tail"][key],
+                                                        fs), h, c)
             aux = _add_aux(aux, a)
         return h, aux
 
@@ -279,17 +312,26 @@ class Model:
         return {-2: -1, -1: -2, None: None}[layout["embed"]]
 
     def _head(self, params: dict, h: torch.Tensor, *, group=None,
-              layout: Optional[dict] = None) -> torch.Tensor:
+              layout: Optional[dict] = None,
+              fsdp: Optional[dict] = None) -> torch.Tensor:
+        """The final norm and the projection to the vocabulary. Under FSDP
+        the head's weight is gathered for the projection and not kept for
+        the backward, which gathers it again (`_regathered`)."""
         cfg = self.cfg
         h = blocks.norm_apply(params["ln_f"], h, cfg)
-        w = params["embed"].T if cfg.tie_embeddings else params["head"]
+        key = "embed" if cfg.tie_embeddings else "head"
         dim = self._head_dim(layout)
-        if dim == -1:               # this rank's vocabulary columns
-            logits = cl.tp_replicate(h, group) @ w
-        elif dim == -2:             # row-parallel over the model dimension
-            logits = cl.tp_psum(cl.tp_split(h, group) @ w, group)
-        else:
-            logits = h @ w
+        split = None if fsdp is None else fsdp[key]
+        w = gather_tree(params[key], split)
+        with _regathered(w, params[key], split):
+            if cfg.tie_embeddings:
+                w = w.T
+            if dim == -1:           # this rank's vocabulary columns
+                logits = cl.tp_replicate(h, group) @ w
+            elif dim == -2:         # row-parallel over the model dimension
+                logits = cl.tp_psum(cl.tp_split(h, group) @ w, group)
+            else:
+                logits = h @ w
         if cfg.logit_softcap:
             c = cfg.logit_softcap
             logits = torch.tanh(logits / c) * c
@@ -297,7 +339,8 @@ class Model:
 
     def forward(self, params: dict, batch: Batch, *, tp_axis=None,
                 layout: Optional[dict] = None,
-                kv_chunk: Optional[int] = None) -> torch.Tensor:
+                kv_chunk: Optional[int] = None, fsdp: Optional[dict] = None,
+                moe: Optional[dict] = None) -> torch.Tensor:
         """Full-sequence logits (training / evaluation). `tp_axis` (a
         process group): blocks whose weights are head/feature shards run
         tensor-parallel over it; replicated blocks ignore it.
@@ -312,29 +355,43 @@ class Model:
 
         `kv_chunk`: the attention runs online-softmax over chunks of that
         many keys (`attention.chunked_sdpa`) where it would materialize
-        the scores. A VLM's logits cover the image positions too."""
+        the scores. A VLM's logits cover the image positions too.
+
+        `fsdp` (FSDP): `params` holds this rank's shards of the leaves the
+        planner splits over the batch axes, and this tree (the params'
+        structure) gives each leaf's (dimension, process groups) or None;
+        the leaves are gathered just in time (`collectives.fsdp_gather`),
+        and their gradients come back as this rank's shards, summed over
+        the groups. `moe`: the moe blocks' dispatch, `BlockCtx` fields
+        (`moe_impl`, `model_group`, `batch_groups`, `wgather_wire`)."""
         return self._forward(params, batch, tp_axis=tp_axis, layout=layout,
-                             kv_chunk=kv_chunk)[0]
+                             kv_chunk=kv_chunk, fsdp=fsdp, moe=moe)[0]
 
     def _forward(self, params: dict, batch: Batch, *, tp_axis=None,
                  layout: Optional[dict] = None,
-                 kv_chunk: Optional[int] = None):
+                 kv_chunk: Optional[int] = None, fsdp: Optional[dict] = None,
+                 moe: Optional[dict] = None):
         """(`forward`'s logits, the moe blocks' summed auxiliary loss or
         None)."""
-        ctx = self._ctx(tp_axis=tp_axis, enc_out=self._encode(params, batch),
-                        kv_chunk=kv_chunk)
-        h = self._embed(params, batch, group=tp_axis, layout=layout)
-        h, aux = self._run_blocks(params, h, ctx, layout)
-        return self._head(params, h, group=tp_axis, layout=layout), aux
+        ctx = self._ctx(tp_axis=tp_axis,
+                        enc_out=self._encode(params, batch, fsdp),
+                        kv_chunk=kv_chunk, moe=moe)
+        h = self._embed(params, batch, group=tp_axis, layout=layout,
+                        fsdp=fsdp)
+        h, aux = self._run_blocks(params, h, ctx, layout, fsdp)
+        return self._head(params, h, group=tp_axis, layout=layout,
+                          fsdp=fsdp), aux
 
     def loss(self, params: dict, batch: Batch, *, tp_axis=None,
              layout: Optional[dict] = None,
-             kv_chunk: Optional[int] = None) -> torch.Tensor:
+             kv_chunk: Optional[int] = None, fsdp: Optional[dict] = None,
+             moe: Optional[dict] = None) -> torch.Tensor:
         """Next-token cross-entropy over the text positions (a VLM's image
         positions are dropped), plus `router_aux_weight` times the MoE
         blocks' summed load-balance loss."""
         logits, aux = self._forward(params, batch, tp_axis=tp_axis,
-                                    layout=layout, kv_chunk=kv_chunk)
+                                    layout=layout, kv_chunk=kv_chunk,
+                                    fsdp=fsdp, moe=moe)
         if self.cfg.vlm_img_tokens and batch.img_embeds is not None:
             logits = logits[:, batch.img_embeds.shape[1]:]
         labels = batch.labels[:, 1:]
@@ -470,6 +527,55 @@ def _add_aux(total, a):
     if a is None:
         return total
     return a if total is None else total + a
+
+
+def gather_tree(tree, fsdp):
+    """`tree` (a dict of leaves, or one leaf) with every FSDP-split leaf
+    gathered: `fsdp` is the matching tree of (dimension, groups) or None
+    (None: nothing is split)."""
+    if fsdp is None:
+        return tree
+    if not isinstance(tree, dict):
+        return cl.fsdp_gather(tree, fsdp[1], fsdp[0])
+    return {k: gather_tree(v, fsdp[k]) for k, v in tree.items()}
+
+
+@contextlib.contextmanager
+def _regathered(w: torch.Tensor, shard: torch.Tensor, split):
+    """Inside, the autograd graph keeps this rank's `shard` in place of the
+    gathered weight `w` (or a view of it) that an op saves for its
+    backward, and the backward gathers it again: FSDP's full weight is
+    alive only while it is used. Nothing changes without a `split`."""
+    if split is None:
+        yield
+        return
+    ptr = w.untyped_storage().data_ptr()
+
+    def pack(t):
+        if t.untyped_storage().data_ptr() == ptr:
+            return (t.size(), t.stride(), t.storage_offset())
+        return t
+
+    def unpack(saved):
+        if not isinstance(saved, tuple):
+            return saved
+        with torch.no_grad():
+            full = gather_tree(shard, split)
+        return full.as_strided(*saved)
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, unpack):
+        yield
+
+
+def _ep_experts(fs: dict, ctx: blocks.BlockCtx):
+    """A moe block on the ep dispatch: its FSDP splits without the expert
+    leaves, and its context with their groups; `moe_apply_ep` gathers them
+    on d itself (the planner splits the three alike: on d, (E, d, ff)'s
+    second dimension and (E, ff, d)'s last, over the same axes)."""
+    split = fs["moe"]["w1"]
+    moe_fs = {**fs["moe"], "w1": None, "w2": None, "w3": None}
+    return ({**fs, "moe": moe_fs}, dataclasses.replace(
+        ctx, fsdp_groups=() if split is None else tuple(split[1])))
 
 
 def _slice_tree(tree: dict, r: int) -> dict:

@@ -5,7 +5,7 @@ Ports `repro/optim/optimizers.py`. One interface:
 
     opt = adamw(lr=..., ...)
     state = opt.init(params)
-    opt.update(grads, state, params, step)
+    opt.update(grads, state, params, step, norm_groups=None)
 
 `lr` is a float or a schedule step -> lr (repro_torch.optim.schedules).
 `state_dtype` keeps the moments in another dtype (bf16 for giant models);
@@ -16,13 +16,14 @@ moments) and returns the same trees. The arithmetic is the reference's, op
 by op in f32.
 
 LARS and LAMB take per-leaf norms for their trust ratios. Under model
-parallelism a rank holds shards of some leaves, and the reference's
-automatic model axis takes the norms of the whole tensors: `sharded` (a
-bool per leaf, in tree order) and `group` (the model group's process
-group) say which leaves are split and over which ranks, and their sums of
-squares are all-reduced over `group`. Without them every norm is the
-leaf's own, as under a hybrid plan, whose reference takes the norms of
-the local shards.
+parallelism or FSDP a rank holds shards of some leaves, and the
+reference's automatic axes take the norms of the whole tensors: `update`'s
+`norm_groups` (per leaf, in tree order, a list of process groups: the
+leaf's FSDP axes' groups and the model group where the leaf is split over
+it; empty: whole) says over which ranks each leaf's sums of squares are
+all-reduced. The train step passes them (`trainer.norm_groups`); the other
+optimizers ignore them. Without them every norm is the leaf's own, as
+under a hybrid plan, whose reference takes the norms of the local shards.
 """
 
 from __future__ import annotations
@@ -37,7 +38,8 @@ from repro_torch import tree as tree_lib
 
 class Optimizer(NamedTuple):
     init: Callable
-    update: Callable          # (grads, state, params, step) -> (params, state)
+    update: Callable          # (grads, state, params, step, norm_groups=None)
+    #                           -> (params, state)
     state_bytes_per_param: float
 
 
@@ -79,7 +81,8 @@ def sgd_momentum(lr, momentum: float = 0.9, weight_decay: float = 0.0,
         return {"mu": _zeros_like_tree(params, state_dtype)}
 
     @torch.no_grad()
-    def update(grads, state, params, step):
+    def update(grads, state, params, step, norm_groups=None):
+        del norm_groups
         lr_t = _lr_at(lr, step).to(_device(params))
         for g, mu, p in zip(tree_lib.leaves(grads),
                             tree_lib.leaves(state["mu"]),
@@ -104,12 +107,11 @@ def _adam_moments(g, m, v, b1, b2):
     return m_new, v_new
 
 
-def _adam_update(lr, b1, b2, eps, weight_decay, trust: bool, sharded=None,
-                 group=None):
+def _adam_update(lr, b1, b2, eps, weight_decay, trust: bool):
     """AdamW's update, and with `trust` LAMB's (the step scaled by the
-    layer's trust ratio)."""
+    layer's trust ratio, whole-tensor norms over `norm_groups`)."""
     @torch.no_grad()
-    def update(grads, state, params, step):
+    def update(grads, state, params, step, norm_groups=None):
         dev = _device(params)
         lr_t = _lr_at(lr, step).to(dev)
         t = torch.tensor(step + 1, dtype=torch.float32, device=dev)
@@ -118,7 +120,7 @@ def _adam_update(lr, b1, b2, eps, weight_decay, trust: bool, sharded=None,
                                   tree_lib.leaves(state["m"]),
                                   tree_lib.leaves(state["v"]),
                                   tree_lib.leaves(params),
-                                  _norm_groups(params, sharded, group)):
+                                  _norm_groups(params, norm_groups)):
             m_new, v_new = _adam_moments(g, m, v, b1, b2)
             upd = (m_new / c1) / (torch.sqrt(v_new / c2) + eps)
             upd = upd + weight_decay * p.to(torch.float32)
@@ -145,48 +147,49 @@ def adamw(lr, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
                      state_bytes_per_param=2 * _itemsize(state_dtype))
 
 
-def _norm_groups(params, sharded, group) -> list:
-    """Per leaf, the group its norms are summed over (None: its own)."""
+def _norm_groups(params, norm_groups) -> list:
+    """Per leaf, the groups its norms are summed over (None: its own)."""
     n = len(tree_lib.leaves(params))
-    if sharded is None:
+    if norm_groups is None:
         return [None] * n
-    if len(sharded) != n:
-        raise ValueError(f"{len(sharded)} sharded flags for {n} leaves")
-    return [group if s else None for s in sharded]
+    if len(norm_groups) != n:
+        raise ValueError(f"{len(norm_groups)} norm groups for {n} leaves")
+    return [list(s) or None for s in norm_groups]
 
 
 def _trust_ratio(p, upd, eps: float = 1e-9, group=None) -> torch.Tensor:
     """||p|| / (||upd|| + eps) where both norms are positive, else 1. With
-    `group`, p and upd are shards and the norms are of the whole tensors:
-    the sums of squares all-reduced over the group."""
+    `group` (a list of process groups), p and upd are shards and the norms
+    are of the whole tensors: the sums of squares all-reduced over each."""
     if group is None:
         wn = torch.linalg.vector_norm(p.to(torch.float32).reshape(-1))
         un = torch.linalg.vector_norm(upd.reshape(-1))
     else:
         sq = torch.stack([torch.sum(torch.square(p.to(torch.float32))),
                           torch.sum(torch.square(upd))])
-        dist.all_reduce(sq, op=dist.ReduceOp.SUM, group=group)
+        for g in group:
+            dist.all_reduce(sq, op=dist.ReduceOp.SUM, group=g)
         wn, un = torch.sqrt(sq)
     return torch.where((wn > 0) & (un > 0), wn / (un + eps),
                        torch.ones((), dtype=torch.float32, device=wn.device))
 
 
 def lars(lr, momentum: float = 0.9, weight_decay: float = 1e-4,
-         trust_coeff: float = 0.001, state_dtype=torch.float32,
-         sharded=None, group=None) -> Optimizer:
+         trust_coeff: float = 0.001,
+         state_dtype=torch.float32) -> Optimizer:
     """Layerwise Adaptive Rate Scaling (You et al.) for large-batch SGD.
-    `sharded`/`group`: whole-tensor norms of split leaves (module
+    `update`'s `norm_groups`: whole-tensor norms of split leaves (module
     docstring)."""
     def init(params):
         return {"mu": _zeros_like_tree(params, state_dtype)}
 
     @torch.no_grad()
-    def update(grads, state, params, step):
+    def update(grads, state, params, step, norm_groups=None):
         lr_t = _lr_at(lr, step).to(_device(params))
         for g, mu, p, ng in zip(tree_lib.leaves(grads),
                                 tree_lib.leaves(state["mu"]),
                                 tree_lib.leaves(params),
-                                _norm_groups(params, sharded, group)):
+                                _norm_groups(params, norm_groups)):
             g = g.to(torch.float32) + weight_decay * p.to(torch.float32)
             local = trust_coeff * _trust_ratio(p, g, group=ng)
             mu_new = momentum * mu.to(torch.float32) + local * lr_t * g
@@ -199,14 +202,13 @@ def lars(lr, momentum: float = 0.9, weight_decay: float = 1e-4,
 
 
 def lamb(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-6,
-         weight_decay: float = 0.01, state_dtype=torch.float32,
-         sharded=None, group=None) -> Optimizer:
+         weight_decay: float = 0.01,
+         state_dtype=torch.float32) -> Optimizer:
     """LAMB (You et al.): layerwise-adaptive AdamW for large-batch
-    training. `sharded`/`group`: whole-tensor norms of split leaves (module
-    docstring)."""
+    training. `update`'s `norm_groups`: whole-tensor norms of split leaves
+    (module docstring)."""
     return Optimizer(_adam_init(state_dtype),
-                     _adam_update(lr, b1, b2, eps, weight_decay, True,
-                                  sharded, group),
+                     _adam_update(lr, b1, b2, eps, weight_decay, True),
                      state_bytes_per_param=2 * _itemsize(state_dtype))
 
 
@@ -215,9 +217,6 @@ def _device(params) -> torch.device:
 
 
 OPTIMIZERS = {"sgd": sgd_momentum, "adamw": adamw, "lars": lars, "lamb": lamb}
-# the optimizers whose update takes per-leaf norms
-LAYERWISE = ("lars", "lamb")
-
 
 def make_optimizer(name: str, lr, *, state_dtype=torch.float32,
                    **kw) -> Optimizer:

@@ -46,16 +46,26 @@ over the model group. gspmd all-reduces each leaf's local shard over the
 data axes; mlsl keeps the reference's bucket plan on the global shapes
 (only the replicated leaves fuse) and reduces each rank's shards over the
 data axes. The clip adds the sharded leaves' sum of squares over the
-model group, and LARS and LAMB take norms of the whole tensors
-(`optimizers` with `sharded`/`group`, which `launch.train.train` passes),
-as the reference's automatic model axis does.
+model group, and LARS and LAMB take norms of the whole tensors (the step
+passes `norm_groups` to the optimizer's update), as the reference's
+automatic model axis does.
+
+FSDP (`Planner(fsdp=True)`, gspmd only, as in the reference): parameters
+and optimizer state are each rank's shards over the batch axes
+(`convert.shard_params`, from `make_train_state`/`train_state_from_params`
+with the planner); the model gathers each repeat's weights just in time
+(`collectives.fsdp_gather`, inside the repeat's checkpoint), and their
+gradients come back reduce-scattered, summed over the data ranks, which the
+step divides by the data-parallel size. Replicated leaves keep the per-leaf
+all-reduce in priority order. The clip and LARS/LAMB's norms add the
+split leaves' sums of squares over their groups. FSDP composes with a
+model axis (both splits on one leaf); mlsl (and so hybrid) refuses it.
 
 MoE models train on the gather dispatch (`models.moe.moe_apply`), as the
-reference's CLIs do; their loss carries the routers' load-balance term.
-
-FSDP is not ported; asking for it raises. The expert-parallel MoE
-dispatch (`models.moe.moe_apply_ep`) is a function the step does not call:
-it needs FSDP and a model axis inside the mlsl step.
+reference's CLIs do, or with `CommConfig(moe_impl="ep")` on the
+expert-parallel one (`models.moe.moe_apply_ep`) over the model group,
+which under FSDP gathers the expert weights itself (int8 with
+`wgather_wire="int8"`); their loss carries the routers' load-balance term.
 """
 
 from __future__ import annotations
@@ -67,6 +77,7 @@ from typing import Any
 import torch
 import torch.distributed as dist
 
+from repro_torch import convert
 from repro_torch import tree as tree_lib
 from repro_torch.core import collectives as cl
 from repro_torch.core import scheduler
@@ -88,13 +99,24 @@ class TrainState:
 
 
 def make_train_state(model: Model, optimizer: opt_lib.Optimizer,
-                     generator: torch.Generator, device) -> TrainState:
-    """Fresh state with random parameters drawn from `generator`."""
-    return train_state_from_params(model.init(generator, device), optimizer)
+                     generator: torch.Generator, device, *,
+                     planner: Planner | None = None) -> TrainState:
+    """Fresh state with random parameters drawn from `generator` (the full
+    tensors, then with `planner` this rank's shards)."""
+    return train_state_from_params(model.init(generator, device), optimizer,
+                                   model=model, planner=planner)
 
 
-def train_state_from_params(params, optimizer: opt_lib.Optimizer) -> TrainState:
-    """State around existing parameters (e.g. converted from the reference)."""
+def train_state_from_params(params, optimizer: opt_lib.Optimizer, *,
+                            model: Model | None = None,
+                            planner: Planner | None = None) -> TrainState:
+    """State around existing parameters (e.g. converted from the
+    reference). With `planner` (and `model`) the full parameters are cut
+    into this rank's shards where its step holds shards (`sharded_state`),
+    and the optimizer state is made for the shards."""
+    if planner is not None and sharded_state(planner):
+        params = convert.shard_params(params, param_specs(model, planner),
+                                      planner.mesh)
     return TrainState(params=params, opt_state=optimizer.init(params), step=0)
 
 
@@ -116,6 +138,45 @@ def model_parallel(planner: Planner) -> bool:
     rank outside a hybrid plan (the reference's `Planner(mesh)` with its
     model axis on every matrix)?"""
     return planner.hybrid is None and planner.model_size > 1
+
+
+def sharded_state(planner: Planner) -> bool:
+    """Does the step under `planner` hold shards of the parameters (FSDP,
+    a hybrid plan or model parallelism)?"""
+    return planner.fsdp or planner.hybrid is not None or model_parallel(
+        planner)
+
+
+def fsdp_splits(model: Model, planner: Planner, mesh):
+    """The model's FSDP tree for `Model.loss(fsdp=)`: per leaf, (its split
+    dimension from the end, the process groups of its batch axes), or
+    None where the planner leaves it whole over the batch axes."""
+    dims = planner.fsdp_dims(model.param_defs(),
+                             stacked_paths=Model.stacked_path)
+    return tree_lib.tree_map(
+        lambda s: None if s is None else (s[0], [mesh.get_group(a)
+                                                 for a in s[1]]), dims)
+
+
+def norm_groups(model: Model, planner: Planner, mesh, *,
+                mp: bool | None = None) -> list:
+    """Per parameter leaf, in tree order, the process groups over which its
+    shards' sums of squares add up to the whole tensor's: its FSDP axes'
+    groups, and the model group where model parallelism (`mp`, default
+    `model_parallel(planner)`) splits it too. What the step's clip sums
+    over and the optimizer's update takes as `norm_groups`."""
+    if mp is None:
+        mp = model_parallel(planner)
+    model_split = (sharded_flags(model, planner, planner.model_axis)
+                   if mp else None)
+    out = []
+    for i, s in enumerate(tree_lib.leaves(fsdp_splits(model, planner,
+                                                      mesh))):
+        groups = [] if s is None else list(s[1])
+        if model_split is not None and model_split[i]:
+            groups.append(mesh.get_group(planner.model_axis))
+        out.append(groups)
+    return out
 
 
 def _local_struct(grad_struct, specs, axis: str, size: int):
@@ -217,17 +278,21 @@ def make_train_step(model: Model, optimizer: opt_lib.Optimizer, mesh,
                          "force_model_parallel does not apply")
     if hybrid is not None:
         model.check_tensor_parallel("hybrid execution")
+    if planner.fsdp and comm.mode == "mlsl":
+        raise ValueError("comm=mlsl manages gradient communication "
+                         "explicitly and requires replicated (non-FSDP) "
+                         "parameters over the batch axes; use gspmd for "
+                         "ZeRO-sharded giants")
     if device is None:
         device = torch.device(mesh.device_type)
     data_axes = planner.batch_axes
     groups = [mesh.get_group(a) for a in data_axes]
     dp = math.prod(mesh_shape(mesh)[a] for a in data_axes)
     rank = _data_rank(mesh, data_axes)
+    fsdp = fsdp_splits(model, planner, mesh) if planner.fsdp else None
+    moe = _moe_options(comm, planner, mesh, groups)
     engine = None
     if comm.mode == "mlsl":
-        if planner.fsdp:
-            raise ValueError("comm=mlsl needs replicated (non-FSDP) "
-                             "parameters over the batch axes")
         engine = make_comm_engine(model, mesh, planner, comm, device=device)
     # under a hybrid plan the engine hands out the tp axis's communicator;
     # blocks detect model-sharded weights by their shard shapes and place
@@ -237,12 +302,9 @@ def make_train_step(model: Model, optimizer: opt_lib.Optimizer, mesh,
     tp_group = None if tp is None else tp.group
     # model parallelism: every block, the embedding and the head place
     # their collectives over the model group by the planner's layout
-    layout = shard_axis = None
-    if hybrid is not None:
-        shard_axis = hybrid.tp_axis
-    elif mp:
-        shard_axis = planner.model_axis
-        tp_group = mesh.get_group(shard_axis)
+    layout = None
+    if mp:
+        tp_group = mesh.get_group(planner.model_axis)
         layout = model.mp_layout(planner)
 
     def value_and_grad(params, batch: Batch):
@@ -251,7 +313,8 @@ def make_train_step(model: Model, optimizer: opt_lib.Optimizer, mesh,
             for p in leaves:
                 p.requires_grad_(True)
             loss = model.loss(params, batch, tp_axis=tp_group, layout=layout,
-                              kv_chunk=comm.kv_chunk or None)
+                              kv_chunk=comm.kv_chunk or None, fsdp=fsdp,
+                              moe=moe)
             grads = torch.autograd.grad(loss, leaves)
             for p in leaves:
                 p.requires_grad_(False)
@@ -262,39 +325,32 @@ def make_train_step(model: Model, optimizer: opt_lib.Optimizer, mesh,
         return tree_lib.tree_map(lambda x: x.to(torch.float32), tree)
 
     def grads_fn(params, batch: Batch):
-        """(loss, unreduced grads) over comm.accum_steps microbatches: the
+        """(loss, unreduced grads) of this rank's rows of the global
+        `batch` over comm.accum_steps microbatches, each a slice of the
+        global batch as in the reference (a moe layer routes it whole): the
         sum in f32, divided by the count and cast to the parameter dtype."""
         n = comm.accum_steps
         if n <= 1:
-            return value_and_grad(params, batch)
+            return value_and_grad(params, _rows(batch, rank, dp))
         lsum = gsum = None
         for k in range(n):
-            loss, g = value_and_grad(params, _rows(batch, k, n))
+            loss, g = value_and_grad(params,
+                                     _rows(_rows(batch, k, n), rank, dp))
             lsum = loss if lsum is None else lsum + loss
             gsum = (_to_f32(g) if gsum is None else tree_lib.tree_map(
                 lambda a, b: a + b.to(torch.float32), gsum, g))
         return lsum / n, tree_lib.tree_map(
             lambda g, p: (g / n).to(p.dtype), gsum, params)
 
-    if shard_axis is None:
-        clip_grads = opt_lib.clip_by_global_norm
+    if hybrid is not None:
+        # the clip adds the tp-sharded leaves' squares over the tp group;
+        # LARS and LAMB take the local shards' norms, as the reference's
+        clip_groups = [[tp_group] if f else [] for f in
+                       sharded_flags(model, planner, hybrid.tp_axis)]
+        opt_groups = None
     else:
-        flags = sharded_flags(model, planner, shard_axis)
-
-        def clip_grads(grads, max_norm):
-            """clip_by_global_norm with the model-sharded leaves' sum of
-            squares all-reduced over the tp group (each rank holds a
-            distinct shard; replicated leaves are counted once). The norm
-            comes out the same on every rank of the group, so replicated
-            parameters keep taking identical updates."""
-            z = torch.zeros((), dtype=torch.float32, device=device)
-            sq = [(torch.sum(g.to(torch.float32) ** 2), sh) for g, sh
-                  in zip(tree_lib.leaves(grads), flags)]
-            sq_sh = sum((v for v, sh in sq if sh), z)
-            sq_rep = sum((v for v, sh in sq if not sh), z)
-            gn = torch.sqrt(sq_rep + cl.allreduce(sq_sh, [tp_group]))
-            return opt_lib.clip_by_global_norm(grads, max_norm,
-                                               global_norm=gn)
+        clip_groups = opt_groups = norm_groups(model, planner, mesh, mp=mp)
+    clip_grads = _clip_over(clip_groups)
 
     def finish(state: TrainState, loss, grads, residuals):
         """Clip, pmean the loss over the data axes, update."""
@@ -304,7 +360,8 @@ def make_train_step(model: Model, optimizer: opt_lib.Optimizer, mesh,
             dist.all_reduce(loss, op=dist.ReduceOp.SUM, group=g)
         loss = loss / dp
         params, opt_state = optimizer.update(grads, state.opt_state,
-                                             state.params, state.step)
+                                             state.params, state.step,
+                                             norm_groups=opt_groups)
         new = TrainState(params=params, opt_state=opt_state,
                          step=state.step + 1, comm_residuals=residuals)
         return new, {"loss": loss, "grad_norm": gnorm}
@@ -314,16 +371,29 @@ def make_train_step(model: Model, optimizer: opt_lib.Optimizer, mesh,
                                       scheduler.default_layer_index,
                                       bucket_bytes=comm.bucket_bytes)
 
-        def reduce_leaf(g, _bucket):
-            return cl.allreduce(g, groups, mean=True)
+        # each leaf summed over the batch axes it is not split over (FSDP's
+        # split leaves arrive reduce-scattered over theirs), then the mean;
+        # leaf by leaf in priority order, as the reference's partitioner-
+        # inserted reductions are
+        sum_over = [[mesh.get_group(a) for a in data_axes
+                     if s is None or a not in s[1]]
+                    for s in tree_lib.leaves(planner.fsdp_dims(
+                        model.param_defs(), stacked_paths=Model.stacked_path))]
+
+        def reduce_grads(grads):
+            leaves = tree_lib.leaves(grads)
+            out = list(leaves)
+            for bucket in plan.buckets:
+                for lid in bucket.leaf_ids:
+                    g = leaves[lid]
+                    if sum_over[lid]:
+                        g = cl._psum(g, sum_over[lid])
+                    out[lid] = cl._div(g, dp)
+            return tree_lib.unflatten(list(plan.paths), out)
 
         def gspmd_step(state: TrainState, batch: Batch):
-            loss, grads = grads_fn(state.params, _rows(batch, rank, dp))
-            # leaf by leaf (fuse=False), as the reference's partitioner-
-            # inserted reductions are
-            grads = scheduler.reduce_with_priority(
-                grads, reduce_leaf, plan, prioritize=comm.prioritize,
-                fuse=False)
+            loss, grads = grads_fn(state.params, batch)
+            grads = reduce_grads(grads)
             return finish(state, loss, grads, state.comm_residuals)
         return gspmd_step
 
@@ -370,6 +440,51 @@ def make_train_step(model: Model, optimizer: opt_lib.Optimizer, mesh,
         return finish(state, loss, grads, residuals)
 
     return train_step
+
+
+def _clip_over(leaf_groups: list):
+    """`clip_by_global_norm` whose norm is the whole tensors': each split
+    leaf's sum of squares all-reduced over its groups (one call per set of
+    groups), then all summed in tree order, so a replicated leaf counts
+    once and the norm is the same on every rank. The plain clip where no
+    leaf is split."""
+    by_groups: dict = {}
+    for i, gs in enumerate(leaf_groups):
+        if gs:
+            by_groups.setdefault(tuple(gs), []).append(i)
+    if not by_groups:
+        return opt_lib.clip_by_global_norm
+
+    def clip_grads(grads, max_norm):
+        sq = [torch.sum(g.to(torch.float32) ** 2)
+              for g in tree_lib.leaves(grads)]
+        for gs, ids in by_groups.items():
+            total = cl.allreduce(torch.stack([sq[i] for i in ids]), list(gs))
+            for i, v in zip(ids, total.unbind(0)):
+                sq[i] = v
+        return opt_lib.clip_by_global_norm(grads, max_norm,
+                                           global_norm=torch.sqrt(sum(sq)))
+    return clip_grads
+
+
+def _moe_options(comm: CommConfig, planner: Planner, mesh, groups):
+    """The moe blocks' dispatch options for `Model.loss(moe=)`. On the
+    gather dispatch the gspmd step routes the whole batch over the data
+    ranks (the reference's gspmd step routes the global batch), the mlsl
+    step each rank's rows (as its shard_map does): None there."""
+    if comm.moe_impl not in ("gather", "ep"):
+        raise ValueError(f"unknown moe_impl {comm.moe_impl!r}")
+    if comm.wgather_wire not in ("bf16", "int8"):
+        raise ValueError(f"unknown wgather_wire {comm.wgather_wire!r}")
+    if comm.moe_impl == "gather":
+        return dict(batch_groups=tuple(groups)) if comm.mode == "gspmd" \
+            else None
+    if planner.dp_only or planner.model_axis not in mesh_shape(mesh):
+        raise ValueError("moe_impl='ep' runs the experts over the mesh's "
+                         f"{planner.model_axis!r} axis, which this planner "
+                         "does not have")
+    return dict(moe_impl="ep", model_group=mesh.get_group(planner.model_axis),
+                batch_groups=tuple(groups), wgather_wire=comm.wgather_wire)
 
 
 def _rows(batch: Batch, k: int, n: int) -> Batch:

@@ -33,6 +33,7 @@ from repro_torch.core import planner as pl
 from repro_torch.core import scheduler
 from repro_torch.launch import mesh as tmesh
 from repro_torch.models.transformer import Model as TModel
+from repro_torch.optim import optimizers as topt
 from repro_torch.train import trainer as ttr
 
 COMM = dict(mode="mlsl", wire="int8", error_feedback=True)
@@ -121,8 +122,12 @@ def test_planner_specs_and_errors(meshes):
                             stacked=True) == (None, "model", None)
     assert pl.Planner(mesh=tm, dp_only=True).spec_for(mat) == (None, None)
     assert planner.spec_for(pl.ParamDef((8,), pl.K_NORM)) == (None,)
-    with pytest.raises(ValueError, match="fsdp"):
-        pl.Planner(mesh=tm, fsdp=True)
+    fsdp = pl.Planner(mesh=tm, fsdp=True)   # the gspmd step runs FSDP
+    assert fsdp.spec_for(mat) == ("data", "model")
+    with pytest.raises(ValueError, match="non-FSDP"):
+        ttr.make_train_step(TModel(treg.get_smoke_config("yi-6b")),
+                            topt.adamw(1e-3), tm, fsdp,
+                            ttr.CommConfig(mode="mlsl"))
     hm = tmesh.make_hier_mesh(1, 1, device="cpu")
     hplan = ttr.make_comm_engine(TModel(treg.get_smoke_config("yi-6b")), hm,
                                  pl.Planner(mesh=hm),

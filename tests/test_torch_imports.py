@@ -26,6 +26,7 @@ def test_every_module_imports_without_jax():
     mods = _modules()
     assert "repro_torch.kernels.quant8" in mods
     assert "repro_torch.train.trainer" in mods
+    assert "repro_torch.core.api" in mods
     code = ("import sys, importlib\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"

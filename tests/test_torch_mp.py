@@ -9,7 +9,12 @@ torch only). It runs each new operator at model sizes 2 and 4 (forward and
 backward), the expert-parallel MoE layer (`moe_apply_ep`) on (data 2, model
 4), the engine's leafwise-bucket and replay checks at (4, 2), then 3
 steps (SGD at 0.1, LARS or LAMB; data seed 3, batch 8, seq 16) of every
-case of CASES from converted weights.
+case of CASES from converted weights, and 3 gspmd steps of every case of
+FSDP_CASES through `Session.make_train_step` (`Planner(fsdp=True)`, AdamW
+or LAMB at 1e-3, batch 16: yi-6b
+on (8, 1), (4, 2) and ("node", "local") = (2, 4), grok-1 on (8, 1) on the
+gather, ep and ep-int8 dispatches) against the JAX trainer with the same
+planner (tolerances in `test_fsdp_matches_jax_trainer`).
 
 Tolerances: the operators against their dense JAX forms on one device,
 atol 1e-5 (f32; the sums are split over ranks). Against the JAX trainer:
@@ -63,7 +68,9 @@ from repro_torch.train import trainer as ttr
 
 import torch_spawn
 from torch_mp_ranks import (BATCH, CASES, DATA_SEED, EP_AUX_WEIGHT,
-                            EP_CASES, EP_D, EP_DENSE, EP_E, EP_FF, LR, MESHES,
+                            EP_CASES, EP_D, EP_DENSE, EP_E, EP_FF,
+                            FSDP_BATCH, FSDP_CASES, FSDP_LR, FSDP_MESHES, LR,
+                            MESHES,
                             OPS_ATTN, OPS_SIZES, RESUME_FROM, SEQ, STEPS,
                             ep_config)
 
@@ -73,22 +80,25 @@ LOSSY = ("int8_ef_4x2", "bf16_4x2")
 EXACT = [n for n in CASES if n not in LOSSY]
 
 
+ARCH = {"chatglm3": "chatglm3-6b", "grok": "grok-1-314b"}
+
+
 def _jcfg(name):
-    if name == "chatglm3":
-        return jreg.get_smoke_config("chatglm3-6b")
+    if name in ARCH:
+        return jreg.get_smoke_config(ARCH[name])
     cfg = jreg.get_smoke_config("yi-6b")
     return dataclasses.replace(cfg, vocab=510) if name == "odd_vocab" else cfg
 
 
 def _tcfg(name):
-    if name == "chatglm3":
-        return treg.get_smoke_config("chatglm3-6b")
+    if name in ARCH:
+        return treg.get_smoke_config(ARCH[name])
     cfg = treg.get_smoke_config("yi-6b")
     return dataclasses.replace(cfg, vocab=510) if name == "odd_vocab" else cfg
 
 
-def _jmesh(name):
-    kind, *sizes = MESHES[name]
+def _jmesh(name, meshes=MESHES):
+    kind, *sizes = meshes[name]
     return (jmesh.make_hier_mesh(*sizes) if kind == "hier"
             else jmesh.make_host_mesh(*sizes))
 
@@ -148,7 +158,7 @@ def inputs(tmp_path_factory):
     np.savez(path / "ops.npz", **ops)
     np.savez(path / "ep.npz", **_ep_inputs())
     params = {}
-    for name in {c for c, *_ in CASES.values()}:
+    for name in {c for c, *_ in (*CASES.values(), *FSDP_CASES.values())}:
         params[name] = jax.tree_util.tree_map(
             np.asarray, JModel(_jcfg(name)).init(jax.random.PRNGKey(0)))
         jckpt.save(str(path / name), {"params": params[name]}, step=0)
@@ -177,7 +187,7 @@ def port(inputs, tmp_path_factory):
            "ep": {name: [dict(np.load(out / "ep" / name / f"rank{r}.npz"))
                          for r in range(WORLD)]
                   for name in EP_CASES}}
-    for name, (cfg_name, *_) in CASES.items():
+    for name, (cfg_name, *_) in (*CASES.items(), *FSDP_CASES.items()):
         recs = [json.loads((out / name / f"rank{r}.json").read_text())
                 for r in range(WORLD)]
         assert jckpt.latest_step(str(out / name / "ckpt")) == STEPS
@@ -722,3 +732,163 @@ def test_cli_model_parallel_on_the_hier_mesh(tmp_path):
                                "--model-parallel", "2", "--comm", "mlsl",
                                "--wire", "int8", "--error-feedback"])
     assert any("mesh={'node': 2, 'local': 2, 'model': 2}" in l for l in out)
+
+
+# ---------------------------------------------------------------------------
+# FSDP on gspmd against the JAX trainer with Planner(fsdp=True)
+# ---------------------------------------------------------------------------
+
+YI_FSDP = [n for n in FSDP_CASES if FSDP_CASES[n][0] == "smoke"]
+GROK_FSDP = [n for n in FSDP_CASES if FSDP_CASES[n][0] == "grok"]
+# the MoE cases: the most tokens of a moe layer's 256 whose top-k experts
+# may differ from the reference's at a later step
+FSDP_FLIP_MAX = 32
+
+
+def _jax_route_ids(jm, params, batch) -> list:
+    """The reference's top-k expert ids of every moe layer, in the
+    forward's order, on `batch` from `params`: [layer][token] of k ids in
+    ascending order."""
+    ids, route = [], jmoe.route
+
+    def spy(*args, **kw):
+        out = route(*args, **kw)
+        ids.append(np.sort(np.asarray(out[1]), axis=-1).tolist())
+        return out
+
+    jmoe.route = spy
+    try:
+        jm.loss(params, batch, unroll=True)
+    finally:
+        jmoe.route = route
+    return ids
+
+
+@pytest.fixture(scope="module")
+def fsdp_ref(inputs):
+    """The JAX trainer with Planner(mesh, fsdp=True) per case of
+    FSDP_CASES: (losses, gradient norms), final parameters, and for the MoE
+    cases each step's route ids from the parameters the step starts from."""
+    _, _, params = inputs
+    out = {}
+    for name, (cfg_name, mesh_name, kw, optimizer) in FSDP_CASES.items():
+        mesh = _jmesh(mesh_name, FSDP_MESHES)
+        cfg = _jcfg(cfg_name)
+        model = JModel(cfg)
+        opt = jopt.make_optimizer(optimizer, FSDP_LR)
+        planner = jpl.Planner(mesh=mesh, fsdp=True)
+        dcfg = jpipe.DataConfig(vocab=cfg.vocab, seq_len=SEQ,
+                                global_batch=FSDP_BATCH, seed=DATA_SEED)
+        metrics, ids = [], []
+        with compat.set_mesh(mesh):
+            p = jax.tree_util.tree_map(jnp.asarray, params[cfg_name])
+            state = jtr.TrainState(params=p, opt_state=opt.init(p),
+                                   step=jnp.zeros((), jnp.int32))
+            step = jax.jit(jtr.make_train_step(model, opt, mesh, planner,
+                                               jtr.CommConfig(**kw)))
+            for raw in jpipe.iterate(dcfg, STEPS):
+                b = JBatch(tokens=jnp.asarray(raw["tokens"]),
+                           labels=jnp.asarray(raw["labels"]))
+                if cfg.moe is not None:
+                    ids.append(_jax_route_ids(model, state.params, b))
+                state, m = step(state, b)
+                metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        out[name] = (metrics, jax.tree_util.tree_map(np.asarray,
+                                                     state.params), ids)
+    return out
+
+
+def _flips(got, want) -> list:
+    """Per step and moe layer, the tokens whose set of top-k experts
+    differs between two route-id records."""
+    return [[int(np.any(np.asarray(g) != np.asarray(w), axis=-1).sum())
+             for g, w in zip(gs, ws)] for gs, ws in zip(got, want)]
+
+
+def _adam_family_params(final, want_params, max_abs=5e-4):
+    """The parameters of an AdamW or LAMB run against the reference's:
+    their step divides each gradient element by its own scale, so a
+    near-zero element whose sign the reduction order flips moves by up to
+    two steps of the learning rate (here 1 to 6 of a leaf's elements, by
+    up to 1.4e-4 on yi-6b). At most 1e-4 of a leaf's elements may exceed
+    1e-4 (the rule of test_gathered_params_match_jax_trainer for LAMB),
+    none `max_abs`."""
+    for a, b in zip(jax.tree_util.tree_leaves(final),
+                    jax.tree_util.tree_leaves(want_params)):
+        diff = np.abs(np.asarray(a) - b)
+        assert (diff > 1e-4).mean() <= 1e-4 and diff.max() <= max_abs, (
+            int((diff > 1e-4).sum()), float(diff.max()))
+
+
+@pytest.mark.parametrize("name", list(FSDP_CASES))
+def test_fsdp_matches_jax_trainer(port, fsdp_ref, name):
+    """yi-6b on (8, 1), (4, 2) (FSDP over "data" beside the model axis)
+    and ("node", "local") = (2, 4) (FSDP over both axes), AdamW with 2
+    microbatches and LAMB: the loss and gradient norm replicated on every
+    rank, losses rtol 1e-4, gradient norms atol 1e-4 (both agree within
+    1e-6 relative), the parameters gathered over every axis by
+    `_adam_family_params`.
+
+    grok-1 on (8, 1), one step a microbatch: the top-k expert sets of
+    every moe layer, from the parameters each step starts from, equal the
+    reference's. On the gather dispatch both route the global batch of 256
+    tokens as one (one capacity, one load-balance term; the port's ranks
+    from their counts per expert), on the ep dispatch each rank's 32
+    tokens. There, and with the bf16 weight gather, losses and gradient
+    norms are held as yi-6b's (both read within 5e-7 relative) and the
+    parameters by `_adam_family_params`, the gather dispatch's with no
+    element beyond two steps of the learning rate (2 of the embedding's
+    elements read up to 1.1e-3). With the int8 weight gather a code that
+    the shards' last bits move moves a weight by a step of the quantizer
+    (step 2's loss 3.0e-4 apart): routes may move in at most
+    FSDP_FLIP_MAX of a layer's 256 tokens after step 0, losses rtol 2e-3,
+    gradient norms rtol 2e-2, and the parameters are not held."""
+    recs, final = port[name]
+    _replicated(recs)
+    metrics, want_params, want_ids = fsdp_ref[name]
+    got = np.array([recs[0]["loss"], recs[0]["grad_norm"]]).T
+    want = np.array(metrics)
+    cfg_name, _, kw, _ = FSDP_CASES[name]
+    if cfg_name == "grok":
+        flips = _flips(recs[0]["route_ids"], want_ids)
+        assert not any(flips[0]) and max(map(max, flips)) <= FSDP_FLIP_MAX, \
+            flips
+        if kw.get("wgather_wire") == "int8":
+            np.testing.assert_allclose(got[:, 0], want[:, 0], rtol=2e-3)
+            np.testing.assert_allclose(got[:, 1], want[:, 1], rtol=2e-2)
+            return
+        assert not any(map(any, flips)), flips
+    np.testing.assert_allclose(got[:, 0], want[:, 0], rtol=1e-4)
+    np.testing.assert_allclose(got[:, 1], want[:, 1], rtol=0, atol=1e-4)
+    gather = cfg_name == "grok" and kw.get("moe_impl", "gather") == "gather"
+    _adam_family_params(final, want_params,
+                        max_abs=2 * FSDP_LR if gather else 5e-4)
+
+
+@pytest.mark.parametrize("name", list(FSDP_CASES))
+def test_fsdp_ranks_hold_their_shards_and_restore_them_bitwise(port, name):
+    """Each rank's parameters are the planner's shards (the batch axes'
+    split and, at (4, 2), the model axis's); the parameters and the AdamW
+    or LAMB state gathered into one checkpoint restore every rank's shards
+    bit for bit."""
+    recs, final = port[name]
+    cfg_name, mesh_name, _, _ = FSDP_CASES[name]
+    kind, *sizes = FSDP_MESHES[mesh_name]
+    axes = dict(zip(("node", "local") if kind == "hier" else
+                    ("data", "model"), sizes))
+    model = TModel(_tcfg(cfg_name))
+    specs = tpl.Planner(mesh=axes, fsdp=True).tree_specs(
+        model.param_defs(), stacked_paths=TModel.stacked_path)
+    want, n_split = [], 0
+    for (_, spec), a in zip(tree_lib.leaves_with_paths(specs),
+                            jax.tree_util.tree_leaves(final)):
+        shape = list(np.shape(a))
+        for d, entry in enumerate(spec):
+            for ax in (entry if isinstance(entry, tuple) else (entry,)):
+                shape[d] //= axes.get(ax, 1)
+        want.append(shape)
+        n_split += shape != list(np.shape(a))
+    assert n_split >= 9
+    for r in recs:
+        assert r["restores_bitwise"]
+        assert r["local_shapes"] == want

@@ -12,10 +12,12 @@ gradients at model size M), OUT_DIR/ep/<case>/rank<RANK>.npz (the
 expert-parallel MoE layer's output, aux and gradients on (data 2, model 4)),
 OUT_DIR/engine/rank<RANK>.json (the leafwise-bucket and replay checks) and,
 per case of
-CASES, OUT_DIR/<case>/rank<RANK>.json (losses, gradient norms, local
-shapes, whether the final checkpoint restores this rank's shards bit for
-bit) and, from rank 0, the final parameters gathered over the model group
-as a checkpoint in OUT_DIR/<case>/ckpt.
+CASES and FSDP_CASES, OUT_DIR/<case>/rank<RANK>.json (losses, gradient
+norms, local shapes, whether the final checkpoint restores this rank's
+shards bit for bit; for the MoE cases each step's top-k expert ids from
+rank 0) and, from rank 0, the final parameters gathered over the model
+group (FSDP: and the batch axes, with the optimizer state) as a checkpoint
+in OUT_DIR/<case>/ckpt.
 """
 
 import dataclasses
@@ -31,6 +33,7 @@ from repro_torch import convert, tree as tree_lib
 from repro_torch.checkpoint import ckpt
 from repro_torch.configs import registry
 from repro_torch.configs.base import AttnConfig, MoEConfig
+from repro_torch.core.api import Session
 from repro_torch.core import collectives as cl
 from repro_torch.core import planner as pl
 from repro_torch.data import pipeline
@@ -73,6 +76,10 @@ def smoke_config():
     return registry.get_smoke_config("yi-6b")
 
 
+def grok_config():
+    return registry.get_smoke_config("grok-1-314b")
+
+
 def odd_vocab_config():
     """A vocabulary of 510 does not split over 4 ranks: the embedding is
     split by the model dimension and the head is row-parallel."""
@@ -85,7 +92,7 @@ def chatglm3_config():
 
 
 CONFIGS = {"smoke": smoke_config, "odd_vocab": odd_vocab_config,
-           "chatglm3": chatglm3_config}
+           "chatglm3": chatglm3_config, "grok": grok_config}
 # mesh name -> ("host", data, model) | ("hier", node, local, model)
 MESHES = {"4x2": ("host", 4, 2), "2x4": ("host", 2, 4), "1x8": ("host", 1, 8),
           "2x2x2": ("hier", 2, 2, 2)}
@@ -115,9 +122,32 @@ CASES = {
 }
 RESUME_FROM = {"resume_4x2": "mlsl_2x4"}
 
+# FSDP (Planner(mesh, fsdp=True)) on gspmd, against the JAX trainer with the
+# same planner: mesh name -> as MESHES; case -> (config, mesh, CommConfig
+# kwargs, optimizer), global batch FSDP_BATCH. AdamW and LAMB at FSDP_LR:
+# their normalized step blows reduction-order rounding of a near-zero
+# gradient up to a step of the learning rate's size
+FSDP_MESHES = {"8x1": ("host", 8, 1), "4x2": ("host", 4, 2),
+               "hier2x4": ("hier", 2, 4)}
+FSDP_LR = 1e-3
+FSDP_BATCH = 16         # two rows a data rank at (8, 1): two microbatches
+FSDP_CASES = {
+    "fsdp_8x1": ("smoke", "8x1", dict(mode="gspmd", accum_steps=2), "adamw"),
+    "fsdp_4x2": ("smoke", "4x2", dict(mode="gspmd", accum_steps=2), "adamw"),
+    "fsdp_hier2x4": ("smoke", "hier2x4", dict(mode="gspmd", accum_steps=2),
+                     "adamw"),
+    "fsdp_4x2_lamb": ("smoke", "4x2", dict(mode="gspmd"), "lamb"),
+    "fsdp_grok_gather_8x1": ("grok", "8x1", dict(mode="gspmd"), "adamw"),
+    "fsdp_grok_ep_8x1": ("grok", "8x1", dict(mode="gspmd", moe_impl="ep"),
+                         "adamw"),
+    "fsdp_grok_ep_int8_8x1": ("grok", "8x1",
+                              dict(mode="gspmd", moe_impl="ep",
+                                   wgather_wire="int8"), "adamw"),
+}
 
-def make_mesh(name: str):
-    kind, *sizes = MESHES[name]
+
+def make_mesh(name: str, meshes=MESHES):
+    kind, *sizes = meshes[name]
     if kind == "hier":
         return mesh_lib.make_hier_mesh(*sizes, device="cpu")
     return mesh_lib.make_host_mesh(*sizes, device="cpu")
@@ -285,12 +315,33 @@ def engine_checks(out_dir: str, rank: int):
         json.dump(rec, f)
 
 
+def route_ids(model, params, batch) -> list:
+    """The top-k expert ids of every moe layer, in the forward's order, on
+    `batch` from the full `params`: [layer][token] of k ids, ascending."""
+    ids, route = [], moe.route
+
+    def spy(*args, **kw):
+        out = route(*args, **kw)
+        ids.append(torch.sort(out[1], dim=-1).values.tolist())
+        return out
+
+    moe.route = spy
+    try:
+        with torch.no_grad():
+            model.loss(params, batch)
+    finally:
+        moe.route = route
+    return ids
+
+
 def run_case(name, inputs_dir, out_dir, rank):
-    cfg_name, mesh_name, kw, optimizer = CASES[name]
+    fsdp = name in FSDP_CASES
+    cfg_name, mesh_name, kw, optimizer = (FSDP_CASES if fsdp
+                                          else CASES)[name]
     cfg = CONFIGS[cfg_name]()
-    mesh = make_mesh(mesh_name)
+    mesh = make_mesh(mesh_name, FSDP_MESHES if fsdp else MESHES)
     model = Model(cfg)
-    planner = pl.Planner(mesh=mesh)
+    planner = pl.Planner(mesh=mesh, fsdp=fsdp)
     specs = {"params": tr.param_specs(model, planner)}
     like = {"params": tree_lib.tree_map(
         lambda pd: torch.empty(pd.shape, dtype=pd.dtype, device="meta"),
@@ -299,34 +350,51 @@ def run_case(name, inputs_dir, out_dir, rank):
            if name in RESUME_FROM else os.path.join(inputs_dir, cfg_name))
     params = ckpt.restore(src, like, device="cpu", specs=specs,
                           mesh=mesh)["params"]
-    opt_kw = {}
-    if optimizer in opt_lib.LAYERWISE:
-        opt_kw = dict(sharded=tr.sharded_flags(model, planner, "model"),
-                      group=mesh.get_group("model"))
-    opt = opt_lib.make_optimizer(optimizer, LR, **opt_kw)
+    opt = opt_lib.make_optimizer(optimizer, FSDP_LR if fsdp else LR)
     state = tr.train_state_from_params(params, opt)
-    step = tr.make_train_step(model, opt, mesh, planner,
-                              tr.CommConfig(**kw))
+    if fsdp:
+        # through the Session, as a framework drives it: the step gives
+        # LARS and LAMB their norm groups
+        step = Session(mesh=mesh, planner=planner,
+                       comm_cfg=tr.CommConfig(**kw)).make_train_step(model,
+                                                                     opt)
+    else:
+        step = tr.make_train_step(model, opt, mesh, planner,
+                                  tr.CommConfig(**kw))
     rec = {"loss": [], "grad_norm": []}
     dcfg = pipeline.DataConfig(vocab=cfg.vocab, seq_len=SEQ,
-                               global_batch=BATCH, seed=DATA_SEED)
+                               global_batch=FSDP_BATCH if fsdp else BATCH,
+                               seed=DATA_SEED)
     for raw in pipeline.iterate(dcfg, STEPS):
-        state, m = step(state, Batch(tokens=torch.from_numpy(raw["tokens"]),
-                                     labels=torch.from_numpy(raw["labels"])))
+        batch = Batch(tokens=torch.from_numpy(raw["tokens"]),
+                      labels=torch.from_numpy(raw["labels"]))
+        if cfg.moe is not None:
+            whole = convert.gather_params(state.params, specs["params"],
+                                          mesh)
+            if rank == 0:
+                rec.setdefault("route_ids", []).append(
+                    route_ids(model, whole, batch))
+        state, m = step(state, batch)
         rec["loss"].append(float(m["loss"]))
         rec["grad_norm"].append(float(m["grad_norm"]))
-    full = convert.gather_params(state.params, specs["params"], mesh)
+    # FSDP: the optimizer state makes the round trip too
+    saved = {"params": state.params}
+    if fsdp:
+        saved.update(state.opt_state)
+        specs.update({k: specs["params"] for k in state.opt_state})
+        like.update({k: like["params"] for k in state.opt_state})
+    full = {k: convert.gather_params(v, specs[k], mesh)
+            for k, v in saved.items()}
     case_dir = os.path.join(out_dir, name)
     if rank == 0:
         os.makedirs(case_dir, exist_ok=True)
-        ckpt.save(os.path.join(case_dir, "ckpt"), {"params": full},
-                  step=STEPS)
+        ckpt.save(os.path.join(case_dir, "ckpt"), full, step=STEPS)
     dist.barrier()
     back = ckpt.restore(os.path.join(case_dir, "ckpt"), like, device="cpu",
-                        specs=specs, mesh=mesh)["params"]
+                        specs=specs, mesh=mesh)
     rec["restores_bitwise"] = all(
         a.dtype == b.dtype and torch.equal(a, b) for a, b in
-        zip(tree_lib.leaves(state.params), tree_lib.leaves(back)))
+        zip(tree_lib.leaves(saved), tree_lib.leaves(back)))
     rec["local_shapes"] = [list(t.shape)
                            for t in tree_lib.leaves(state.params)]
     with open(os.path.join(case_dir, f"rank{rank}.json"), "w") as f:
@@ -346,7 +414,7 @@ def run(rank: int, world: int, store_dir: str, inputs_dir: str,
         ep_checks(dict(np.load(os.path.join(inputs_dir, "ep.npz"))),
                   out_dir)
         engine_checks(out_dir, rank)
-        for name in CASES:
+        for name in (*CASES, *FSDP_CASES):
             run_case(name, inputs_dir, out_dir, rank)
     finally:
         dist.destroy_process_group()
