@@ -227,7 +227,22 @@ Phases, each fatal on failure:
                  gradient bitwise; with the int8 one quantize_blocks and
                  dequantize_blocks 3 launches per forward (6 under remat)
                  and expert gradients within 5% of the bf16 gather's;
- 24. report   -- the serve cells' numbers, one JSON line with every kernel
+ 24. families mp -- each family at full width over a one-rank NCCL model
+                 group (`mp_layout` of `Planner(mesh)`, whose model axis
+                 of one rank splits every matrix), forward and backward
+                 in bf16 against the same model and weights without a
+                 layout: llava at 4 layers (batch 2 x (576 + 1472)),
+                 whisper at full depth (2 x 448 tokens on 1500 frames),
+                 minicpm3 at 4, recurrentgemma at 3, mamba2 at 8, grok-1
+                 and arctic at 1 (2 x 2048 each), the embedding and head
+                 replicated (the mp phase holds their vocab-parallel
+                 forms): loss rel 1e-5 and every gradient within 1e-2 of
+                 its largest element (the mp phase's bf16 bound; bitwise
+                 but recurrentgemma); then mamba2 at cell I's
+                 configuration
+                 under `force_model_parallel` on A's int8 + EF wire (I's
+                 quant8 launches), losses within rtol 1e-3 of I's;
+ 25. report   -- the serve cells' numbers, one JSON line with every kernel
                  (the flash kernel's D-256 instance on a line of its own),
                  then the device line.
 
@@ -2015,11 +2030,12 @@ def session_phase(torch, cfg, a_run, a_expect):
 
 def _chunked_rel_err(torch, got, want, rows=2**26) -> float:
     """`_rel_err` in f32 over slices of `rows` elements (a gradient of
-    billions of bf16 elements would not fit twice more in f32)."""
+    billions of bf16 elements would not fit twice more in f32); `want` may
+    lie in host memory, a slice at a time moved to `got`'s device."""
     g, w = got.reshape(-1), want.reshape(-1)
     err = top = 0.0
     for i in range(0, g.numel(), rows):
-        a, b = g[i:i + rows].float(), w[i:i + rows].float()
+        a, b = g[i:i + rows].float(), w[i:i + rows].to(g.device).float()
         err = max(err, float((a - b).abs().max()))
         top = max(top, float(b.abs().max()))
     return err / (top or 1.0)
@@ -2267,6 +2283,129 @@ def moe_ep_block_phase(torch):
     return launches, rec
 
 
+# --------------------------------------------------------------------------
+# 24. model parallelism for every family over a one-rank model group
+# --------------------------------------------------------------------------
+
+# (arch, layers (None: the full depth), batch, tokens a row)
+FAMILIES_MP = (
+    ("llava-next-mistral-7b", 4, 2, 1472),
+    ("whisper-small", None, 2, 448),
+    ("minicpm3-4b", 4, 2, 2048),
+    ("recurrentgemma-2b", 3, 2, 2048),
+    ("mamba2-2.7b", 8, 2, 2048),
+    ("grok-1-314b", 1, 2, 2048),
+    ("arctic-480b", 1, 2, 2048),
+)
+# the dense run's gradients wait in host memory above this many bytes of
+# parameters (arctic's one layer: 28 GB of weights and as much gradient)
+FAMILY_GRADS_ON_HOST = 8 * 2**30
+# bf16 gradients, of each leaf's largest element: the mp phase's bf16
+# bound. At one rank the f/g operators are copies and each f sits where
+# autograd adds the same cotangents in the same order as without a layout:
+# the CPU shows every family bitwise in bf16, and the card all but
+# recurrentgemma, whose gradients differ there by about one bf16 rounding
+# step of the largest element with its loss bitwise
+FAMILY_GRAD_TOL = 1e-2
+
+
+def families_mp_phase(torch, i_run, i_launches):
+    """Each arch of FAMILIES_MP at full width from seeded weights: `Model.
+    loss` and its gradients with the layout of `Planner(mesh)` over the
+    one-rank NCCL model group (every family's model-parallel forward: MLA's
+    latents through f, the encoder and cross blocks, the SSM's split gated
+    norm, the RG-LRU's gathered gates, the experts and the dense residual
+    split) against the same model without one; then train I under
+    `force_model_parallel`. Returns its launches and record."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import registry
+    from repro_torch.core import planner as pl
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models.transformer import Batch, Model
+    from repro_torch.train import trainer as tr
+    phase("families mp: every family's model-parallel forward and backward "
+          "over a one-rank NCCL model group, full width, bf16")
+    mesh = mesh_lib.make_host_mesh(1, 1)
+    group = mesh.get_group("model")
+    rec = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for arch, layers, B, S in FAMILIES_MP:
+        cfg = registry.get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        model = Model(cfg)
+        params = model.init(torch.Generator(device="cuda").manual_seed(8),
+                            "cuda")
+        # the blocks' layouts; the embedding and the head replicated: their
+        # vocab-parallel forms round the logits' gradient otherwise, which
+        # bf16 carries into every gradient (the mp phase holds them in f32)
+        layout = {**model.mp_layout(pl.Planner(mesh=mesh)), "embed": None}
+        if "head" in layout:
+            layout["head"] = None
+        gen = torch.Generator(device="cuda").manual_seed(9)
+        tok = torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                            device="cuda")
+        stub = {k: v.to("cuda") for k, v in normal_embeds(
+            torch, cfg, B, torch.Generator().manual_seed(10)).items()}
+        batch = Batch(tokens=tok, labels=tok, **stub)
+        leaves = tree_lib.leaves(params)
+        on_host = sum(t.numel() * t.element_size()
+                      for t in leaves) > FAMILY_GRADS_ON_HOST
+        out = []
+        for kw in ({}, {"tp_axis": group, "layout": layout}):
+            for t in leaves:
+                t.requires_grad_(True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = model.loss(params, batch, **kw)
+            grads = torch.autograd.grad(loss, leaves)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            for t in leaves:
+                t.requires_grad_(False)
+            if on_host and not kw:
+                grads = [g.cpu() for g in grads]
+            out.append((float(loss.detach()), grads, sec))
+            del loss, grads
+        (l0, g0, s0), (l1, g1, s1) = out
+        errs = [_chunked_rel_err(torch, a, b) for a, b in zip(g1, g0)]
+        worst = max(errs)
+        worst_leaf = "/".join(tree_lib.paths(params)[errs.index(worst)])
+        same = l0 == l1 and all(torch.equal(a, b.to(a.device))
+                                for a, b in zip(g1, g0))
+        peak = torch.cuda.max_memory_allocated()
+        log(f"  {arch} at {cfg.n_layers} layers ({model.n_params():,} "
+            f"parameters), batch {B} x {S}: loss {l1:.7f} against {l0:.7f}; "
+            f"worst gradient error {worst:.3e} of its largest element "
+            f"({worst_leaf}), bitwise {same}; forward and backward "
+            f"{s1:.3f} s (without a "
+            f"layout {s0:.3f} s); peak {peak / 2**30:.2f} GiB")
+        check(math.isclose(l1, l0, rel_tol=1e-5) and worst <= FAMILY_GRAD_TOL,
+              f"families mp: {arch}'s model-parallel forward differs from "
+              f"the dense one")
+        rec[arch] = {"loss": l1, "dense_loss": l0, "worst_grad_err": worst,
+                     "worst_leaf": worst_leaf, "bitwise": same, "mp_s": s1,
+                     "dense_s": s0, "peak_bytes": peak}
+        del out, g0, g1, params, leaves, batch
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(registry.get_config("mamba2-2.7b"), n_layers=8)
+    launches, run = train_phase(
+        torch, "I under model parallelism", cfg, tr.CommConfig(**A_COMM),
+        steps=3, dp_only=False, expect=i_launches,
+        planner=pl.Planner(mesh=mesh), force_model_parallel=True)
+    log(f"  losses {run['losses']} against I's {i_run['losses']}; quant8 "
+        f"launches under the layout {launches}")
+    check(all(math.isclose(g, a, rel_tol=1e-3) for g, a in
+              zip(run["losses"], i_run["losses"])),
+          "families mp: mamba2's losses differ from cell I's")
+    log(f"  steady step {run['step_s']:.4f} s against I's "
+        f"{i_run['step_s']:.4f} s")
+    rec["I_mp"] = run
+    return launches, rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2376,6 +2515,7 @@ def main() -> int:
     for k, v in launches.items():
         totals[k] += v
     launches, runs["I"] = train_i_phase(torch, zero)
+    i_launches = launches
     for k, v in launches.items():
         totals[k] += v
     for k, v in family_cli_phase(torch, RECURRENT_ARCHS).items():
@@ -2389,6 +2529,10 @@ def main() -> int:
         totals[k] += v
     runs["fsdp"] = fsdp_phase(torch, cfg)
     launches, runs["moe ep block"] = moe_ep_block_phase(torch)
+    for k, v in launches.items():
+        totals[k] += v
+    launches, runs["families mp"] = families_mp_phase(torch, runs["I"],
+                                                      i_launches)
     for k, v in launches.items():
         totals[k] += v
     check(d256 > 0, "the recurrent cells never launched flash at D 256")

@@ -3,7 +3,8 @@
 the cards of one host, against the data-parallel twin.
 
     python3 scripts/hybrid_cards.py [--nproc 4] [--device cuda]
-                                    [--parts check,cells,stats,mp,ep,fsdp]
+                                    [--parts check,cells,stats,mp,ep,fsdp,
+                                             families]
 
 Both parts run on --nproc ranks through torchrun, for each mesh (node,
 local) of --meshes (default 1x4 and 2x2), twice: hybrid (the C2C
@@ -104,6 +105,29 @@ fsdp=True)`, gspmd) on the (--nproc, 1) data mesh, NCCL:
     tok/s and each rank's peak (after the state is built, and while every
     rank draws the full weights before keeping its shards).
 
+families (only when asked for: `--parts families`): model parallelism
+for every family, in one process a rank (NCCL):
+  * each of FAMILIES at full width in f32, cut to its depth there, at
+    (data, model) = (1, --nproc) against its (--nproc, 1) data-parallel
+    twin: `Planner(mesh)`, mlsl on the fp32 wire, SGD at 0.1, global batch
+    8 (llava: 576 patch embeddings and 1472 tokens a row, whisper: 1500
+    frame embeddings and 448 tokens, the others --cells-seq tokens), the
+    same weights and data, --steps steps: every step's loss within
+    LOSS_ATOL and gradient norm within GNORM_ATOL of the twin's (the
+    check part's bounds; in f32 the twins differ only in the order of
+    their sums); each run's steps, median step and peak a rank (during
+    the steps, and apart while the state was built);
+  * grok-1 at full width cut to GROK_LAYERS of its 64 layers (bf16, 8
+    experts: 2 a card at 4 ranks), global batch GROK_BATCH x --cells-seq,
+    AdamW with warmup-cosine at 3e-4, gspmd: (1, --nproc) on the gather
+    dispatch against FSDP on (--nproc, 1) (`Planner(fsdp=True)`), which
+    route the same global batch: losses within rtol LOSS_RTOL; then (1,
+    --nproc) with `moe_impl="ep"`, which routes each source rank's tokens
+    (not held equal). Each run's steps, median step, tok/s and peak a rank;
+    for the ep run the all-to-all's median on a buffer of the exchange's
+    shape, and its share of the step at 6 all-to-alls a layer (2 in the
+    forward, 2 in the checkpoint's recomputation, 2 in the backward).
+
 Writes everything to --out as JSON and exits non-zero if a run fails or a
 pair disagrees. `--device cpu` runs the same on gloo ranks (a rehearsal:
 no time it prints is a device's; `--cells-config smoke --cells-seq 32`
@@ -131,6 +155,13 @@ PARAM_ATOL = 1e-4         # fp32 wire, parameters after the last step
 LOSS_RTOL = 1e-3          # int8 and bf16 wires
 EP_TOL = 2e-2             # ep part: bf16 y against moe_apply's, of its max
 FSDP_STEPS = 3
+# families part: (arch, layers (None: full depth), tokens a row (None:
+# --cells-seq))
+FAMILIES = (("minicpm3-4b", 4, None), ("recurrentgemma-2b", 3, None),
+            ("mamba2-2.7b", 8, None), ("whisper-small", None, 448),
+            ("llava-next-mistral-7b", 4, 1472))
+GROK_LAYERS = 2
+GROK_BATCH = 4
 
 
 def bf16_param_bound(a, b, lrs):
@@ -639,6 +670,199 @@ def fsdp_worker(args) -> int:
     return 0
 
 
+def families_part(args, work: pathlib.Path) -> tuple:
+    out = work / "families.json"
+    proc = _torchrun(args.nproc, [
+        str(pathlib.Path(__file__).resolve()), "--worker", "families",
+        "--device", args.device, "--cells-config", args.cells_config,
+        "--cells-seq", str(args.cells_seq), "--steps", str(args.steps),
+        "--worker-out", str(out)], args.timeout)
+    r = json.loads(out.read_text()) if out.exists() else {}
+    r["rc"] = proc.returncode
+    for pair in r.get("families", []):
+        for name in ("twin", "mp"):
+            _show(f"families {pair['arch']} {name}",
+                  {"rc": proc.returncode, "plan": [], **pair[name]})
+            print(f"  median of steps 1-{args.steps - 1}: "
+                  f"{pair[name]['median_step_s']} s", flush=True)
+        print(f"  max |mp - twin|: loss {pair['max_loss_diff']} (bound "
+              f"{LOSS_ATOL}), gnorm {pair['max_gnorm_diff']} (bound "
+              f"{GNORM_ATOL}): {'agree' if pair['agree'] else 'DISAGREE'}",
+              flush=True)
+    for name, run in r.get("grok", {}).items():
+        if not isinstance(run, dict):
+            print(f"families grok {name}: {run}", flush=True)
+            continue
+        _show(f"families grok {name}",
+              {"rc": proc.returncode, "plan": [], **run})
+        print(f"  median of steps 1-{args.steps - 1}: {run['median_step_s']}"
+              f" s, {run['tokens_per_s']} tok/s; peak per rank while the "
+              f"state was built {run['peak_bytes_init']} B", flush=True)
+    ok = proc.returncode == 0 and r.get("agree", False)
+    if not ok:
+        print(proc.stdout[-2000:], proc.stderr[-3000:], file=sys.stderr)
+    return r, ok
+
+
+def _family_run(torch, model, mesh, planner, comm, opt, *, steps, batch,
+                seq, dev, seed=0):
+    """`steps` train steps of `model` from weights and data drawn from
+    `seed` (the stub patch or frame embeddings standard normal): each
+    step's loss, gradient norm and seconds (host clock, from a barrier to
+    the loss on the host), the median of steps 1 on, tok/s (a VLM's image
+    positions counted) and each rank's peak allocated bytes while the
+    state was built (every rank draws the full weights before keeping its
+    shards) and during the steps."""
+    import torch.distributed as dist
+    from repro_torch.core.planner import mesh_shape
+    from repro_torch.data import pipeline
+    from repro_torch.models.transformer import Batch
+    from repro_torch.train import trainer as tr
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    state = tr.make_train_state(
+        model, opt, torch.Generator(device=dev).manual_seed(seed), dev,
+        planner=planner)
+    peak_init = torch.cuda.max_memory_allocated(dev) if cuda else None
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    step = tr.make_train_step(model, opt, mesh, planner, comm, device=dev)
+    cfg = model.cfg
+    dcfg = pipeline.DataConfig(vocab=cfg.vocab, seq_len=seq,
+                               global_batch=batch, seed=seed)
+    rng = np.random.default_rng(seed)
+    recs = []
+    for s, raw in enumerate(pipeline.iterate(dcfg, steps)):
+        stub = {}
+        if cfg.vlm_img_tokens:
+            stub["img_embeds"] = rng.standard_normal(
+                (batch, cfg.vlm_img_tokens, cfg.vlm_d_vision))
+        if cfg.encoder is not None:
+            stub["frame_embeds"] = rng.standard_normal(
+                (batch, cfg.encoder.n_frames, cfg.encoder.d_input))
+        b = Batch(tokens=torch.from_numpy(raw["tokens"]).to(dev),
+                  labels=torch.from_numpy(raw["labels"]).to(dev),
+                  **{k: torch.from_numpy(v.astype(np.float32)).to(dev)
+                     for k, v in stub.items()})
+        dist.barrier()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        loss = float(m["loss"])
+        recs.append({"step": s, "loss": loss,
+                     "grad_norm": float(m["grad_norm"]),
+                     "seconds": time.perf_counter() - t0})
+    del state, step
+    peak = torch.cuda.max_memory_allocated(dev) if cuda else None
+    peaks = [None] * dist.get_world_size()
+    dist.all_gather_object(peaks, (peak_init, peak))
+    steady = [r["seconds"] for r in recs[1:]]
+    median = statistics.median(steady) if steady else None
+    positions = seq + cfg.vlm_img_tokens
+    return {"mesh": [f"mesh={mesh_shape(mesh)}"], "steps": recs,
+            "median_step_s": median,
+            "tokens_per_s": batch * positions / median if median else None,
+            "peak_bytes_init": [p[0] for p in peaks],
+            "peak_bytes": [p[1] for p in peaks]}
+
+
+def families_worker(args) -> int:
+    """One rank of the families part (see the module docstring)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import registry
+    from repro_torch.core import planner as pl
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim import optimizers as opt_lib, schedules
+    from repro_torch.train import trainer as tr
+    dev = mesh_lib.resolve_device(args.device)
+    n = args.nproc
+    twin_mesh = mesh_lib.make_host_mesh(n, 1, device=dev)
+    mp_mesh = mesh_lib.make_host_mesh(1, n, device=dev)
+    cells = args.cells_config == "cells"
+    rec = {"device": [torch.cuda.get_device_name(dev)]
+           if dev.type == "cuda" else ["cpu rehearsal"], "families": []}
+    agree = True
+    for arch, layers, seq in FAMILIES:
+        cfg = registry.get_config(arch) if cells else \
+            registry.get_smoke_config(arch)
+        if cells:
+            cfg = dataclasses.replace(cfg, n_layers=layers or cfg.n_layers,
+                                      dtype=torch.float32)
+        seq = min(seq or args.cells_seq, cfg.learned_positions or 2 ** 31)
+        model = Model(cfg)
+        pair = {"arch": arch, "config": f"{cfg.name} n_layers="
+                f"{cfg.n_layers} f32 ({model.n_params():,} parameters), "
+                f"batch 8 seq {seq}"}
+        for name, mesh in (("twin", twin_mesh), ("mp", mp_mesh)):
+            pair[name] = _family_run(
+                torch, model, mesh, pl.Planner(mesh=mesh),
+                tr.CommConfig(mode="mlsl"), opt_lib.make_optimizer("sgd",
+                                                                   0.1),
+                steps=args.steps, batch=8, seq=seq, dev=dev)
+        a, b = pair["mp"]["steps"], pair["twin"]["steps"]
+        pair["max_loss_diff"] = max(abs(x["loss"] - y["loss"])
+                                    for x, y in zip(a, b))
+        pair["max_gnorm_diff"] = max(abs(x["grad_norm"] - y["grad_norm"])
+                                     for x, y in zip(a, b))
+        pair["agree"] = (len(a) == len(b) == args.steps
+                         and pair["max_loss_diff"] <= LOSS_ATOL
+                         and pair["max_gnorm_diff"] <= GNORM_ATOL)
+        agree = agree and pair["agree"]
+        rec["families"].append(pair)
+    cfg = registry.get_config("grok-1-314b") if cells else \
+        registry.get_smoke_config("grok-1-314b")
+    if cells:
+        cfg = dataclasses.replace(cfg, n_layers=GROK_LAYERS)
+    model = Model(cfg)
+    seq = args.cells_seq
+    grok = {"config": f"{cfg.name} n_layers={cfg.n_layers} "
+                      f"({model.n_params():,} parameters), global batch "
+                      f"{GROK_BATCH} x {seq}, AdamW warmup-cosine 3e-4, "
+                      f"gspmd"}
+    for name, mesh, planner, kw in (
+            ("fsdp", twin_mesh, pl.Planner(mesh=twin_mesh, fsdp=True), {}),
+            ("gather", mp_mesh, pl.Planner(mesh=mp_mesh), {}),
+            ("ep", mp_mesh, pl.Planner(mesh=mp_mesh), {"moe_impl": "ep"})):
+        sched = schedules.warmup_cosine(3e-4, 1, args.steps)
+        grok[name] = _family_run(
+            torch, model, mesh, planner, tr.CommConfig(mode="gspmd", **kw),
+            opt_lib.make_optimizer("adamw", sched), steps=args.steps,
+            batch=GROK_BATCH, seq=seq, dev=dev)
+    a, b = grok["gather"]["steps"], grok["fsdp"]["steps"]
+    grok["max_loss_rel_diff"] = max(abs(x["loss"] - y["loss"]) / abs(y["loss"])
+                                    for x, y in zip(a, b))
+    grok["agree"] = (len(a) == len(b) == args.steps
+                     and grok["max_loss_rel_diff"] <= LOSS_RTOL)
+    # the ep run's exchange: each source rank's GROK_BATCH * seq / n tokens
+    # at their own capacity, (n, experts a rank * capacity, d) a call
+    group = mp_mesh.get_group("model")
+    e_loc = cfg.moe.n_experts // n
+    cap = moe.capacity(GROK_BATCH * seq // n, cfg.moe)
+    buf = torch.zeros((n, e_loc * cap, cfg.d_model), dtype=cfg.dtype,
+                      device=dev)
+    a2a = _median_s(torch, lambda: moe._all_to_all(buf, group))
+    calls = 6 * cfg.n_layers
+    grok["ep"]["all_to_all_s"] = a2a
+    grok["ep"]["all_to_all_bytes"] = buf.numel() * buf.element_size()
+    grok["ep"]["all_to_all_share"] = (calls * a2a
+                                      / grok["ep"]["median_step_s"]
+                                      if grok["ep"]["median_step_s"]
+                                      else None)
+    rec["grok"] = grok
+    rec["agree"] = agree and grok["agree"]
+    if dist.get_rank() == 0:
+        pathlib.Path(args.worker_out).write_text(json.dumps(rec))
+    dist.destroy_process_group()
+    return 0
+
+
 def _median_s(torch, fn, n=5):
     """The median host time of fn() over n calls after one warm-up, each
     ending in a device synchronize and a barrier."""
@@ -856,7 +1080,8 @@ def main() -> int:
     ap.add_argument("--out", default=str(ROOT / "build" /
                                          "hybrid_cards.json"))
     ap.add_argument("--worker", choices=["hybrid", "dp", "stats", "mp",
-                                         "ep", "fsdp-pair", "fsdp-full"],
+                                         "ep", "fsdp-pair", "fsdp-full",
+                                         "families"],
                     default=None,
                     help=argparse.SUPPRESS)
     ap.add_argument("--arch", default="yi-6b", help=argparse.SUPPRESS)
@@ -868,6 +1093,8 @@ def main() -> int:
         return ep_worker(args)
     if args.worker in ("fsdp-pair", "fsdp-full"):
         return fsdp_worker(args)
+    if args.worker == "families":
+        return families_worker(args)
     if args.worker:
         return worker(args)
     if args.device == "cuda":
@@ -900,6 +1127,9 @@ def main() -> int:
         ok = ok and good
     if "fsdp" in parts:
         report["fsdp"], good = fsdp_part(args, work)
+        ok = ok and good
+    if "families" in parts:
+        report["families"], good = families_part(args, work)
         ok = ok and good
     shutil.rmtree(work, ignore_errors=True)
     pathlib.Path(args.out).write_text(json.dumps(report, indent=1))

@@ -28,7 +28,8 @@ chooser sends model-parallel, data parallelism across "node"; it prints one
 `--model-parallel N` (N > 1, without `--hybrid`) is the reference's model
 axis on every matrix: `make_host_mesh(data, N)`, or with `--hier`
 `make_hier_mesh(nodes, local, N)`, under `Planner(mesh)`, on gspmd or
-mlsl; e.g. on 8 gloo ranks of the CPU
+mlsl. Both it and `--hybrid` take every arch of the registry; e.g. on 8
+gloo ranks of the CPU
 
   python -m torch.distributed.run --standalone --nproc-per-node 8 \\
       -m repro_torch.launch.train --device cpu --data-parallel 4 \\

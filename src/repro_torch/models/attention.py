@@ -14,7 +14,10 @@ them again.
 Under model parallelism `gqa_apply` takes the layout of its projections
 (`Planner.model_dims`): whole heads per rank run sharded, as under a hybrid
 plan; a shard holding part of a head (the smoke yi-6b's 4 heads of 32 over
-8 ranks, chatglm3-6b's 2 KV heads over 4) runs `gqa_gathered`.
+8 ranks, chatglm3-6b's 2 KV heads over 4, recurrentgemma's one KV head)
+runs `gqa_gathered`. The cross-attention (`gqa_cross_kv`, `gqa_cross`)
+and MLA (`mla_apply`: its latents through the f operator) follow the same
+two cases.
 
 Which attention the GQA functions run (`_attention`):
   * the flash kernel (`kernels.flashattn.gqa_flash_attention`) when no
@@ -219,7 +222,7 @@ def gqa_apply(p: dict, x: torch.Tensor, a: AttnConfig, *, pos0: int = 0,
     if layout is not None and not head_aligned(
             layout, a, dist.get_world_size(tp_axis)):
         return gqa_gathered(p, x, a, tp_axis, layout, pos0=pos0,
-                            window=window, mask=mask)
+                            window=window, mask=mask, kv_chunk=kv_chunk)
     if tp_axis is not None:
         x = cl.tp_replicate(x, tp_axis)
     o = _attend(*_project(p, x), a, pos0=pos0, window=window, mask=mask,
@@ -230,9 +233,28 @@ def gqa_apply(p: dict, x: torch.Tensor, a: AttnConfig, *, pos0: int = 0,
     return y
 
 
+def gathered_cols(w: torch.Tensor, x: torch.Tensor, xr: torch.Tensor,
+                  dim, group) -> torch.Tensor:
+    """x @ w whole on every rank: a column-split w (`dim` -1) takes x
+    through the f operator (`xr`, `tp_replicate(x)`) and gathers the
+    product's columns over `group`; a replicated w takes x as it is."""
+    return cl.tp_all_gather(xr @ w, group) if dim == -1 else x @ w
+
+
+def gathered_rows(o: torch.Tensor, w: torch.Tensor, dim,
+                  group) -> torch.Tensor:
+    """o @ w for a whole o on every rank: a row-split w (`dim` -2) takes
+    this rank's columns of o (`tp_split`) and sums the partial products
+    (`tp_psum`); a replicated w takes o as it is."""
+    if dim == -2:
+        return cl.tp_psum(cl.tp_split(o, group) @ w, group)
+    return o @ w
+
+
 def gqa_gathered(p: dict, x: torch.Tensor, a: AttnConfig, group,
                  layout: dict, *, pos0: int = 0, window: int | None = None,
-                 mask: torch.Tensor | None = None) -> torch.Tensor:
+                 mask: torch.Tensor | None = None,
+                 kv_chunk: int | None = None) -> torch.Tensor:
     """Attention whose projections' column shards need not hold whole
     heads: each column-sharded projection of x (entering through
     `tp_replicate`) is gathered over `group` (`tp_all_gather`), every rank
@@ -241,30 +263,62 @@ def gqa_gathered(p: dict, x: torch.Tensor, a: AttnConfig, group,
     (`tp_split`) and sums the partial products (`tp_psum`). Replicated
     projections use x and the full output as they are."""
     xr = cl.tp_replicate(x, group)
-    q, k, v = (cl.tp_all_gather(xr @ p[n], group) if layout[n] == -1
-               else x @ p[n] for n in ("wq", "wk", "wv"))
-    o = _attend(q, k, v, a, pos0=pos0, window=window, mask=mask)[0]
-    if layout["wo"] == -2:
-        return cl.tp_psum(cl.tp_split(o, group) @ p["wo"], group)
-    return o @ p["wo"]
+    q, k, v = (gathered_cols(p[n], x, xr, layout[n], group)
+               for n in ("wq", "wk", "wv"))
+    o = _attend(q, k, v, a, pos0=pos0, window=window, mask=mask,
+                kv_chunk=kv_chunk)[0]
+    return gathered_rows(o, p["wo"], layout["wo"], group)
 
 
-def gqa_cross_kv(p: dict, enc: torch.Tensor, a: AttnConfig) -> tuple:
+def gqa_cross_kv(p: dict, enc: torch.Tensor, a: AttnConfig, *,
+                 tp_axis=None, layout: dict | None = None,
+                 enc_rep: torch.Tensor | None = None) -> tuple:
     """Cross-attention K and V (B, Sk, KV, hd) from the encoder output
-    (whisper), unroped."""
-    return (_split_heads(enc @ p["wk"], a.n_kv, a.head_dim),
-            _split_heads(enc @ p["wv"], a.n_kv, a.head_dim))
+    (whisper), unroped. Under model parallelism (`tp_axis` and the
+    projections' `layout`) the encoder output enters through the f
+    operator (`enc_rep`: `tp_replicate(enc)` made once for every cross
+    block, else made here): this rank's heads when the layout gives whole
+    heads, else the whole heads gathered (`gqa_gathered`'s rule)."""
+    hd = a.head_dim
+    if tp_axis is None:
+        k, v = enc @ p["wk"], enc @ p["wv"]
+    else:
+        er = cl.tp_replicate(enc, tp_axis) if enc_rep is None else enc_rep
+        if head_aligned(layout, a, dist.get_world_size(tp_axis)):
+            k, v = er @ p["wk"], er @ p["wv"]
+        else:
+            k, v = (gathered_cols(p[n], enc, er, layout[n], tp_axis)
+                    for n in ("wk", "wv"))
+    return (_split_heads(k, k.shape[-1] // hd, hd),
+            _split_heads(v, v.shape[-1] // hd, hd))
 
 
-def gqa_cross(p: dict, x: torch.Tensor, kv: tuple,
-              a: AttnConfig) -> torch.Tensor:
+def gqa_cross(p: dict, x: torch.Tensor, kv: tuple, a: AttnConfig, *,
+              tp_axis=None, layout: dict | None = None) -> torch.Tensor:
     """Cross-attention of the decoder's x (B, S, d) over the encoder's
-    (k, v) from `gqa_cross_kv`: every query sees every key, nothing is
-    roped (the reference's `gqa_apply(..., kv_override=kv, mask=None)`)."""
+    (k, v) from `gqa_cross_kv` (with the same `tp_axis` and `layout`):
+    every query sees every key, nothing is roped (the reference's
+    `gqa_apply(..., kv_override=kv, mask=None)`). Under model parallelism
+    x enters through f and the out-projection's partial sum leaves through
+    g, over this rank's heads or, with heads split, the gathered ones."""
     B, S, _ = x.shape
-    q = _split_heads(x @ p["wq"], a.n_heads, a.head_dim)
-    o = _attention(q, *kv, causal=False, window=None, mask=None)
-    return o.reshape(B, S, a.n_heads * a.head_dim) @ p["wo"]
+    hd = a.head_dim
+    aligned = tp_axis is not None and head_aligned(
+        layout, a, dist.get_world_size(tp_axis))
+    if tp_axis is None or aligned:
+        xr = x if tp_axis is None else cl.tp_replicate(x, tp_axis)
+        q = xr @ p["wq"]
+    else:
+        q = gathered_cols(p["wq"], x, cl.tp_replicate(x, tp_axis),
+                          layout["wq"], tp_axis)
+    H = q.shape[-1] // hd
+    o = _attention(_split_heads(q, H, hd), *kv, causal=False, window=None,
+                   mask=None).reshape(B, S, H * hd)
+    if tp_axis is None:
+        return o @ p["wo"]
+    if aligned:
+        return cl.tp_psum(o @ p["wo"], tp_axis)
+    return gathered_rows(o, p["wo"], layout["wo"], tp_axis)
 
 
 # --- serving caches ------------------------------------------------------------
@@ -414,34 +468,38 @@ def mla_defs(d_model: int, m: MLAConfig, dtype) -> dict:
     }
 
 
-def _mla_qkv(p: dict, x: torch.Tensor, m: MLAConfig, pos0: int) -> tuple:
-    """The queries (q_nope, q_pe) (B, S, H, *) and the latent (ckv, kpe)
-    (B, S, *) of a full sequence, q_pe and kpe roped."""
-    B, S, _ = x.shape
+def _mla_latents(p: dict, x: torch.Tensor, m: MLAConfig,
+                 pos0: int) -> tuple:
+    """The latents of a full sequence: the normed query latent cq, the
+    normed KV latent ckv and the roped, head-shared key part kpe, each
+    (B, S, *)."""
+    S = x.shape[1]
     cq = common.rmsnorm(x @ p["w_dq"], p["q_norm"])
-    q = (cq @ p["w_uq"]).reshape(B, S, m.n_heads,
-                                 m.qk_nope_dim + m.qk_rope_dim)
-    q_nope, q_pe = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
     ckv_full = x @ p["w_dkv"]
     ckv = common.rmsnorm(ckv_full[..., :m.kv_lora_rank], p["kv_norm"])
-    kpe = ckv_full[..., m.kv_lora_rank:]
     positions = torch.arange(S, device=x.device) + pos0
-    q_pe = common.apply_rope(q_pe, positions, theta=m.rope_theta)
-    kpe = common.apply_rope(kpe[..., None, :], positions,
+    kpe = common.apply_rope(ckv_full[..., None, m.kv_lora_rank:], positions,
                             theta=m.rope_theta)[..., 0, :]
-    return q_nope, q_pe, ckv, kpe
+    return cq, ckv, kpe
 
 
-def _mla_attend(p: dict, q_nope, q_pe, ckv, kpe, m: MLAConfig, *,
-                pos0: int, window: int | None,
-                kv_chunk: int | None) -> torch.Tensor:
-    """MLA's causal attention over the latent of a full sequence, through
-    the out-projection: keys and values expanded from `ckv` per head, the
-    decoupled rope part `kpe` shared by the heads."""
-    B, S, H, _ = q_nope.shape
-    k_nope = (ckv @ p["w_uk"]).reshape(B, S, H, m.qk_nope_dim)
-    v = (ckv @ p["w_uv"]).reshape(B, S, H, m.v_head_dim)
+def _mla_core(q, k_nope, v, kpe, m: MLAConfig, *, pos0: int,
+              window: int | None, kv_chunk: int | None) -> torch.Tensor:
+    """MLA's causal attention, before the out-projection: q (B, S, H *
+    (nope + rope)) from the query latent, k_nope (B, S, H * nope) and v
+    (B, S, H * v_head_dim) expanded from the KV latent, kpe (B, S, rope)
+    shared by the heads; H is read from the widths. Returns (B, S, H *
+    v_head_dim)."""
+    B, S, _ = q.shape
     d_qk = m.qk_nope_dim + m.qk_rope_dim
+    H = q.shape[-1] // d_qk
+    q = q.reshape(B, S, H, d_qk)
+    q_nope = q[..., :m.qk_nope_dim]
+    positions = torch.arange(S, device=q.device) + pos0
+    q_pe = common.apply_rope(q[..., m.qk_nope_dim:], positions,
+                             theta=m.rope_theta)
+    k_nope = k_nope.reshape(B, S, H, m.qk_nope_dim)
+    v = v.reshape(B, S, H, m.v_head_dim)
     if kv_chunk is not None:
         # fold the rope part into the head dim for the online softmax
         q_cat = torch.cat([q_nope, q_pe], dim=-1)
@@ -455,20 +513,51 @@ def _mla_attend(p: dict, q_nope, q_pe, ckv, kpe, m: MLAConfig, *,
                   + torch.einsum("bqhd,bkd->bhqk", q_pe, kpe)
                   ).to(torch.float32)
         scores = scores / math.sqrt(d_qk)
-        mask = common.causal_mask(S, S, window=window, device=ckv.device)
+        mask = common.causal_mask(S, S, window=window, device=q.device)
         scores = torch.where(mask[None, None], scores,
                              torch.full((), -1e30, dtype=scores.dtype,
                                         device=scores.device))
-        w = torch.softmax(scores, dim=-1).to(ckv.dtype)
+        w = torch.softmax(scores, dim=-1).to(v.dtype)
         o = torch.einsum("bhqk,bkhd->bqhd", w, v)
-    return o.reshape(B, S, H * m.v_head_dim) @ p["wo"]
+    return o.reshape(B, S, H * m.v_head_dim)
+
+
+# the layout of a head-sharded MLA: the up-projections split by output
+# column, the out-projection by input row, the down-projections and norms
+# replicated
+MLA_HEAD_SHARDED = {"w_dq": None, "q_norm": None, "w_uq": -1, "w_dkv": None,
+                    "kv_norm": None, "w_uk": -1, "w_uv": -1, "wo": -2}
 
 
 def mla_apply(p: dict, x: torch.Tensor, m: MLAConfig, *, pos0: int = 0,
-              window: int | None = None,
-              kv_chunk: int | None = None) -> torch.Tensor:
-    return _mla_attend(p, *_mla_qkv(p, x, m, pos0), m, pos0=pos0,
-                       window=window, kv_chunk=kv_chunk)
+              window: int | None = None, kv_chunk: int | None = None,
+              tp_axis=None, layout: dict | None = None) -> torch.Tensor:
+    """MLA over a full sequence (training). Under model parallelism
+    (`tp_axis`, the projections' `layout`): the latents are computed whole
+    on every rank from the replicated x, and enter the head-sharded work
+    through the f operator (so the down-projections and norms get their
+    whole gradients); with whole heads a rank attends over its own and the
+    out-projection's partial sum leaves through g; with heads split
+    (`MLA_HEAD_SHARDED` not whole over the group) every column-split
+    up-projection is gathered and the attention runs on the full heads
+    (`gqa_gathered`'s rule)."""
+    cq, ckv, kpe = _mla_latents(p, x, m, pos0)
+    kw = dict(pos0=pos0, window=window, kv_chunk=kv_chunk)
+    if tp_axis is None:
+        return _mla_core(cq @ p["w_uq"], ckv @ p["w_uk"], ckv @ p["w_uv"],
+                         kpe, m, **kw) @ p["wo"]
+    if layout == MLA_HEAD_SHARDED and \
+            m.n_heads % dist.get_world_size(tp_axis) == 0:
+        cq, ckv, kpe = (cl.tp_replicate(t, tp_axis) for t in (cq, ckv, kpe))
+        o = _mla_core(cq @ p["w_uq"], ckv @ p["w_uk"], ckv @ p["w_uv"], kpe,
+                      m, **kw)
+        return cl.tp_psum(o @ p["wo"], tp_axis)
+    cqr, ckvr = cl.tp_replicate(cq, tp_axis), cl.tp_replicate(ckv, tp_axis)
+    q = gathered_cols(p["w_uq"], cq, cqr, layout["w_uq"], tp_axis)
+    k_nope, v = (gathered_cols(p[n], ckv, ckvr, layout[n], tp_axis)
+                 for n in ("w_uk", "w_uv"))
+    o = _mla_core(q, k_nope, v, kpe, m, **kw)
+    return gathered_rows(o, p["wo"], layout["wo"], tp_axis)
 
 
 def mla_init_cache(batch: int, max_seq: int, m: MLAConfig, dtype, *,
@@ -485,9 +574,9 @@ def mla_prefill(p: dict, x: torch.Tensor, m: MLAConfig, *,
     """`mla_apply` over the whole prompt, and the latent cache of the
     `ckv`/`kpe` it attended over (ring-compacted if windowed): returns
     (y, cache). The reference's `mla_prefill_cache` computes them again."""
-    q_nope, q_pe, ckv, kpe = _mla_qkv(p, x, m, 0)
-    y = _mla_attend(p, q_nope, q_pe, ckv, kpe, m, pos0=0, window=window,
-                    kv_chunk=None)
+    cq, ckv, kpe = _mla_latents(p, x, m, 0)
+    y = _mla_core(cq @ p["w_uq"], ckv @ p["w_uk"], ckv @ p["w_uv"], kpe, m,
+                  pos0=0, window=window, kv_chunk=None) @ p["wo"]
     S = x.shape[1]
     if window and S > window:
         # position p at ring slot p % window

@@ -11,12 +11,15 @@ Ports these kinds of `repro/models/blocks.py`:
   rglru  -- RG-LRU recurrent mixer + dense MLP
   enc    -- bidirectional self-attention + MLP (encoder towers)
   cross  -- causal self-attention + cross-attention + MLP (enc-dec decoders)
-with rmsnorm or layernorm: full-sequence apply (the "attn" kind also with
-head/feature-sharded tensor parallelism under a hybrid plan or model
-parallelism), serving caches and one-token decode (unsharded, as in the
-reference). `block_apply` returns (h, aux): the router's load-balance
-loss of a "moe" block, None for every other kind (the reference's zero
-scalar, which the port neither makes nor adds). A moe block trains on the
+with rmsnorm or layernorm: full-sequence apply, serving caches and
+one-token decode (unsharded, as in the reference). Under model parallelism
+(`BlockCtx.layout`) every kind runs sharded by its layout: attention by
+head (or gathered), MLA, the SSM and the RG-LRU by head or channel, the
+experts by expert or by their ff, the MLPs by feature; under a hybrid plan
+the "attn" and "local" kinds detect their shards from the shapes.
+`block_apply` returns (h, aux): the router's load-balance loss of a "moe"
+block, None for every other kind (the reference's zero scalar, which the
+port neither makes nor adds). A moe block trains on the
 gather dispatch or, with `BlockCtx.moe_impl == "ep"`, on the
 expert-parallel one (`moe.moe_apply_ep`); serving gathers.
 """
@@ -28,6 +31,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import tree as tree_lib
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import planner as pl
 from repro_torch.models import attention as attn_mod
@@ -86,6 +90,9 @@ class BlockCtx:
     cfg: ModelConfig
     window_override: Optional[int] = None  # force SWA on full-attn blocks
     enc_out: Optional[torch.Tensor] = None  # encoder output (cross blocks)
+    # model parallelism: enc_out through the f operator, once for every
+    # cross block (autograd then adds its cotangents as without a layout)
+    enc_rep: Optional[torch.Tensor] = None
     kv_chunk: Optional[int] = None         # online-softmax attention chunk
     kv_dtype: str = "native"               # int8: quantized GQA KV cache
     # the activation-exchange group (process group) of model-sharded
@@ -115,24 +122,26 @@ class BlockCtx:
         if self.tp_axis is None:
             return None
         if self.layout is not None:
-            return self.tp_axis if self.attn_layout() else None
+            return self.sub_tp("attn")[0]
         sharded = p_attn["wo"].shape[-2] != a.n_heads * a.head_dim
         return self.tp_axis if sharded else None
 
-    def attn_layout(self) -> Optional[dict]:
-        """The attention's layout when any projection is model-sharded."""
-        if self.layout is None:
-            return None
-        dims = self.layout["attn"]
-        return dims if any(d is not None for d in dims.values()) else None
+    def sub_tp(self, name: str):
+        """(the model group, the layout of the block's sub-tree `name`)
+        under model parallelism when any of its leaves is model-sharded,
+        else (None, None)."""
+        if self.tp_axis is None or self.layout is None:
+            return None, None
+        dims = self.layout[name]
+        if all(d is None for d in tree_lib.leaves(dims)):
+            return None, None
+        return self.tp_axis, dims
 
     def mlp_tp(self, p_mlp: dict):
         if self.tp_axis is None:
             return None
         if self.layout is not None:
-            dims = self.layout["mlp"]
-            return self.tp_axis if any(d is not None
-                                       for d in dims.values()) else None
+            return self.sub_tp("mlp")[0]
         return self.tp_axis if p_mlp["w2"].shape[-2] != self.cfg.d_ff else None
 
     def window_for(self, kind: str) -> Optional[int]:
@@ -155,26 +164,32 @@ def _mlp_residual(p: dict, h: torch.Tensor, cfg: ModelConfig,
 
 def _moe_residual(p: dict, h: torch.Tensor, ctx: BlockCtx):
     """A moe block's feed-forward with its residual: (h, aux). The gather
-    dispatch, or with `ctx.moe_impl == "ep"` the expert-parallel one."""
+    dispatch, or with `ctx.moe_impl == "ep"` the expert-parallel one (its
+    dense residual MLP split over the model group with the layout)."""
     cfg = ctx.cfg
     x = norm_apply(p["ln2"], h, cfg)
+    tp, lay = ctx.sub_tp("moe")
     if ctx.moe_impl == "ep":
         y, aux = moe.moe_apply_ep(
             p["moe"], x, cfg.moe, act=cfg.mlp_act,
             model_group=ctx.model_group, batch_groups=ctx.batch_groups,
-            fsdp_groups=ctx.fsdp_groups, wgather_wire=ctx.wgather_wire)
+            fsdp_groups=ctx.fsdp_groups, wgather_wire=ctx.wgather_wire,
+            layout=lay)
     else:
         y, aux = moe.moe_apply(p["moe"], x, cfg.moe, act=cfg.mlp_act,
-                               batch_groups=ctx.batch_groups)
+                               batch_groups=ctx.batch_groups, tp_axis=tp,
+                               layout=lay)
     return h + y, aux
 
 
-def _cross_residual(p: dict, h: torch.Tensor, kv: tuple,
-                    cfg: ModelConfig) -> torch.Tensor:
+def _cross_residual(p: dict, h: torch.Tensor, kv: tuple, cfg: ModelConfig,
+                    tp_axis=None, layout: Optional[dict] = None
+                    ) -> torch.Tensor:
     """A cross block's cross-attention over the encoder's (k, v), with its
-    residual."""
+    residual (model-parallel with the xattn's group and layout)."""
     x = norm_apply(p["ln_x"], h, cfg)
-    return h + attn_mod.gqa_cross(p["xattn"], x, kv, cfg.attn)
+    return h + attn_mod.gqa_cross(p["xattn"], x, kv, cfg.attn,
+                                  tp_axis=tp_axis, layout=layout)
 
 
 def block_apply(kind: str, p: dict, h: torch.Tensor, ctx: BlockCtx):
@@ -184,28 +199,36 @@ def block_apply(kind: str, p: dict, h: torch.Tensor, ctx: BlockCtx):
     cfg = ctx.cfg
     x = norm_apply(p["ln1"], h, cfg)
     if kind == "ssm":
-        return h + ssm.ssm_apply(p["ssm"], x, cfg.ssm), None
+        return h + ssm.ssm_apply(p["ssm"], x, cfg.ssm,
+                                 tp_axis=ctx.sub_tp("ssm")[0]), None
     if kind == "rglru":
-        return _mlp_residual(p, h + rglru.rglru_apply(p["rec"], x, cfg.rglru),
-                             cfg), None
+        h = h + rglru.rglru_apply(p["rec"], x, cfg.rglru,
+                                  tp_axis=ctx.sub_tp("rec")[0])
+        return _mlp_residual(p, h, cfg, ctx.mlp_tp(p["mlp"])), None
     if kind == "mla":
+        tp, lay = ctx.sub_tp("mla")
         h = h + attn_mod.mla_apply(p["mla"], x, cfg.mla,
                                    window=ctx.window_override,
-                                   kv_chunk=ctx.kv_chunk)
-        return _mlp_residual(p, h, cfg), None
+                                   kv_chunk=ctx.kv_chunk, tp_axis=tp,
+                                   layout=lay)
+        return _mlp_residual(p, h, cfg, ctx.mlp_tp(p["mlp"])), None
     if kind == "cross":
         h = h + attn_mod.gqa_apply(p["attn"], x, cfg.attn,
-                                   kv_chunk=ctx.kv_chunk)
+                                   kv_chunk=ctx.kv_chunk,
+                                   tp_axis=ctx.attn_tp(p["attn"], cfg.attn),
+                                   layout=ctx.sub_tp("attn")[1])
+        tp, lay = ctx.sub_tp("xattn")
         h = _cross_residual(p, h, attn_mod.gqa_cross_kv(
-            p["xattn"], ctx.enc_out, cfg.attn), cfg)
-        return _mlp_residual(p, h, cfg), None
+            p["xattn"], ctx.enc_out, cfg.attn, tp_axis=tp, layout=lay,
+            enc_rep=ctx.enc_rep), cfg, tp, lay)
+        return _mlp_residual(p, h, cfg, ctx.mlp_tp(p["mlp"])), None
     # attn, local and moe are causal; only the encoder's attention is not
     a = (dataclasses.replace(cfg.attn, causal=False) if kind == "enc"
          else cfg.attn)
     h = h + attn_mod.gqa_apply(p["attn"], x, a, window=ctx.window_for(kind),
                                kv_chunk=ctx.kv_chunk,
                                tp_axis=ctx.attn_tp(p["attn"], a),
-                               layout=ctx.attn_layout())
+                               layout=ctx.sub_tp("attn")[1])
     if kind == "moe":
         return _moe_residual(p, h, ctx)
     return _mlp_residual(p, h, cfg, ctx.mlp_tp(p["mlp"])), None

@@ -83,10 +83,20 @@ def stack_defs(defs_tree, n: int):
 
 # --- norms --------------------------------------------------------------------
 
-def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6, *,
+            group=None):
+    """RMS norm over the last dimension in f32. With `group`, x and scale
+    are this rank's slices of a dimension split over the model group: the
+    mean square is the mean of the ranks' means, all-reduced over it (a
+    replicated value feeding every rank's slice, so its backward
+    all-reduces too: g, then f)."""
     dt = x.dtype
     x = x.to(torch.float32)
-    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    ms = torch.mean(x * x, dim=-1, keepdim=True)
+    if group is not None:        # the mean of the ranks' equal slices' means
+        ms = cl.tp_replicate(cl.tp_psum(ms, group), group) \
+            / dist.get_world_size(group)
+    x = x * torch.rsqrt(ms + eps)
     return (x * scale.to(torch.float32)).to(dt)
 
 

@@ -186,12 +186,23 @@ def _combine(yf: torch.Tensor, weights: torch.Tensor, slot_token, slot_valid,
 
 
 def moe_apply(p: dict, x: torch.Tensor, m: MoEConfig, *,
-              act: str = "silu", batch_groups: Sequence = ()):
+              act: str = "silu", batch_groups: Sequence = (), tp_axis=None,
+              layout: dict | None = None):
     """x (B, S, d) -> (y (B, S, d), aux_loss). All B*S tokens are routed
     together, at the capacity of that many tokens. With `batch_groups` of
     more than one rank, x is this rank's rows of the batch the data ranks
     hold together, and the whole batch is routed as one
-    (`_global_routing`: the reference's gspmd step)."""
+    (`_global_routing`: the reference's gspmd step).
+
+    Under model parallelism (`tp_axis`, the leaves' `layout`) the expert
+    leaves are this rank's experts (split at E, the reference's choice
+    when E divides by the group size) or its slice of every expert's ff
+    (w1/w3 by column, w2 by row). The router, top-k, capacity and
+    load-balance term run replicated and identical on every rank; the
+    tokens enter the expert slots, and the routing weights the combine,
+    through the f operator; a rank runs its experts' slots or its ff slice
+    of all of them, and its partial combine leaves through g. The dense
+    residual MLP, when split, is the column/row-split MLP."""
     B, S, d = x.shape
     T = B * S
     xf = x.reshape(T, d)
@@ -203,16 +214,32 @@ def moe_apply(p: dict, x: torch.Tensor, m: MoEConfig, *,
     else:
         cap = slots = capacity(T, m)
         weights, ids, aux = route(xf, p["router"], m)
-    slot_token, slot_valid, slot_wsrc = _dispatch_indices(
-        ids, m, cap, offset=offset, slots=slots)
-    xe = _gather_slots(xf, slot_token, slot_valid).reshape(m.n_experts,
-                                                           slots, d)
+    idx = _dispatch_indices(ids, m, cap, offset=offset, slots=slots)
+    e_loc = p["w1"].shape[0]
+    if tp_axis is not None:
+        xf = cl.tp_replicate(xf, tp_axis)
+        weights = cl.tp_replicate(weights, tp_axis)
+        if layout["w1"] == -3:            # this rank's experts' slots
+            e0 = dist.get_rank(tp_axis) * e_loc
+            idx = tuple(t[e0 * slots:(e0 + e_loc) * slots] for t in idx)
+    slot_token, slot_valid, slot_wsrc = idx
+    xe = _gather_slots(xf, slot_token, slot_valid).reshape(e_loc, slots, d)
     ye = _expert_ffn(p["w1"], p["w2"], p["w3"], xe, act)
-    y = _combine(ye.reshape(m.n_experts * slots, d), weights, slot_token,
+    y = _combine(ye.reshape(e_loc * slots, d), weights, slot_token,
                  slot_valid, slot_wsrc, T).reshape(B, S, d)
+    if tp_axis is not None:
+        y = cl.tp_psum(y, tp_axis)
     if "dense" in p:
-        y = y + mlp.mlp_apply(p["dense"], x, act=act)
+        y = y + _dense(p, x, act, tp_axis, layout)
     return y, aux
+
+
+def _dense(p: dict, x: torch.Tensor, act: str, group, layout) -> torch.Tensor:
+    """The dense residual MLP on the whole x, column/row-split over `group`
+    when the `layout` splits it."""
+    split = layout is not None and layout["dense"]["w1"] is not None
+    return mlp.mlp_apply(p["dense"], x, act=act,
+                         tp_axis=group if split else None)
 
 
 # --- explicit expert parallelism over process groups ----------------------------
@@ -291,7 +318,7 @@ class _GroupMean(torch.autograd.Function):
 def moe_apply_ep(p: dict, x: torch.Tensor, m: MoEConfig, *, act: str,
                  model_group, batch_groups: Sequence = (),
                  fsdp_groups: Sequence = (), wire_bf16_a2a: bool = False,
-                 wgather_wire: str = "bf16"):
+                 wgather_wire: str = "bf16", layout: dict | None = None):
     """Expert parallelism over the process group `model_group` (ep ranks).
 
     x (b_loc, S, d) is this rank's batch shard, replicated over the model
@@ -304,7 +331,9 @@ def moe_apply_ep(p: dict, x: torch.Tensor, m: MoEConfig, *, act: str,
     `wire_bf16_a2a`), runs its experts, exchanges back and adds its tokens'
     outputs; y is all-gathered over the model group, and aux is the mean of
     every source rank's aux over the model and batch groups. Returns (y,
-    aux); the dense residual MLP, when p has one, runs on the whole x."""
+    aux); the dense residual MLP, when p has one, runs on the whole x,
+    column/row-split over the model group when the leaves' `layout`
+    (model parallelism) splits it."""
     if wgather_wire not in ("bf16", "int8"):
         raise ValueError(f"unknown weight-gather wire {wgather_wire!r}")
     ep = dist.get_world_size(model_group)
@@ -355,5 +384,5 @@ def moe_apply_ep(p: dict, x: torch.Tensor, m: MoEConfig, *, act: str,
     y = cl.tp_all_gather(y_my.T, model_group).T.reshape(b, S, d)
     aux = _GroupMean.apply(aux, model_group, list(batch_groups))
     if "dense" in p:
-        y = y + mlp.mlp_apply(p["dense"], x, act=act)
+        y = y + _dense(p, x, act, model_group, layout)
     return y, aux

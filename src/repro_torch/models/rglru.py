@@ -18,9 +18,11 @@ writes the new state and conv tail into the cache's tensors in place.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import RGLRUConfig
+from repro_torch.core import collectives as cl
 from repro_torch.core import planner as pl
 from repro_torch.models import common
 from repro_torch.models.ssm import _causal_conv, _conv_step
@@ -45,15 +47,31 @@ def rglru_defs(d_model: int, r: RGLRUConfig, dtype) -> dict:
     }
 
 
-def _gates(p: dict, x: torch.Tensor, r: RGLRUConfig):
-    """x (..., w) post-conv branch input -> (a, gated input b) in f32."""
-    xf = x.to(torch.float32)
-    rt = torch.sigmoid(xf @ p["w_a"].to(torch.float32) + p["b_a"])
-    it = torch.sigmoid(xf @ p["w_i"].to(torch.float32) + p["b_i"])
+def _gates(p: dict, x: torch.Tensor, r: RGLRUConfig, tp_axis=None):
+    """x (..., w) post-conv branch input -> (a, gated input b) in f32.
+
+    Under model parallelism (`tp_axis`) x is this rank's channels: the
+    whole x is gathered over the group and multiplied by this rank's
+    columns of the replicated (w, w) gate matrices. Both the gathered x
+    and the matrices feed only this rank's channels, so they enter through
+    the f operator, which sums their partial gradients over the group. The
+    gated input reads this rank's channels of the gathered x, so x's three
+    cotangents add up in the order they do without a layout."""
+    xa = x.to(torch.float32)
+    w_a, w_i, xl = p["w_a"], p["w_i"], xa
+    if tp_axis is not None:
+        n = x.shape[-1]
+        c0 = dist.get_rank(tp_axis) * n
+        xa = cl.tp_replicate(cl.tp_all_gather(xa, tp_axis), tp_axis)
+        w_a, w_i = (cl.tp_replicate(w, tp_axis)[:, c0:c0 + n]
+                    for w in (w_a, w_i))
+        xl = xa[..., c0:c0 + n]
+    rt = torch.sigmoid(xa @ w_a.to(torch.float32) + p["b_a"])
+    it = torch.sigmoid(xa @ w_i.to(torch.float32) + p["b_i"])
     log_a = -r.c_constant * F.softplus(p["lam"]) * rt
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) \
-        * (it * xf)
+        * (it * xl)
     return a, b
 
 
@@ -91,9 +109,18 @@ def rglru_prefill(p: dict, x: torch.Tensor, r: RGLRUConfig):
                                 "conv": pre[:, -(r.conv_width - 1):, :]}
 
 
-def rglru_apply(p: dict, x: torch.Tensor, r: RGLRUConfig) -> torch.Tensor:
-    """Full-sequence forward. x (B, S, d_model)."""
-    return rglru_prefill(p, x, r)[0]
+def rglru_apply(p: dict, x: torch.Tensor, r: RGLRUConfig, *,
+                tp_axis=None) -> torch.Tensor:
+    """Full-sequence forward. x (B, S, d_model). Under model parallelism
+    (`tp_axis`) p holds this rank's channels of w_in, w_gate, conv, b_a,
+    b_i and lam and rows of w_out (the gate matrices whole): x enters
+    through the f operator and the out-projection's partial sum leaves
+    through g."""
+    if tp_axis is None:
+        return rglru_prefill(p, x, r)[0]
+    xr = cl.tp_replicate(x, tp_axis)
+    a, b = _gates(p, _causal_conv(xr @ p["w_in"], p["conv"]), r, tp_axis)
+    return cl.tp_psum(_gate_out(p, xr, linear_scan(a, b)), tp_axis)
 
 
 def rglru_init_cache(batch: int, r: RGLRUConfig, dtype, device=None) -> dict:

@@ -25,9 +25,11 @@ tensors in place.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import SSMConfig
+from repro_torch.core import collectives as cl
 from repro_torch.core import planner as pl
 from repro_torch.models import common
 
@@ -159,32 +161,65 @@ def _project(p: dict, u: torch.Tensor) -> tuple:
     return u @ p["w_x"], u @ p["w_B"], u @ p["w_C"], dt
 
 
-def _mix(p: dict, u: torch.Tensor, s: SSMConfig):
+def _local_groups(t: torch.Tensor, H: int, s: SSMConfig, group):
+    """The B or C groups (B, S, G, N) that this rank's H of the n_heads
+    heads read: head h reads group h // (n_heads / G)."""
+    G = t.shape[2]
+    per = H * dist.get_world_size(group) // G     # heads a group
+    h0 = dist.get_rank(group) * H
+    if H % per == 0:
+        return t[:, :, h0 // per:(h0 + H) // per]
+    if per % H == 0:
+        return t[:, :, h0 // per:h0 // per + 1]
+    raise ValueError(f"{H} heads a rank straddle the SSM's groups of {per} "
+                     f"heads")
+
+
+def _mix(p: dict, u: torch.Tensor, s: SSMConfig, tp_axis=None):
     """The mixer over a full sequence: (its output (B, S, d_model), the
-    final state (B, H, N, P) f32, and the pre-conv projections x, B, C)."""
-    B_, S, d_model = u.shape
-    d_inner = s.expand * d_model
-    H = d_inner // s.head_dim
+    final state (B, H, N, P) f32, and the pre-conv projections x, B, C).
+
+    Under model parallelism (`tp_axis`) p holds this rank's heads of w_z,
+    w_x, w_dt, conv_x, A_log, D, dt_bias and norm, and rows of w_out; w_B,
+    w_C, conv_B and conv_C are whole. Every rank computes the shared B and
+    C whole and its heads read them, so the replicated weights behind them
+    enter through the f operator, as u does (once, for all five
+    projections: autograd adds u's cotangents in the order it adds them
+    without a layout); the gated norm averages its mean square over the
+    group, and the out-projection's partial sum leaves through g."""
+    B_, S, _ = u.shape
     G, N = s.n_groups, s.d_state
+    if tp_axis is not None:
+        u = cl.tp_replicate(u, tp_axis)
+        p = {**p, **{n: cl.tp_replicate(p[n], tp_axis)
+                     for n in ("w_B", "w_C", "conv_B", "conv_C")}}
     z = u @ p["w_z"]
     xr, Br, Cr, dt = _project(p, u)
+    H = dt.shape[-1]                        # this rank's heads
+    d_inner = H * s.head_dim
     x = F.silu(_causal_conv(xr, p["conv_x"]))
-    Bm = F.silu(_causal_conv(Br, p["conv_B"]))
-    Cm = F.silu(_causal_conv(Cr, p["conv_C"]))
+    Bm = F.silu(_causal_conv(Br, p["conv_B"])).reshape(B_, S, G, N)
+    Cm = F.silu(_causal_conv(Cr, p["conv_C"])).reshape(B_, S, G, N)
+    if tp_axis is not None:
+        Bm, Cm = (_local_groups(t, H, s, tp_axis) for t in (Bm, Cm))
     A = -torch.exp(p["A_log"])                                # (H,)
     xh = x.reshape(B_, S, H, s.head_dim)
     xdt = xh * dt[..., None].to(xh.dtype)
-    y, final = _ssd_chunked(xdt, dt * A, Bm.reshape(B_, S, G, N),
-                            Cm.reshape(B_, S, G, N), s)
+    y, final = _ssd_chunked(xdt, dt * A, Bm, Cm, s)
     y = y + xh * p["D"][None, None, :, None].to(xh.dtype)
     y = y.reshape(B_, S, d_inner)
-    y = common.rmsnorm(y * F.silu(z), p["norm"])
-    return y @ p["w_out"], final, (xr, Br, Cr)
+    y = common.rmsnorm(y * F.silu(z), p["norm"], group=tp_axis)
+    out = y @ p["w_out"]
+    if tp_axis is not None:
+        out = cl.tp_psum(out, tp_axis)
+    return out, final, (xr, Br, Cr)
 
 
-def ssm_apply(p: dict, u: torch.Tensor, s: SSMConfig) -> torch.Tensor:
-    """Full-sequence forward. u (B, S, d_model) -> (B, S, d_model)."""
-    return _mix(p, u, s)[0]
+def ssm_apply(p: dict, u: torch.Tensor, s: SSMConfig, *,
+              tp_axis=None) -> torch.Tensor:
+    """Full-sequence forward. u (B, S, d_model) -> (B, S, d_model);
+    `tp_axis`: model parallelism over that group (`_mix`)."""
+    return _mix(p, u, s, tp_axis)[0]
 
 
 def ssm_init_cache(batch: int, d_model: int, s: SSMConfig, dtype,

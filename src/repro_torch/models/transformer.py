@@ -22,9 +22,12 @@ body) when autograd records.
 Under model parallelism (`forward(..., tp_axis=group, layout=...)`, the
 layout from `mp_layout`) the parameters are this rank's shards and every
 collective the reference's partitioner would insert is explicit: a
-vocab- or column-split embedding, head-sharded or gathered attention,
-feature-sharded MLPs, a vocab- or row-parallel head and the vocab-parallel
-cross-entropy.
+vocab- or column-split embedding, head-sharded or gathered attention (the
+encoder's and the cross blocks' too), MLA, the SSM and the RG-LRU split
+by head or channel, the experts by expert or ff, feature-sharded MLPs, a
+vocab- or row-parallel head and the vocab-parallel cross-entropy. The
+image projector, the learned positions and the encoder's input projection
+and positions stay replicated ahead of every f operator.
 
 Under FSDP (`forward(..., fsdp=...)`) the parameters are this rank's
 shards over the batch axes, gathered just in time: each pattern repeat's
@@ -133,56 +136,80 @@ class Model:
         `blocks/...` and the encoder's `encoder/blocks/...`."""
         return "blocks" in path
 
-    def check_tensor_parallel(self, what: str) -> None:
-        """Raise unless `what` (model parallelism, or a hybrid plan's tensor
-        parallelism) runs every part of this model: only the "attn" block
-        kind, with no image projector, learned positions or encoder, is
-        ported there."""
-        cfg = self.cfg
-        kinds = [k for k in cfg.block_pattern if k != "attn"]
-        if cfg.encoder is not None:
-            kinds.append("enc")
-        parts = [f"block kind {k!r}" for k in dict.fromkeys(kinds)]
-        if cfg.vlm_img_tokens:
-            parts.append("the image projector img_proj")
-        if cfg.learned_positions:
-            parts.append("the learned positions pos_emb")
-        if parts:
-            raise NotImplementedError(
-                f"{what} is not yet ported for {cfg.name}: "
-                f"{', '.join(parts)}")
-
     # ---------------- forward ----------------
+
+    # the model-sharded dimensions the model-parallel forward runs, by the
+    # leaf's parent and name (a name recurs across kinds: moe's w1 is not
+    # the mlp's); a leaf not named here runs only replicated
+    MP_DIMS = {
+        ("embed",): (-2, -1), ("head",): (-1, -2),
+        **{(a, n): (-1,) for a in ("attn", "xattn")
+           for n in ("wq", "wk", "wv")},
+        ("attn", "wo"): (-2,), ("xattn", "wo"): (-2,),
+        **{(f, n): (-1,) for f in ("mlp", "dense") for n in ("w1", "w3")},
+        ("mlp", "w2"): (-2,), ("dense", "w2"): (-2,),
+        ("mla", "w_uq"): (-1,), ("mla", "w_uk"): (-1,),
+        ("mla", "w_uv"): (-1,), ("mla", "wo"): (-2,),
+        **{("ssm", n): (-1,) for n in ("w_z", "w_x", "w_dt", "A_log", "D",
+                                       "dt_bias", "norm")},
+        ("ssm", "conv_x"): (-2,), ("ssm", "w_out"): (-2,),
+        **{("rec", n): (-1,) for n in ("w_in", "w_gate", "b_a", "b_i",
+                                       "lam")},
+        ("rec", "conv"): (-2,), ("rec", "w_out"): (-2,),
+        # (E, d, ff) at E or ff; (E, ff, d) at E or its ff
+        ("moe", "w1"): (-3, -1), ("moe", "w3"): (-3, -1),
+        ("moe", "w2"): (-3, -2),
+    }
+    # sub-trees whose sharded leaves must be all or none: the mixer's
+    # channels (or heads) and the MLPs' hidden features are one split
+    MP_ALL_OR_NONE = ("mlp", "dense", "ssm", "rec")
 
     def mp_layout(self, planner: pl.Planner) -> dict:
         """The model-sharded dimension of every parameter under `planner`
         (`Planner.model_dims`), checked against the layouts the
-        model-parallel forward runs; any other raises, naming the leaf and
-        its spec. Nothing is replicated in place of a layout it cannot
-        run; a model with parts the model-parallel forward lacks raises
-        (`check_tensor_parallel`)."""
-        self.check_tensor_parallel("model parallelism")
+        model-parallel forward runs (`MP_DIMS`); any other raises, naming
+        the leaf and its spec. Nothing is replicated in place of a layout
+        it cannot run. Every block kind runs under it (an unknown kind
+        raises in `blocks.block_defs`); the image projector, the learned
+        positions and the encoder's input projection and positions stay
+        replicated: they act on replicated activations ahead of every f
+        operator, so their gradients arrive whole on every rank."""
         defs = self.param_defs()
         dims = planner.model_dims(defs, stacked_paths=Model.stacked_path)
         specs = planner.tree_specs(defs, stacked_paths=Model.stacked_path)
-        allowed = {"embed": (-2, -1), "head": (-1, -2), "wq": (-1,),
-                   "wk": (-1,), "wv": (-1,), "w1": (-1,), "w3": (-1,),
-                   "wo": (-2,), "w2": (-2,)}
         for (path, d), spec in zip(tree_lib.leaves_with_paths(dims),
                                    tree_lib.leaves(specs)):
-            if d is not None and d not in allowed.get(path[-1], ()):
+            if d is not None and d not in self.MP_DIMS.get(
+                    tuple(path[-2:]), ()):
                 raise ValueError(
                     f"model parallelism cannot run {'/'.join(path)} with "
                     f"spec {spec}")
-        for name, blk in dims.get("blocks", {}).items():
-            if len({d is None for d in blk["mlp"].values()}) > 1:
+
+        def check(path: tuple, sub: dict) -> None:
+            name, where = path[-1], "/".join(path)
+            if name in self.MP_ALL_OR_NONE:
+                split = {n: d for n, d in sub.items()
+                         if (name, n) in self.MP_DIMS}
+                if len({d is None for d in split.values()}) > 1:
+                    raise ValueError(
+                        f"model parallelism cannot run {where} with some "
+                        f"leaves sharded and some not: {split}")
+            if name in ("attn", "xattn") and \
+                    (sub["wo"] is None) != (sub["wq"] is None):
                 raise ValueError(
-                    f"model parallelism cannot run blocks/{name}/mlp with "
-                    f"some matrices sharded and some not: {blk['mlp']}")
-            if (blk["attn"]["wo"] is None) != (blk["attn"]["wq"] is None):
+                    f"model parallelism cannot run {where} with wq and wo "
+                    f"sharded differently: {sub}")
+            if name == "moe" and (sub["w1"] == -3) != (sub["w2"] == -3):
                 raise ValueError(
-                    f"model parallelism cannot run blocks/{name}/attn with "
-                    f"wq and wo sharded differently: {blk['attn']}")
+                    f"model parallelism cannot run {where} with the "
+                    f"experts split in one matrix and not another: {sub}")
+            for k, v in sub.items():
+                if isinstance(v, dict):
+                    check(path + (k,), v)
+
+        for k, v in dims.items():
+            if isinstance(v, dict):
+                check((k,), v)
         return dims
 
     def _ctx(self, window_override: Optional[int] = None,
@@ -219,11 +246,15 @@ class Model:
         return h
 
     def _encode(self, params: dict, batch: Batch,
-                fsdp: Optional[dict] = None) -> Optional[torch.Tensor]:
+                fsdp: Optional[dict] = None, *, tp_axis=None,
+                layout: Optional[dict] = None) -> Optional[torch.Tensor]:
         """The encoder over the batch's frame embeddings (B, n_frames,
         d_input): bidirectional blocks over learned frame positions, then
         its final norm. None for a model without an encoder. Under FSDP
-        each layer's weights are gathered just before it runs."""
+        each layer's weights are gathered just before it runs; under model
+        parallelism (`tp_axis`, `layout`) its blocks run model-parallel
+        and the replicated input projection and positions act ahead of
+        them."""
         cfg = self.cfg
         if cfg.encoder is None:
             return None
@@ -240,7 +271,10 @@ class Model:
         if "in_proj" in p:
             h = h @ p["in_proj"]
         h = h + p["pos"][None]
-        ctx = self._ctx()
+        ctx = self._ctx(tp_axis=tp_axis)
+        if layout is not None:
+            ctx = dataclasses.replace(ctx,
+                                      layout=layout["encoder"]["blocks"])
         fs = None if fsdp is None else fsdp["encoder"]["blocks"]
         for r in range(cfg.encoder.n_layers):
             h, _ = blocks.block_apply(
@@ -373,9 +407,13 @@ class Model:
                  moe: Optional[dict] = None):
         """(`forward`'s logits, the moe blocks' summed auxiliary loss or
         None)."""
-        ctx = self._ctx(tp_axis=tp_axis,
-                        enc_out=self._encode(params, batch, fsdp),
-                        kv_chunk=kv_chunk, moe=moe)
+        enc = self._encode(params, batch, fsdp, tp_axis=tp_axis,
+                           layout=layout)
+        ctx = self._ctx(tp_axis=tp_axis, enc_out=enc, kv_chunk=kv_chunk,
+                        moe=moe)
+        if enc is not None and layout is not None:
+            ctx = dataclasses.replace(ctx,
+                                      enc_rep=cl.tp_replicate(enc, tp_axis))
         h = self._embed(params, batch, group=tp_axis, layout=layout,
                         fsdp=fsdp)
         h, aux = self._run_blocks(params, h, ctx, layout, fsdp)

@@ -62,10 +62,15 @@ split leaves' sums of squares over their groups. FSDP composes with a
 model axis (both splits on one leaf); mlsl (and so hybrid) refuses it.
 
 MoE models train on the gather dispatch (`models.moe.moe_apply`), as the
-reference's CLIs do, or with `CommConfig(moe_impl="ep")` on the
-expert-parallel one (`models.moe.moe_apply_ep`) over the model group,
-which under FSDP gathers the expert weights itself (int8 with
-`wgather_wire="int8"`); their loss carries the routers' load-balance term.
+reference's CLIs do (under model parallelism a rank runs its experts, or
+its ff slice of every expert), or with `CommConfig(moe_impl="ep")` on the
+expert-parallel one (`models.moe.moe_apply_ep`) over the model group
+(its experts split over it), which under FSDP gathers the expert weights
+itself (int8 with `wgather_wire="int8"`); their loss carries the routers'
+load-balance term. Model parallelism and hybrid plans run every family of
+the registry; under a hybrid plan only the "attn" and "local" layers whose
+heads divide run tensor-parallel (`planner.TP_KINDS`), the others on
+data parallelism with whole weights.
 """
 
 from __future__ import annotations
@@ -276,8 +281,6 @@ def make_train_step(model: Model, optimizer: opt_lib.Optimizer, mesh,
     if mp and hybrid is not None:
         raise ValueError("a hybrid plan has its own model-parallel layers; "
                          "force_model_parallel does not apply")
-    if hybrid is not None:
-        model.check_tensor_parallel("hybrid execution")
     if planner.fsdp and comm.mode == "mlsl":
         raise ValueError("comm=mlsl manages gradient communication "
                          "explicitly and requires replicated (non-FSDP) "

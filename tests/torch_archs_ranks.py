@@ -1,10 +1,14 @@
-"""Rank body for tests/test_torch_archs.py: one gloo rank of the port's mlsl
+"""Rank body for tests/test_torch_archs.py, test_torch_archs_mla.py,
+test_torch_archs_recurrent.py and test_torch_archs_moe.py: one gloo rank
+of the port's mlsl
 train step on a ("node"=2, "local"=4) DeviceMesh, fp32 and int8 + error
-feedback, for each architecture of the attention, recurrent and MoE
-families in turn, each from the reference's weights. Imports torch, numpy and repro_torch only, so the spawned ranks
-never import JAX.
+feedback, for each architecture named on the command line in turn, each
+from the reference's weights. Imports torch, numpy and repro_torch only, so
+the spawned ranks never import JAX.
 
-    python torch_archs_ranks.py RANK WORLD STORE_DIR WEIGHTS_DIR OUT_DIR
+    python torch_archs_ranks.py RANK WORLD STORE_DIR WEIGHTS_DIR OUT_DIR ARCHS
+
+ARCHS is a comma-separated list of architectures.
 
 WEIGHTS_DIR/<arch> is a checkpoint of {"params": ...} (either package's
 format). Writes OUT_DIR/<arch>/<case>/rank<RANK>.json (losses and grad
@@ -31,8 +35,14 @@ from repro_torch.models.transformer import Batch, Model
 from repro_torch.optim import optimizers as opt_lib, schedules
 from repro_torch.train import trainer as tr
 
-ARCHS = ("llava-next-mistral-7b", "whisper-small", "minicpm3-4b",
-         "recurrentgemma-2b", "mamba2-2.7b", "grok-1-314b", "arctic-480b")
+# the archs beside yi-6b's, by the test file that runs them:
+# test_torch_archs.py, _mla.py, _recurrent.py and _moe.py (each file's
+# one-rank and 8-rank train cases take 150-300 s on one worker)
+ATTENTION = ("llava-next-mistral-7b", "whisper-small")
+MLA = ("minicpm3-4b",)
+RECURRENT = ("recurrentgemma-2b", "mamba2-2.7b")
+MOE = ("grok-1-314b", "arctic-480b")
+ARCHS = ATTENTION + MLA + RECURRENT + MOE
 STEPS = 3
 SEQ = 32
 BATCH = 8
@@ -107,13 +117,13 @@ def run_case(arch, case, mesh, weights_dir, out_dir, rank):
 
 
 def run(rank: int, world: int, store_dir: str, weights_dir: str,
-        out_dir: str):
+        out_dir: str, archs: str):
     torch.set_num_threads(1)
     mesh_lib.init_process_group("cpu", rank=rank, world_size=world,
                                 store_dir=store_dir)
     try:
         mesh = mesh_lib.make_hier_mesh(2, 4, device="cpu")
-        for arch in ARCHS:
+        for arch in archs.split(","):
             for case in CASES:
                 run_case(arch, case, mesh, weights_dir, out_dir, rank)
     finally:
@@ -121,5 +131,5 @@ def run(rank: int, world: int, store_dir: str, weights_dir: str,
 
 
 if __name__ == "__main__":
-    r, w, store, weights, out_dir = sys.argv[1:]
-    run(int(r), int(w), store, weights, out_dir)
+    r, w, store, weights, out_dir, archs = sys.argv[1:]
+    run(int(r), int(w), store, weights, out_dir, archs)
