@@ -242,7 +242,23 @@ Phases, each fatal on failure:
                  configuration
                  under `force_model_parallel` on A's int8 + EF wire (I's
                  quant8 launches), losses within rtol 1e-3 of I's;
- 25. report   -- the serve cells' numbers, one JSON line with every kernel
+ 25. dryrun   -- the port's dry-run (`repro_torch.launch.dryrun`: rank
+                 0's step on meta tensors over a fake process group, in a
+                 child process) for cell A's configuration at world size 1
+                 (its predicted parameter, optimizer, gradient and residual
+                 bytes must equal cell A's real train state's, summed from
+                 its tensors) and S-A's full-depth prefill, printed beside
+                 the step, prefill and peaks this run measured: predicted
+                 peak and its ratio to the measured one, the roofline's
+                 t_compute and t_memory, model FLOPs / step / 989e12; then
+                 yi-6b train_4k on pod16x16, grok-1 train_4k on pod2x16x16
+                 (its expert buffers at their upper bound: the step sizes
+                 them from the routed counts) and mamba2 long_500k, each
+                 `ok`;
+ 26. examples -- examples/train_lm_torch.py (tiny preset, mlsl int8 + EF,
+                 20 steps: finite, falling loss) and serve_batched_torch.py
+                 (six requests on the mamba2 smoke model) on the card;
+ 27. report   -- the serve cells' numbers, one JSON line with every kernel
                  (the flash kernel's D-256 instance on a line of its own),
                  then the device line.
 
@@ -880,11 +896,12 @@ def train_phase(torch, label, cfg, comm, *, steps, dp_only, expect,
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    recs, _ = train_lib.train(cfg, comm, steps=steps, batch=batch, seq=seq,
-                              lr=3e-4, optimizer="adamw", dp_only=dp_only,
-                              seed=0, device="cuda",
-                              mesh=None if planner is None else planner.mesh,
-                              planner=planner, **train_kw)
+    recs, state = train_lib.train(cfg, comm, steps=steps, batch=batch,
+                                  seq=seq, lr=3e-4, optimizer="adamw",
+                                  dp_only=dp_only, seed=0, device="cuda",
+                                  mesh=(None if planner is None
+                                        else planner.mesh),
+                                  planner=planner, **train_kw)
     torch.cuda.synchronize()
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
@@ -901,7 +918,21 @@ def train_phase(torch, label, cfg, comm, *, steps, dp_only, expect,
     check(launches == expect, f"{label}: launches {launches} != {expect}")
     return launches, {"step_s": step_s, "first_step_s": recs[0].seconds,
                       "tokens_per_s": batch * positions / step_s,
-                      "peak_bytes": peak, "losses": [r.loss for r in recs]}
+                      "peak_bytes": peak, "losses": [r.loss for r in recs],
+                      "state_bytes": state_bytes(state)}
+
+
+def state_bytes(state) -> dict:
+    """A TrainState's bytes by part, summed from its tensors; the step's
+    gradients have the parameters' shapes and dtypes."""
+    from repro_torch import tree as tree_lib
+
+    def n(tensors):
+        return sum(t.numel() * t.element_size() for t in tensors)
+    params = tree_lib.leaves(state.params)
+    return {"params": n(params),
+            "opt_state": n(tree_lib.leaves(state.opt_state)),
+            "grads": n(params), "residuals": n(state.comm_residuals or ())}
 
 
 def check_hier_plan(cfg, comm):
@@ -2406,6 +2437,162 @@ def families_mp_phase(torch, i_run, i_launches):
     return launches, rec
 
 
+# the dry-run phase's child: a process of its own (the dry-run's fake world
+# must not meet this process's NCCL group) that prints one JSON object of
+# dry-run records: cell A's configuration and S-A's prefill at world size 1,
+# then three combinations on the production meshes
+DRYRUN_CHILD = """
+import dataclasses, json
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.configs import registry
+from repro_torch.configs.shapes import InputShape
+from repro_torch.core.planner import Planner
+from repro_torch.launch import dryrun as d
+from repro_torch.train import trainer as tr
+out = {}
+d.start_fake_world(1)
+mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+cfg = dataclasses.replace(registry.get_config("yi-6b"), n_layers=4)
+out["A"] = d.dryrun_one(
+    "yi-6b", "A", cfg=cfg, shape=InputShape("A", 2048, 8, "train"),
+    comm=tr.CommConfig(**%r), mesh=mesh, mesh_name="host1x1",
+    planner=Planner(mesh=mesh))
+out["S-A"] = d.dryrun_one(
+    "yi-6b", "S-A", shape=InputShape("S-A", 2048, 8, "prefill"), mesh=mesh,
+    mesh_name="host1x1")
+for arch, shape, multi_pod in %r:
+    tag = arch + "__" + shape + ("__pod2x16x16" if multi_pod else "__pod16x16")
+    try:
+        out[tag] = d.dryrun_one(arch, shape, multi_pod=multi_pod)
+    except Exception as e:
+        out[tag] = {"status": "failed", "error": d.failure_reason(e)}
+print(json.dumps(out, default=str))
+"""
+# (arch, shape, multi_pod) of the production-mesh combinations
+DRYRUN_COMBOS = (("yi-6b", "train_4k", False), ("grok-1-314b", "train_4k", True),
+                 ("mamba2-2.7b", "long_500k", False))
+
+
+def _roof_line(rec) -> str:
+    r, m = rec["roofline"], rec["memory"]
+    return (f"args {m['argument_bytes']} B, temp {m['temp_bytes']} B, "
+            f"predicted peak {m['argument_bytes'] + m['temp_bytes']} B; "
+            f"flops {rec['cost_full']['flops']:.4e}, bytes "
+            f"{rec['cost_full']['bytes accessed']:.4e}; t_compute "
+            f"{r['t_compute']:.4f} s, t_memory {r['t_memory']:.4f} s, "
+            f"t_collective {r['t_collective']:.4f} s, dominant "
+            f"{r['dominant']}")
+
+
+def dryrun_phase(a_run, sa_run) -> dict:
+    """The port's dry-run (`repro_torch.launch.dryrun`, on meta tensors in a
+    process of its own) beside what this run measured: cell A's
+    configuration (its predicted parameter, optimizer, gradient and
+    residual bytes must equal cell A's real train state's), S-A's
+    full-depth prefill, and three production-mesh combinations."""
+    phase("dryrun: cell A's configuration and S-A's prefill at world size "
+          "1, then yi-6b train_4k (pod16x16), grok-1 train_4k (pod2x16x16), "
+          "mamba2 long_500k (pod16x16), on meta")
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", DRYRUN_CHILD % (A_COMM, DRYRUN_COMBOS)],
+        cwd=root, env=dict(os.environ, PYTHONPATH=os.path.join(root, "src")),
+        capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"dryrun: the child failed: "
+          f"{proc.stderr[-3000:]}")
+    recs = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(f"  dry-run child {time.perf_counter() - t0:.1f} s")
+    a = recs["A"]
+    check(a["status"] == "ok", f"dryrun A: {a}")
+    log(f"  A predicted state bytes {a['state_bytes']}")
+    log(f"  A real state bytes      {a_run['state_bytes']}")
+    check(a["state_bytes"] == a_run["state_bytes"],
+          "dryrun A: predicted state bytes differ from the real state's")
+    peak = a["memory"]["argument_bytes"] + a["memory"]["temp_bytes"]
+    mflops = a["roofline"]["model_flops"]
+    log(f"  A {_roof_line(a)}")
+    log(f"  A measured: steady step {a_run['step_s']:.4f} s, peak "
+        f"{a_run['peak_bytes']} B; predicted / measured peak "
+        f"{peak / a_run['peak_bytes']:.4f}; model FLOPs {mflops:.4e}: "
+        f"{mflops / a_run['step_s'] / BF16_OPS_PER_S:.4f} of 989e12 a "
+        f"second; roofline max term / step "
+        f"{max(a['roofline']['t_compute'], a['roofline']['t_memory']) / a_run['step_s']:.4f}")
+    sa = recs["S-A"]
+    check(sa["status"] == "ok", f"dryrun S-A: {sa}")
+    sa_peak = sa["memory"]["argument_bytes"] + sa["memory"]["temp_bytes"]
+    prefill = min(r["prefill_s"] for r in sa_run["runs"])
+    log(f"  S-A {_roof_line(sa)}")
+    log(f"  S-A measured: prefill {prefill:.5f} s (fastest run), peak "
+        f"{sa_run['peak_bytes']} B (generate, max_seq 2120; predicted at "
+        f"max_seq 2048); predicted / measured peak "
+        f"{sa_peak / sa_run['peak_bytes']:.4f}; model FLOPs "
+        f"{sa['roofline']['model_flops']:.4e}: "
+        f"{sa['roofline']['model_flops'] / prefill / BF16_OPS_PER_S:.4f} of "
+        f"989e12 a second")
+    out = {"A": {"predicted_peak": peak, "measured_peak": a_run["peak_bytes"],
+                 "step_s": a_run["step_s"], **a["roofline"]},
+           "S-A": {"predicted_peak": sa_peak,
+                   "measured_peak": sa_run["peak_bytes"],
+                   "prefill_s": prefill, **sa["roofline"]}}
+    for arch, shape, multi_pod in DRYRUN_COMBOS:
+        tag = arch + "__" + shape + ("__pod2x16x16" if multi_pod
+                                     else "__pod16x16")
+        rec = recs[tag]
+        if rec["status"] == "ok":
+            log(f"  {tag}: ok, {_roof_line(rec)}")
+            out[tag] = rec["roofline"] | {"memory": rec["memory"]}
+        else:
+            log(f"  {tag}: {rec['status']}: {rec.get('error')}")
+            out[tag] = {"status": rec["status"], "error": rec.get("error")}
+        if rec.get("data_dependent"):
+            log(f"    {rec['data_dependent']}")
+        check(rec["status"] == "ok",
+              f"dryrun {tag}: {rec['status']} {rec.get('error')}")
+    return out
+
+
+def examples_phase(torch) -> dict:
+    """The example twins on the card: train_lm_torch.py (tiny preset, mlsl
+    int8 + EF, 20 steps, finite, falling loss) and serve_batched_torch.py
+    (six requests on the mamba2 smoke model, tokens in the vocabulary)."""
+    import tempfile
+    phase("examples: train_lm_torch.py and serve_batched_torch.py on the card")
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="train_lm_torch_") as tmp:
+        for name, args in (
+                ("train_lm_torch.py", ["--steps", "20", "--comm", "mlsl",
+                                       "--wire", "int8", "--error-feedback",
+                                       "--ckpt", os.path.join(tmp, "ckpt")]),
+                ("serve_batched_torch.py", [])):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, os.path.join(root, "examples", name), *args],
+                cwd=root, env=env, capture_output=True, text=True,
+                timeout=600)
+            check(proc.returncode == 0,
+                  f"examples {name}: {proc.stderr[-3000:]}")
+            lines = proc.stdout.splitlines()
+            for line in lines:
+                log("  " + line)
+            out[name] = {"wall_s": time.perf_counter() - t0}
+            if name.startswith("train"):
+                check("device=cuda" in lines[0], f"{name}: {lines[0]}")
+                losses = [float(l.split()[3]) for l in lines
+                          if l.startswith("step")]
+                check(len(losses) == 2 and all(map(math.isfinite, losses))
+                      and losses[-1] < losses[0], f"{name}: losses {losses}")
+                out[name]["losses"] = losses
+            else:
+                reqs = [l for l in lines if l.startswith("req")]
+                check(len(reqs) == 6 and "on cuda" in lines[-1],
+                      f"{name}: {lines[-1:]}")
+                out[name]["summary"] = lines[-1]
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2535,6 +2722,8 @@ def main() -> int:
                                                       i_launches)
     for k, v in launches.items():
         totals[k] += v
+    runs["dryrun"] = dryrun_phase(runs["A"], serve["S-A"])
+    runs["examples"] = examples_phase(torch)
     check(d256 > 0, "the recurrent cells never launched flash at D 256")
     check(all(v > 0 for v in totals.values()),
           f"a kernel was never launched on the main path: {totals}")

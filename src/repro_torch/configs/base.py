@@ -2,8 +2,9 @@
 
 Ports `repro/configs/base.py` with torch dtypes. Every ported architecture
 is a `ModelConfig` in repro_torch/configs/<id>.py; the registry
-(repro_torch.configs.registry) resolves `--arch <id>` strings.
-`active_param_count_estimate` comes with the dry-run, its only reader.
+(repro_torch.configs.registry) resolves `--arch <id>` strings. The dry-run
+(`launch/dryrun.py`) reads `supports_long_decode`, `is_native_long` and
+`active_param_count_estimate`.
 """
 
 from __future__ import annotations
@@ -124,6 +125,21 @@ class ModelConfig:
     def layer_kind(self, i: int) -> str:
         return self.block_pattern[i % len(self.block_pattern)]
 
+    @property
+    def supports_long_decode(self) -> bool:
+        """True if a 524k-token decode has bounded per-step state."""
+        if self.encoder is not None:
+            return False           # enc-dec full attention (whisper): skipped
+        return True                # SSM/hybrid native; dense via SWA variant
+
+    @property
+    def is_native_long(self) -> bool:
+        kinds = set(self.block_pattern)
+        if kinds <= {"ssm", "rglru", "local"}:
+            return True
+        return (self.attn is not None and self.attn.window is not None
+                and "attn" not in self.block_pattern)
+
 
 def reduce_for_smoke(cfg: ModelConfig, *, d_model: int = 256,
                      n_layers: int | None = None, vocab: int = 512,
@@ -211,3 +227,16 @@ def param_count_estimate(cfg: ModelConfig) -> float:
         # decoder cross-attention
         n += cfg.n_layers * d * 4 * a.n_heads * a.head_dim
     return float(n)
+
+
+def active_param_count_estimate(cfg: ModelConfig) -> float:
+    """Active params per token (MoE: top_k of n_experts)."""
+    if cfg.moe is None:
+        return param_count_estimate(cfg)
+    full = param_count_estimate(cfg)
+    moe_layers = sum(1 for i in range(cfg.n_layers)
+                     if cfg.layer_kind(i) == "moe")
+    all_experts = (moe_layers * cfg.moe.n_experts * 3 * cfg.d_model
+                   * cfg.moe.d_ff)
+    active = moe_layers * cfg.moe.top_k * 3 * cfg.d_model * cfg.moe.d_ff
+    return float(full - all_experts + active)

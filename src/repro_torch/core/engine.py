@@ -76,6 +76,9 @@ class CommConfig:
     # >0: the train forward's attention runs online-softmax over chunks of
     # this many keys (models.attention.chunked_sdpa)
     kv_chunk: int = 0
+    # int8: the quantized GQA KV cache of serving (the dry-run's prefill and
+    # decode read it; the engines take `kv_dtype` themselves)
+    kv_dtype: str = "native"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -281,6 +284,13 @@ def build_plan(grad_struct, comm: CommConfig, mesh, data_axes, *,
                       topo=comm.topo, local_shapes=local_shapes)
 
 
+def bucket_range(bi: int):
+    """The range every collective of bucket `bi`'s exchange runs in: a
+    `torch.profiler.record_function` named "bucket <bi>", which a profile
+    shows and the dry-run's collective log (`launch/roofline.py`) reads."""
+    return torch.profiler.record_function(f"bucket {bi}")
+
+
 @dataclasses.dataclass(frozen=True)
 class CommEngine:
     """Executes an EnginePlan: the single entry point for bucket reduction.
@@ -372,21 +382,22 @@ class CommEngine:
         an accumulator into the result (on the flat int8 route inside the
         gather-side dequantize)."""
         p = self.plan
-        if p.algos[bi] == planner_lib.ALGO_HIER:
+        with bucket_range(bi):
+            if p.algos[bi] == planner_lib.ALGO_HIER:
+                if p.use_ef:
+                    return hier_lib.hier_allreduce_ef(
+                        flat, residual, self.axis_groups, p.hier_spec,
+                        mean=True, acc=acc)
+                return hier_lib.hier_allreduce(flat, self.axis_groups,
+                                               p.hier_spec, mean=True,
+                                               acc=acc), None
             if p.use_ef:
-                return hier_lib.hier_allreduce_ef(
-                    flat, residual, self.axis_groups, p.hier_spec, mean=True,
-                    acc=acc)
-            return hier_lib.hier_allreduce(flat, self.axis_groups,
-                                           p.hier_spec, mean=True,
-                                           acc=acc), None
-        if p.use_ef:
-            return cl.allreduce_ef(flat, residual, self.groups, mean=True,
-                                   backend=p.quant_backend,
-                                   fused=p.fused_quant, acc=acc)
-        return cl.allreduce(flat, self.groups_for(bi), wire=p.wire, mean=True,
-                            backend=p.quant_backend, fused=p.fused_quant,
-                            acc=acc), None
+                return cl.allreduce_ef(flat, residual, self.groups, mean=True,
+                                       backend=p.quant_backend,
+                                       fused=p.fused_quant, acc=acc)
+            return cl.allreduce(flat, self.groups_for(bi), wire=p.wire,
+                                mean=True, backend=p.quant_backend,
+                                fused=p.fused_quant, acc=acc), None
 
     def _reduce_leafwise(self, vals, bi: int):
         """A non-fusable bucket: per leaf, shape-preserving, on the bf16
@@ -394,7 +405,9 @@ class CommEngine:
         wire = self.plan.wire if self.plan.wire != cl.WIRE_INT8 \
             else cl.WIRE_BF16
         groups = self.groups_for(bi)
-        return [cl.allreduce(v, groups, wire=wire, mean=True) for v in vals]
+        with bucket_range(bi):
+            return [cl.allreduce(v, groups, wire=wire, mean=True)
+                    for v in vals]
 
     def reduce_chained(self, grads, residuals):
         """Fused, prioritized, wire-precision gradient exchange: buckets are

@@ -15,7 +15,12 @@ positions starting at 0, and the output in the input dtype.
 Both take the plain version in `ref.py` for tensors that lie on the CPU; for
 CUDA tensors they launch the kernel or raise. They launch on the current
 stream, do not synchronize, and add one to `LAUNCHES["flash_attention"]` per
-launch. The kernel is forward-only, as the reference's is.
+launch. The kernel is forward-only, as the reference's is. For `meta`
+tensors (the dry-run) they return the output's shape through the operator
+`repro_torch::flash_attention_shape`, whose FLOP formula (4 D a visible
+(query, key) pair, the kernel's work) `torch.utils.flop_counter` counts:
+a shape computation, which neither materializes the scores as the plain
+version does nor launches anything.
 
 Each (dtype, D) runs one CUDA kernel: bf16 at D 64, 128 and 256
 (whisper-small's encoder, decoder and cross-attention; yi-6b's and llava's
@@ -60,6 +65,50 @@ _SIGNATURES = {
     "flash_attention_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I)
     + (_I64,) * 12 + (_I, _I, ctypes.c_float, _P, ctypes.POINTER(_I)),
 }
+
+
+def visible_pairs(sq: int, sk: int, *, causal: bool, window) -> int:
+    """The (query, key) pairs the masks leave visible, queries and keys at
+    absolute positions from 0: query i sees keys i - window < j <= i when
+    causal, every key otherwise."""
+    if not causal:
+        return sq * sk
+    w = min(window or sk, sk)
+    head = min(sq, w)
+    return head * (head + 1) // 2 + (sq - head) * w
+
+
+_SHAPE_OP = None
+
+
+def meta_shape_op():
+    """`repro_torch::flash_attention_shape(q, k, v, heads_dim, causal,
+    window)`: the output's shape on `meta`, with its FLOP formula
+    registered with `torch.utils.flop_counter`. Defined at first use; a
+    `FlopCounterMode` copies the formulas when it is made, so the dry-run
+    calls this first."""
+    global _SHAPE_OP
+    if _SHAPE_OP is None:
+        from torch.utils.flop_counter import register_flop_formula
+        lib = torch.library.Library("repro_torch", "FRAGMENT")
+        lib.define("flash_attention_shape(Tensor q, Tensor k, Tensor v, "
+                   "int heads_dim, bool causal, int window) -> Tensor")
+        lib.impl("flash_attention_shape",
+                 lambda q, k, v, heads_dim, causal, window: torch.empty(
+                     q.shape, dtype=q.dtype, device=q.device), "Meta")
+        op = torch.ops.repro_torch.flash_attention_shape
+
+        @register_flop_formula(op)
+        def _flops(q_shape, k_shape, v_shape, heads_dim, causal, window, *,
+                   out_shape=None, **kw):
+            seq = 3 - heads_dim
+            B, H, D = q_shape[0], q_shape[heads_dim], q_shape[-1]
+            return 4 * B * H * D * visible_pairs(
+                q_shape[seq], k_shape[seq], causal=causal,
+                window=window or None)
+
+        _SHAPE_OP = (lib, op)         # the op lives as long as its library
+    return _SHAPE_OP[1]
 
 
 def reset_launches() -> None:
@@ -163,6 +212,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"repeat the KV heads first")
     if q.device.type == "cpu":
         return ref.flash_attention(q, k, v, causal=causal, window=window)
+    if q.device.type == "meta":
+        return meta_shape_op()(q, k, v, 1, causal, window or 0)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -187,6 +238,8 @@ def gqa_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             v.repeat_interleave(g, dim=2).transpose(1, 2), causal=causal,
             window=window)
         return o.transpose(1, 2)
+    if q.device.type == "meta":
+        return meta_shape_op()(q, k, v, 2, causal, window or 0)
     _check_cuda(q, k, v)
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
     _launch(q, k, v, o, heads_dim=2, causal=causal, window=window)

@@ -11,6 +11,11 @@ a CPU tensor takes the plain version in `ref`. `wire_backend` names that
 choice ("cuda" | "torch"; "auto" resolves by device) and rejects a request
 that disagrees with the device, such as "torch" for a CUDA tensor; the
 CommEngine records the resolved name in its EnginePlan.
+
+A `meta` tensor (the dry-run, `launch/dryrun.py`, which runs the step on
+shapes alone) gets outputs of the shapes and dtypes the kernels and their
+plain versions return, and nothing is computed or launched: a shape
+computation, not a fallback. `wire_backend` names it "meta".
 """
 
 from __future__ import annotations
@@ -64,6 +69,11 @@ def wire_backend(requested: str = "auto",
 
     "auto" resolves by device; an explicit request must agree with it."""
     dev = torch.device(device if device is not None else "cpu")
+    if dev.type == "meta" or requested == "meta":
+        if dev.type != "meta":
+            raise ValueError(f"backend 'meta' (the dry-run's shape "
+                             f"computation) needs meta tensors, not {dev}")
+        return "meta"
     if requested not in ("auto",) + BACKENDS:
         raise ValueError(
             f"unknown quantization backend {requested!r}; expected "

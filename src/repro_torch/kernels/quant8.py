@@ -13,8 +13,10 @@ A buffer is viewed as (n_blocks, block) rows with one f32 scale per row;
 `block` is a multiple of LANE and `n_blocks` of TILE_ROWS (callers pad, see
 `repro_torch.kernels.ops`). Each wrapper takes the plain version in
 `ref.py` for a tensor that lies on the CPU; for a CUDA tensor it launches
-its kernel or raises. It launches on the current stream, does not
-synchronize, and adds one to its entry of `LAUNCHES` per launch.
+its kernel or raises; for a `meta` tensor (the dry-run) it returns empty
+outputs of the kernel's shapes and dtypes, a shape computation. It
+launches on the current stream, does not synchronize, and adds one to its
+entry of `LAUNCHES` per launch.
 """
 
 from __future__ import annotations
@@ -89,6 +91,11 @@ def _check_cuda(name: str, t: torch.Tensor, dtypes: tuple) -> None:
         raise ValueError(f"{name} must be 16-byte aligned for vector loads")
 
 
+def _meta(shape: tuple, dtype=torch.float32) -> torch.Tensor:
+    """An output of the dry-run's shape computation."""
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("quant8", _SIGNATURES)
     lib.quant8_error_string.argtypes = [ctypes.c_int]
@@ -114,6 +121,8 @@ def quantize_blocks(x2d: torch.Tensor):
     n_blocks, block = _check_shape(x2d)
     if x2d.device.type == "cpu":
         return ref.quantize_blocks(x2d)
+    if x2d.device.type == "meta":
+        return _meta((n_blocks, block), torch.int8), _meta((n_blocks,))
     _check_cuda("x2d", x2d, (torch.float32, torch.bfloat16))
     q = torch.empty((n_blocks, block), dtype=torch.int8, device=x2d.device)
     s = torch.empty((n_blocks,), dtype=torch.float32, device=x2d.device)
@@ -139,6 +148,9 @@ def quantize_ef_blocks(x2d: torch.Tensor, res2d: torch.Tensor):
             f"input shape {(n_blocks, block)}")
     if x2d.device.type == "cpu":
         return ref.quantize_ef_blocks(x2d, res2d)
+    if x2d.device.type == "meta":
+        return (_meta((n_blocks, block), torch.int8), _meta((n_blocks,)),
+                _meta((n_blocks, block)))
     _check_cuda("x2d", x2d, (torch.float32, torch.bfloat16))
     _check_cuda("res2d", res2d, (torch.float32,))
     q = torch.empty((n_blocks, block), dtype=torch.int8, device=x2d.device)
@@ -157,7 +169,7 @@ def _check_dequant(q2d: torch.Tensor, scales: torch.Tensor, out_dtype):
     if tuple(scales.shape) != shape[:1]:
         raise ValueError(f"scales shape {tuple(scales.shape)} must be "
                          f"{shape[:1]} for a {shape} buffer")
-    if q2d.device.type == "cpu":
+    if q2d.device.type in ("cpu", "meta"):
         return shape
     _check_cuda("q2d", q2d, (torch.int8,))
     _check_cuda("scales", scales, (torch.float32,))
@@ -173,6 +185,8 @@ def dequantize_blocks(q2d: torch.Tensor, scales: torch.Tensor, *,
     n_blocks, block = _check_dequant(q2d, scales, out_dtype)
     if q2d.device.type == "cpu":
         return ref.dequantize_blocks(q2d, scales, out_dtype=out_dtype)
+    if q2d.device.type == "meta":
+        return _meta((n_blocks, block), out_dtype)
     out = torch.empty((n_blocks, block), dtype=torch.float32,
                       device=q2d.device)
     if n_blocks:
@@ -193,6 +207,8 @@ def dequantize_accumulate_blocks(q2d: torch.Tensor, scales: torch.Tensor,
     if q2d.device.type == "cpu":
         return ref.dequantize_accumulate_blocks(q2d, scales, acc,
                                                 out_dtype=out_dtype)
+    if q2d.device.type == "meta":
+        return _meta((n_blocks, block), out_dtype)
     _check_cuda("acc", acc, (torch.float32,))
     out = torch.empty((n_blocks, block), dtype=torch.float32,
                       device=q2d.device)

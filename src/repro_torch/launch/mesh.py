@@ -4,7 +4,10 @@ Ports `repro/launch/mesh.py`. A mesh is a `torch.distributed` DeviceMesh;
 each dimension's process group is what the collectives run over. Meshes:
 ("data", "model") for flat data parallelism (`make_host_mesh`) and
 ("node", "local") for the two-level collectives (`make_hier_mesh`), or
-("node", "local", "model") when the two-level mesh also has a model axis.
+("node", "local", "model") when the two-level mesh also has a model axis;
+the production meshes of the dry-run (`make_production_mesh`): ("data",
+"model") = (16, 16), or ("pod", "data", "model") = (2, 16, 16), the
+reference's shapes and axis names.
 
 A process runs one rank. Under torchrun (`RANK`, `WORLD_SIZE` and
 `LOCAL_RANK` set) the default process group starts from that environment
@@ -117,3 +120,24 @@ def make_hier_mesh(node: int = 2, local: int = 4, model: int = 1,
         shape, names = (node, local, model), ("node", "local", "model")
     _ensure_world(dev, math.prod(shape))
     return init_device_mesh(dev.type, shape, mesh_dim_names=names)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device: torch.device | str | None = None
+                         ) -> DeviceMesh:
+    """The reference's production mesh: ("data", "model") = (16, 16), 256
+    ranks, or with `multi_pod` ("pod", "data", "model") = (2, 16, 16), 512,
+    the "pod" axis an outer data-parallel axis. In the paper's vocabulary the
+    model axis is the node group of hybrid parallelism. The world must have
+    that many ranks: `launch/dryrun.py` starts a fake process group of that
+    size in its own process (no collective moves data there)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    names = ("pod", "data", "model") if multi_pod else ("data", "model")
+    dev = resolve_device(device)
+    _ensure_world(dev, math.prod(shape))
+    return init_device_mesh(dev.type, shape, mesh_dim_names=names)
+
+
+def n_chips(mesh: DeviceMesh) -> int:
+    """The number of ranks (cards) of a mesh."""
+    return math.prod(tuple(mesh.shape))

@@ -95,6 +95,13 @@ def route(xf: torch.Tensor, router_w: torch.Tensor, m: MoEConfig):
                                        xf.shape[0], m)
 
 
+def most_kept(kept: torch.Tensor, cap: int, n_rank_tokens: int) -> int:
+    """The most choices of one expert this rank keeps, read on the host.
+    The dry-run, whose tensors hold no values, puts a shape rule in its
+    place (`launch/dryrun.py:expert_slots_bound`)."""
+    return int(kept.max())
+
+
 def _global_routing(probs: torch.Tensor, ids: torch.Tensor, m: MoEConfig,
                     batch_groups: Sequence):
     """The routing of the whole batch when the data ranks hold its rows in
@@ -107,8 +114,11 @@ def _global_routing(probs: torch.Tensor, ids: torch.Tensor, m: MoEConfig,
     rank's mean probabilities, so that its mean over the ranks is the
     whole batch's)."""
     E = m.n_experts
-    counts = torch.stack([torch.bincount(ids.reshape(-1), minlength=E),
-                          torch.bincount(ids[:, 0], minlength=E)])
+
+    def count(e):
+        return torch.zeros(E, dtype=torch.int64, device=e.device).scatter_add_(
+            0, e, torch.ones_like(e))
+    counts = torch.stack([count(ids.reshape(-1)), count(ids[:, 0])])
     table, rank = counts[None], 0
     for g in reversed(batch_groups):     # innermost axis first
         table = cl._all_gather(table, g)
@@ -118,7 +128,7 @@ def _global_routing(probs: torch.Tensor, ids: torch.Tensor, m: MoEConfig,
     cap = capacity(n_tokens, m)
     offset = torch.sum(table[:rank, 0], dim=0)
     kept = torch.clamp(torch.minimum(counts[0], cap - offset), min=0)
-    slots = max(8, (int(kept.max()) + 7) // 8 * 8)
+    slots = max(8, (most_kept(kept, cap, ids.shape[0]) + 7) // 8 * 8)
     aux = _load_balance(probs, torch.sum(table[:, 1], dim=0).to(
         torch.float32), n_tokens, m)
     return offset, cap, slots, aux

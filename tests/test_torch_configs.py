@@ -8,7 +8,9 @@ of a prefill and its decode steps through each package's engine (equal).
 Every ported config (the attention, recurrent and MoE families' too:
 tests/test_torch_archs.py holds their models) equals the reference's field
 by field, with the same parameter count and parameter-count estimate, and
-the registry holds every architecture of the reference's.
+the registry holds every architecture of the reference's. The paper's CNN
+layer tables (`configs/cnn_tables.py`: ResNet-50, VGG-16, GoogLeNet) equal
+the reference's layer by layer, field by field.
 """
 
 import dataclasses
@@ -19,11 +21,12 @@ import numpy as np
 import pytest
 import torch
 
-from repro.configs import base as jbase, registry as jreg
+from repro.configs import base as jbase, cnn_tables as jcnn, registry as jreg
 from repro.models.transformer import Batch as JBatch, Model as JModel
 from repro.serve import engine as jengine
 from repro_torch import convert
-from repro_torch.configs import base as tbase, registry as treg
+from repro_torch.configs import base as tbase, cnn_tables as tcnn
+from repro_torch.configs import registry as treg
 from repro_torch.models.transformer import Batch as TBatch, Model as TModel
 from repro_torch.serve import engine as tengine
 
@@ -108,3 +111,18 @@ def test_greedy_prefill_and_decode_tokens_match_reference(models):
 
 def test_registry_holds_every_reference_arch():
     assert set(treg.ARCH_IDS) == set(jreg.ARCH_IDS) and len(treg.ARCH_IDS) == 10
+
+
+@pytest.mark.parametrize("topo", sorted(jcnn.TOPOLOGIES))
+def test_cnn_tables_equal_reference(topo):
+    """Every layer of the topology: its name, kind (by value) and the
+    numbers the C2C model and the simulator read, exactly."""
+    assert sorted(tcnn.TOPOLOGIES) == sorted(jcnn.TOPOLOGIES)
+
+    def rows(layers):
+        return [{k: (v.value if hasattr(v, "value") else v)
+                 for k, v in dataclasses.asdict(l).items()} for l in layers]
+
+    got, want = rows(tcnn.TOPOLOGIES[topo]()), rows(jcnn.TOPOLOGIES[topo]())
+    assert len(got) == len(want) > 10
+    assert got == want

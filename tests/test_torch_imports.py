@@ -1,6 +1,7 @@
 """The port stands alone: every module of repro_torch imports with JAX
-blocked, and no source of the port (or chip_smoke.py) imports JAX or the
-JAX package."""
+blocked, and no source of the port (or chip_smoke.py, or an example twin
+`examples/*_torch.py`) imports JAX or the JAX package; each example twin
+runs its argument parser with both blocked."""
 
 import os
 import pathlib
@@ -13,7 +14,8 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+EXAMPLES = sorted((ROOT / "examples").glob("*_torch.py"))
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + EXAMPLES
 
 
 def _modules():
@@ -27,6 +29,9 @@ def test_every_module_imports_without_jax():
     assert "repro_torch.kernels.quant8" in mods
     assert "repro_torch.train.trainer" in mods
     assert "repro_torch.core.api" in mods
+    for m in ("launch.dryrun", "launch.roofline", "configs.shapes",
+              "configs.cnn_tables"):
+        assert f"repro_torch.{m}" in mods
     code = ("import sys, importlib\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
@@ -51,6 +56,31 @@ _FORBIDDEN = re.compile(
 def test_source_imports_neither_jax_nor_reference(path):
     hits = _FORBIDDEN.findall(path.read_text())
     assert not hits, f"{path}: {hits}"
+
+
+def test_example_twins_are_the_four():
+    assert [p.name for p in EXAMPLES] == [
+        "hybrid_parallelism_demo_torch.py", "quickstart_torch.py",
+        "serve_batched_torch.py", "train_lm_torch.py"]
+
+
+@pytest.mark.parametrize("path", EXAMPLES, ids=lambda p: p.name)
+def test_example_twin_parses_its_arguments_without_jax(path):
+    code = ("import runpy, sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['repro'] = None\n"
+            f"sys.argv = [{str(path)!r}, '--help']\n"
+            "try:\n"
+            f"    runpy.run_path({str(path)!r}, run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    assert e.code == 0, e.code\n"
+            "assert not any(k == 'jax' or k.startswith('jax.') for k, v in "
+            "sys.modules.items() if v is not None)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "--device" in proc.stdout
 
 
 def test_forbidden_pattern_catches_reference_imports():

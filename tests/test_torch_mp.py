@@ -805,18 +805,21 @@ def _flips(got, want) -> list:
              for g, w in zip(gs, ws)] for gs, ws in zip(got, want)]
 
 
-def _adam_family_params(final, want_params, max_abs=5e-4):
+def _adam_family_params(final, want_params):
     """The parameters of an AdamW or LAMB run against the reference's:
     their step divides each gradient element by its own scale, so a
     near-zero element whose sign the reduction order flips moves by up to
-    two steps of the learning rate (here 1 to 6 of a leaf's elements, by
-    up to 1.4e-4 on yi-6b). At most 1e-4 of a leaf's elements may exceed
-    1e-4 (the rule of test_gathered_params_match_jax_trainer for LAMB),
-    none `max_abs`."""
+    two steps of the learning rate, where the rest agree to rounding (here
+    1 to 6 of a leaf's elements). The learning rate is the constant
+    FSDP_LR, so the bound is 2 * FSDP_LR on every element; on yi-6b such an
+    element read 1.4e-4 on one CPU and 6.9e-4 on another, which the
+    reduction order of the CPU decides. At most 1e-4 of a leaf's elements
+    may exceed 1e-4 (the rule of test_gathered_params_match_jax_trainer
+    for LAMB)."""
     for a, b in zip(jax.tree_util.tree_leaves(final),
                     jax.tree_util.tree_leaves(want_params)):
         diff = np.abs(np.asarray(a) - b)
-        assert (diff > 1e-4).mean() <= 1e-4 and diff.max() <= max_abs, (
+        assert (diff > 1e-4).mean() <= 1e-4 and diff.max() <= 2 * FSDP_LR, (
             int((diff > 1e-4).sum()), float(diff.max()))
 
 
@@ -836,9 +839,8 @@ def test_fsdp_matches_jax_trainer(port, fsdp_ref, name):
     from their counts per expert), on the ep dispatch each rank's 32
     tokens. There, and with the bf16 weight gather, losses and gradient
     norms are held as yi-6b's (both read within 5e-7 relative) and the
-    parameters by `_adam_family_params`, the gather dispatch's with no
-    element beyond two steps of the learning rate (2 of the embedding's
-    elements read up to 1.1e-3). With the int8 weight gather a code that
+    parameters by `_adam_family_params` (2 of the gather dispatch's
+    embedding elements read up to 1.1e-3). With the int8 weight gather a code that
     the shards' last bits move moves a weight by a step of the quantizer
     (step 2's loss 3.0e-4 apart): routes may move in at most
     FSDP_FLIP_MAX of a layer's 256 tokens after step 0, losses rtol 2e-3,
@@ -860,9 +862,7 @@ def test_fsdp_matches_jax_trainer(port, fsdp_ref, name):
         assert not any(map(any, flips)), flips
     np.testing.assert_allclose(got[:, 0], want[:, 0], rtol=1e-4)
     np.testing.assert_allclose(got[:, 1], want[:, 1], rtol=0, atol=1e-4)
-    gather = cfg_name == "grok" and kw.get("moe_impl", "gather") == "gather"
-    _adam_family_params(final, want_params,
-                        max_abs=2 * FSDP_LR if gather else 5e-4)
+    _adam_family_params(final, want_params)
 
 
 @pytest.mark.parametrize("name", list(FSDP_CASES))

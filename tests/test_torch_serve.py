@@ -8,9 +8,14 @@ Tolerance: atol 1e-4 on logits and native caches (the sums are taken in
 another order). The int8 cache's quantizer is bitwise the reference's on the
 same K/V rows (codes and f16 scales); inside the model the rows differ in
 their last bits, so a row near a rounding edge may move its code by one or
-its f16 scale by one ulp, which the whole-model comparison allows on at most
-one element in a thousand. Such a code moves the next logits by about 2e-4,
-so the int8 decode steps start from the reference's cache.
+its f16 scale by one ulp: the contract (ROADMAP.md, "Serving"). The
+whole-model comparison holds every scale within one ulp of f16 at the
+larger of the two magnitudes, and every code within one, on at most one
+code in a thousand. Scales get no share rule: a row's amax is a sum in
+another order, so whether any of a leaf's 512 scales sits at an f16
+rounding edge depends on the CPU, and one of 512 is already past a share
+of one in a thousand. Such a code moves the next logits by about 2e-4, so
+the int8 decode steps start from the reference's cache.
 
 The smoke config has as many KV heads as query heads; the grouped cases
 give it 2 KV heads for 4 query heads, so that the prefill's and the
@@ -87,10 +92,17 @@ def _assert_trees_close(tcache, jcache, kv_int8):
         assert tuple(t.shape) == a.shape, path
         if kv_int8:
             assert t.dtype in (torch.int8, torch.float16), path
-            t, a = t.numpy().astype(np.float64), a.astype(np.float64)
-            step = 1.0 if path[-1].key in ("k", "v") else 2.0 ** -10 * abs(a)
+            codes = path[-1].key in ("k", "v")
+            t = t.numpy()
+            if codes:
+                step = 1.0
+            else:       # one f16 ulp at the larger of the two magnitudes
+                step = np.spacing(np.maximum(np.abs(t), np.abs(a))).astype(
+                    np.float64)
+            t, a = t.astype(np.float64), a.astype(np.float64)
             assert (np.abs(t - a) <= step).all(), path
-            assert np.mean(t != a) <= 1e-3, path
+            if codes:
+                assert np.mean(t != a) <= 1e-3, path
         else:
             np.testing.assert_allclose(t.numpy(), a, rtol=0, atol=1e-4,
                                        err_msg=str(path))

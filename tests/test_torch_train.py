@@ -4,9 +4,15 @@ trainer on make_host_mesh(1, 1), on converted weights and the same data.
 Three configurations: (a) the default planner, int8 + error feedback, two
 microbatches; (b) dp_only, the same; (c) dp_only, int8 without error
 feedback, one microbatch. The step-0 loss agrees within rtol 1e-5 (the same
-weights, sums in another order); later losses within rtol 1e-4, because a
-rounding tie can flip one int8 code, which moves one gradient element by one
-scale step.
+weights, sums in another order). Later losses are held to the int8 wire's
+contract, rtol 1e-3 (PERF.md §2, "train losses rtol 1e-4 (int8 1e-3)"):
+the gradient's sums run in another order, so a value at a rounding edge of
+the quantizer takes the neighbouring code, which moves its element by one
+scale step (amax/127 of its block of 512); error feedback carries that step
+into the next step's gradient, and AdamW's normalised update spreads it.
+On one CPU the losses of case (a) read 1.07e-4 apart at step 3, on another
+within 1e-4: the count of flipped codes depends on the CPU's summation
+order, the bound on the wire does not.
 """
 
 import json
@@ -102,7 +108,7 @@ def test_losses_match_jax_trainer(jax_params, case):
     want = _jax_losses(jax_params, dp_only, ef, accum)
     got, state = _port_run(jax_params, dp_only, ef, accum)
     np.testing.assert_allclose(got[0], want[0], rtol=1e-5)
-    np.testing.assert_allclose(got, want, rtol=1e-4)
+    np.testing.assert_allclose(got, want, rtol=1e-3)
     assert got[-1] < got[0]
     assert state.step == STEPS
     assert (state.comm_residuals is not None) == ef
