@@ -236,18 +236,37 @@ Phases, each fatal on failure:
                  minicpm3 at 4, recurrentgemma at 3, mamba2 at 8, grok-1
                  and arctic at 1 (2 x 2048 each), the embedding and head
                  replicated (the mp phase holds their vocab-parallel
-                 forms): loss rel 1e-5 and every gradient within 1e-2 of
-                 its largest element (the mp phase's bf16 bound; bitwise
-                 but recurrentgemma); then mamba2 at cell I's
+                 forms): loss and every gradient bitwise (recurrentgemma's
+                 too since the RG-LRU gates' slice of the gathered x
+                 comes after their products: x's cotangents add up in the
+                 dense order), and within 1e-2 of the largest element
+                 (the mp phase's bf16 bound); then mamba2 at cell I's
                  configuration
                  under `force_model_parallel` on A's int8 + EF wire (I's
                  quant8 launches), losses within rtol 1e-3 of I's;
- 25. dryrun   -- the port's dry-run (`repro_torch.launch.dryrun`: rank
+ 25. mp serve -- model-parallel serving over a one-rank NCCL model group
+                 (`Engine` with the mesh and `Planner(mesh)` under
+                 `force_model_parallel`: the layout, the vocab-parallel
+                 embedding and head with the logits gathered, the cache
+                 laid out as the reference's `cache_spec_tree`): S-A's
+                 configuration on S-A's weights (32 flash launches a
+                 prefill) and G-A's grok-1 on the gather dispatch, each
+                 giving its one-card cell's greedy tokens and last-token
+                 logits bitwise (at one rank every f/g operator is a copy
+                 and every product the same kernel on the same operands),
+                 with prefill s, TTFT, decode step and peak beside the
+                 cell's; then G-A on the ep dispatch under
+                 `Planner(mesh, fsdp=True)` over the one-rank data group
+                 with the int8 weight gather (8 new tokens): quantize_blocks
+                 and dequantize_blocks 3 launches a moe layer and prefill,
+                 finite logits, its tokens' agreement with G-A's;
+ 26. dryrun   -- the port's dry-run (`repro_torch.launch.dryrun`: rank
                  0's step on meta tensors over a fake process group, in a
                  child process) for cell A's configuration at world size 1
                  (its predicted parameter, optimizer, gradient and residual
                  bytes must equal cell A's real train state's, summed from
-                 its tensors) and S-A's full-depth prefill, printed beside
+                 its tensors), S-A's full-depth prefill and the mp serve
+                 phase's S-A prefill on its shards, printed beside
                  the step, prefill and peaks this run measured: predicted
                  peak and its ratio to the measured one, the roofline's
                  t_compute and t_memory, model FLOPs / step / 989e12; then
@@ -255,10 +274,10 @@ Phases, each fatal on failure:
                  (its expert buffers at their upper bound: the step sizes
                  them from the routed counts) and mamba2 long_500k, each
                  `ok`;
- 26. examples -- examples/train_lm_torch.py (tiny preset, mlsl int8 + EF,
+ 27. examples -- examples/train_lm_torch.py (tiny preset, mlsl int8 + EF,
                  20 steps: finite, falling loss) and serve_batched_torch.py
                  (six requests on the mamba2 smoke model) on the card;
- 27. report   -- the serve cells' numbers, one JSON line with every kernel
+ 28. report   -- the serve cells' numbers, one JSON line with every kernel
                  (the flash kernel's D-256 instance on a line of its own),
                  then the device line.
 
@@ -356,7 +375,15 @@ def log(*a):
     print(*a, flush=True)
 
 
+_PHASE = {"name": None, "t0": 0.0}
+
+
 def phase(name):
+    """Start phase `name`, logging how long the one before it took."""
+    now = time.perf_counter()
+    if _PHASE["name"] is not None:
+        log(f"  [{_PHASE['name'][:40]}: {now - _PHASE['t0']:.1f} s]")
+    _PHASE.update(name=name, t0=now)
     log(f"== {name}")
 
 
@@ -985,7 +1012,7 @@ def hybrid_planner(cfg, comm, *, batch, seq, n_buckets):
 
 def serve_phase(torch, model, params, label, *, batch, prompt_len, n_new,
                 repeat=1, flash=(N_LAYERS, "wgmma_bf16"), profile=False,
-                check_cache=None, **engine_kw):
+                check_cache=None, mp=None, keep=None, **engine_kw):
     """One serve cell through Engine.generate at full width; `repeat` runs
     it that many times on the same prompts (the greedy tokens must agree).
     Then one prefill and one decode step on the same prompts check that the
@@ -996,14 +1023,20 @@ def serve_phase(torch, model, params, label, *, batch, prompt_len, n_new,
     `profile`, that prefill and 3 decode steps after it run under
     torch.profiler: kernels, summed kernel time against the wall time and
     the top kernels by time. `check_cache(cache)` checks the cache after
-    that prefill and its decode steps."""
+    that prefill and its decode steps. `mp`: the Engine's model-parallel
+    options (mesh, planner, comm, force_model_parallel), which the prefill
+    and decode step take too. `keep` (a dict) receives the first run's
+    tokens and that prefill's last-token logits."""
     from repro_torch.models.transformer import Batch
     from repro_torch.serve.engine import Engine, EngineConfig
     phase(f"serve {label} ({model.cfg.name}): batch {batch}, prompt "
           f"{prompt_len}, {n_new} new tokens, {engine_kw or 'native cache'}")
     positions = prompt_len + model.cfg.vlm_img_tokens
     eng = Engine(model, params, EngineConfig(
-        max_seq=positions + n_new + 8, **engine_kw))
+        max_seq=positions + n_new + 8, **engine_kw), **(mp or {}))
+    step_kw = {**eng.mp_kw, **eng.ctx_kw}
+    if "tp_axis" in step_kw:
+        step_kw["max_seq"] = eng.cfg.max_seq
     prompts = np.random.default_rng(0).integers(
         0, model.cfg.vocab, (batch, prompt_len)).astype(np.int32)
     stub = {k: v.numpy() for k, v in normal_embeds(
@@ -1021,14 +1054,14 @@ def serve_phase(torch, model, params, label, *, batch, prompt_len, n_new,
             params, Batch(tokens=torch.as_tensor(prompts, device=eng.device),
                           **{k: torch.as_tensor(v, device=eng.device)
                              for k, v in stub.items()}),
-            eng.cfg.max_seq, **eng.ctx_kw)
+            eng.cfg.max_seq, **eng.mp_kw, **eng.ctx_kw)
 
     def decode(n):
         out = None
         for i in range(n):
             out, _ = model.decode_step(params, cache, torch.as_tensor(
                 runs[0][0][:, i:i + 1], device=eng.device), pos + i,
-                **eng.ctx_kw)
+                **step_kw)
         return out
 
     split = {}
@@ -1050,6 +1083,8 @@ def serve_phase(torch, model, params, label, *, batch, prompt_len, n_new,
     peak = torch.cuda.max_memory_allocated()
     if check_cache is not None:
         check_cache(cache)
+    if keep is not None:
+        keep.update(tokens=runs[0][0], logits=logits)
     del cache
     prefills = repeat + 1
     per_prefill, variant = flash
@@ -1083,6 +1118,67 @@ def serve_phase(torch, model, params, label, *, batch, prompt_len, n_new,
     return launches, {"batch": batch, "prompt_len": prompt_len,
                       "positions": positions, "new_tokens": n_new,
                       "runs": out, "peak_bytes": peak, **split}
+
+
+def mp_serve_phase(torch, model, params, label, want, *, fsdp=False,
+                   comm=None, **kw):
+    """The serve cell `label` again through `serve_phase` under model
+    parallelism over a one-rank NCCL model group (`make_host_mesh(1, 1)`,
+    `Planner(mesh, fsdp=fsdp)`, `force_model_parallel`), on the same
+    weights and prompts. `want`: the cell's kept tokens and logits. On the
+    gather dispatch (`comm` None) the greedy tokens and the last-token
+    logits must be the cell's bitwise; otherwise the logits must be
+    finite and the tokens' agreement is reported. Returns the launches
+    and the record (with the agreement)."""
+    from repro_torch.core import planner as pl
+    from repro_torch.launch import mesh as mesh_lib
+    mesh = mesh_lib.make_host_mesh(1, 1)
+    got = {}
+    launches, rec = serve_phase(
+        torch, model, params, label, keep=got, mp=dict(
+            mesh=mesh, planner=pl.Planner(mesh=mesh, fsdp=fsdp), comm=comm,
+            force_model_parallel=True), **kw)
+    n = got["tokens"].shape[1]        # a run may take fewer new tokens
+    same_tokens = float(np.mean(got["tokens"] == want["tokens"][:, :n]))
+    err = _max_err(torch, got["logits"], want["logits"])
+    rec.update(tokens_equal=same_tokens, logits_max_abs_err=err,
+               logits_bitwise=bool(torch.equal(got["logits"],
+                                               want["logits"])))
+    log(f"  against the one-card cell: tokens equal {same_tokens:.4f}, "
+        f"last-token logits bitwise {rec['logits_bitwise']} (max abs err "
+        f"{err:.3e})")
+    # what one collective of a decode step costs over the one-rank group:
+    # 200 back-to-back all-reduces of a (batch, 1, d) activation
+    import torch.distributed as dist
+    buf = torch.zeros((kw["batch"], 1, model.cfg.d_model),
+                      dtype=model.cfg.dtype, device="cuda")
+    group = mesh.get_group("model")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        dist.all_reduce(buf, group=group)
+    torch.cuda.synchronize()
+    rec["one_rank_all_reduce_us"] = (time.perf_counter() - t0) / 200 * 1e6
+    log(f"  one-rank all-reduce of a decode step's activation "
+        f"{tuple(buf.shape)}: {rec['one_rank_all_reduce_us']:.1f} us a "
+        f"call (200 back to back)")
+    if comm is None:
+        check(same_tokens == 1.0 and rec["logits_bitwise"],
+              f"{label}: the model-parallel serve differs from the one-card "
+              f"cell's")
+    check(bool(torch.isfinite(got["logits"]).all()),
+          f"{label}: logits not finite")
+    return launches, rec
+
+
+def _beside(label, rec, base) -> None:
+    """Log a model-parallel serve run's times and peak beside its cell's."""
+    a, b = rec["runs"][0], base["runs"][0]
+    log(f"  {label} against its cell: prefill {a['prefill_s']:.5f} / "
+        f"{b['prefill_s']:.5f} s, TTFT {a['ttft_s']:.5f} / {b['ttft_s']:.5f}"
+        f" s, decode step {a['decode_step_s']:.6f} / "
+        f"{b['decode_step_s']:.6f} s, peak {rec['peak_bytes']} / "
+        f"{base['peak_bytes']} B")
 
 
 def _cli_plan(comm, hier: bool, arch: str = "yi-6b"):
@@ -1647,14 +1743,47 @@ def family_serve_phase(torch):
                             "cuda")
         log(f"{arch} at {cfg.n_layers} layers: {model.n_params():,} "
             f"parameters on the card")
+        want = {}
         launches, serve[label] = serve_phase(torch, model, params, label,
-                                             flash=flash, profile=True, **kw)
+                                             flash=flash, profile=True,
+                                             keep=want, **kw)
         serve[label]["n_params"] = model.n_params()
         for k, v in launches.items():
             totals[k] = totals.get(k, 0) + v
-        del model, params
+        if label == "G-A":
+            for k, v in mp_ga(torch, model, params, want, flash, kw,
+                              serve).items():
+                totals[k] = totals.get(k, 0) + v
+        del model, params, want
         torch.cuda.empty_cache()
     return totals, serve
+
+
+def mp_ga(torch, model, params, want, flash, kw, serve) -> dict:
+    """The mp serve phase's G-A runs: the gather dispatch (G-A's tokens and
+    logits bitwise), then the ep dispatch under FSDP over the one-rank
+    data group on the int8 weight gather (3 quant8 launches of each kind a
+    moe layer and prefill). Their records go into `serve`; returns their
+    launches."""
+    from repro_torch.train import trainer as tr
+    kw = {**kw, "repeat": 1}
+    layers = model.cfg.n_layers
+    launches, serve["mp G-A"] = mp_serve_phase(torch, model, params,
+                                               "mp G-A", want, flash=flash,
+                                               **kw)
+    _beside("mp G-A", serve["mp G-A"], serve["G-A"])
+    # 8 new tokens: each decode step copies every weight through the
+    # one-rank FSDP gather (about 0.24 s a step on an H100, PERF.md §6)
+    ep, serve["mp G-A ep int8"] = mp_serve_phase(
+        torch, model, params, "mp G-A ep int8", want, fsdp=True,
+        comm=tr.CommConfig(moe_impl="ep", wgather_wire="int8"), flash=flash,
+        **{**kw, "n_new": 8})
+    _beside("mp G-A ep int8", serve["mp G-A ep int8"], serve["G-A"])
+    # the generate's prefill and serve_phase's own: 2 prefills
+    check(ep["quantize_blocks"] == 3 * layers * 2
+          and ep["dequantize_blocks"] == 3 * layers * 2,
+          f"mp G-A ep int8: the int8 weight gather launched {ep}")
+    return {k: launches[k] + ep[k] for k in launches}
 
 
 def train_h_phase(torch, zero):
@@ -2333,10 +2462,10 @@ FAMILIES_MP = (
 FAMILY_GRADS_ON_HOST = 8 * 2**30
 # bf16 gradients, of each leaf's largest element: the mp phase's bf16
 # bound. At one rank the f/g operators are copies and each f sits where
-# autograd adds the same cotangents in the same order as without a layout:
-# the CPU shows every family bitwise in bf16, and the card all but
-# recurrentgemma, whose gradients differ there by about one bf16 rounding
-# step of the largest element with its loss bitwise
+# autograd adds the same cotangents in the same order as without a layout,
+# so every family's loss and gradients are also held bitwise (the RG-LRU
+# gates' slice of the gathered x follows their products for that:
+# scripts/rglru_mp_check.py)
 FAMILY_GRAD_TOL = 1e-2
 
 
@@ -2412,7 +2541,7 @@ def families_mp_phase(torch, i_run, i_launches):
             f"({worst_leaf}), bitwise {same}; forward and backward "
             f"{s1:.3f} s (without a "
             f"layout {s0:.3f} s); peak {peak / 2**30:.2f} GiB")
-        check(math.isclose(l1, l0, rel_tol=1e-5) and worst <= FAMILY_GRAD_TOL,
+        check(same and worst <= FAMILY_GRAD_TOL,
               f"families mp: {arch}'s model-parallel forward differs from "
               f"the dense one")
         rec[arch] = {"loss": l1, "dense_loss": l0, "worst_grad_err": worst,
@@ -2439,8 +2568,10 @@ def families_mp_phase(torch, i_run, i_launches):
 
 # the dry-run phase's child: a process of its own (the dry-run's fake world
 # must not meet this process's NCCL group) that prints one JSON object of
-# dry-run records: cell A's configuration and S-A's prefill at world size 1,
-# then three combinations on the production meshes
+# dry-run records: when asked, cell A's configuration, S-A's prefill and
+# the mp serve phase's S-A prefill (model-parallel over a model axis of one
+# rank) at world size 1, then the given combinations on the production
+# meshes. The phase runs three children at once (DRYRUN_CHILDREN)
 DRYRUN_CHILD = """
 import dataclasses, json
 from torch.distributed.device_mesh import init_device_mesh
@@ -2450,16 +2581,21 @@ from repro_torch.core.planner import Planner
 from repro_torch.launch import dryrun as d
 from repro_torch.train import trainer as tr
 out = {}
-d.start_fake_world(1)
-mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
-cfg = dataclasses.replace(registry.get_config("yi-6b"), n_layers=4)
-out["A"] = d.dryrun_one(
-    "yi-6b", "A", cfg=cfg, shape=InputShape("A", 2048, 8, "train"),
-    comm=tr.CommConfig(**%r), mesh=mesh, mesh_name="host1x1",
-    planner=Planner(mesh=mesh))
-out["S-A"] = d.dryrun_one(
-    "yi-6b", "S-A", shape=InputShape("S-A", 2048, 8, "prefill"), mesh=mesh,
-    mesh_name="host1x1")
+if %r:
+    d.start_fake_world(1)
+    mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+    cfg = dataclasses.replace(registry.get_config("yi-6b"), n_layers=4)
+    out["A"] = d.dryrun_one(
+        "yi-6b", "A", cfg=cfg, shape=InputShape("A", 2048, 8, "train"),
+        comm=tr.CommConfig(**%r), mesh=mesh, mesh_name="host1x1",
+        planner=Planner(mesh=mesh))
+    out["S-A"] = d.dryrun_one(
+        "yi-6b", "S-A", shape=InputShape("S-A", 2048, 8, "prefill"),
+        mesh=mesh, mesh_name="host1x1", planner=Planner(mesh=mesh))
+    out["mp S-A"] = d.dryrun_one(
+        "yi-6b", "mp S-A", shape=InputShape("S-A", 2048, 8, "prefill"),
+        mesh=mesh, mesh_name="host1x1", planner=Planner(mesh=mesh),
+        force_model_parallel=True)
 for arch, shape, multi_pod in %r:
     tag = arch + "__" + shape + ("__pod2x16x16" if multi_pod else "__pod16x16")
     try:
@@ -2471,6 +2607,9 @@ print(json.dumps(out, default=str))
 # (arch, shape, multi_pod) of the production-mesh combinations
 DRYRUN_COMBOS = (("yi-6b", "train_4k", False), ("grok-1-314b", "train_4k", True),
                  ("mamba2-2.7b", "long_500k", False))
+# (the world-size-1 records?, the combinations) of each concurrent child
+DRYRUN_CHILDREN = ((True, ()), (False, DRYRUN_COMBOS[1:2]),
+                   (False, DRYRUN_COMBOS[0:1] + DRYRUN_COMBOS[2:]))
 
 
 def _roof_line(rec) -> str:
@@ -2484,25 +2623,28 @@ def _roof_line(rec) -> str:
             f"{r['dominant']}")
 
 
-def dryrun_phase(a_run, sa_run) -> dict:
+def dryrun_phase(a_run, sa_run, mp_sa_run) -> dict:
     """The port's dry-run (`repro_torch.launch.dryrun`, on meta tensors in a
     process of its own) beside what this run measured: cell A's
     configuration (its predicted parameter, optimizer, gradient and
     residual bytes must equal cell A's real train state's), S-A's
     full-depth prefill, and three production-mesh combinations."""
-    phase("dryrun: cell A's configuration and S-A's prefill at world size "
-          "1, then yi-6b train_4k (pod16x16), grok-1 train_4k (pod2x16x16), "
+    phase("dryrun: cell A's configuration, S-A's prefill and mp S-A's at "
+          "world size 1, then yi-6b train_4k (pod16x16), grok-1 train_4k (pod2x16x16), "
           "mamba2 long_500k (pod16x16), on meta")
     root = os.path.dirname(os.path.abspath(__file__))
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-c", DRYRUN_CHILD % (A_COMM, DRYRUN_COMBOS)],
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", DRYRUN_CHILD % (ws1, A_COMM, combos)],
         cwd=root, env=dict(os.environ, PYTHONPATH=os.path.join(root, "src")),
-        capture_output=True, text=True, timeout=600)
-    check(proc.returncode == 0, f"dryrun: the child failed: "
-          f"{proc.stderr[-3000:]}")
-    recs = json.loads(proc.stdout.strip().splitlines()[-1])
-    log(f"  dry-run child {time.perf_counter() - t0:.1f} s")
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for ws1, combos in DRYRUN_CHILDREN]
+    recs = {}
+    for proc in procs:
+        out, err = proc.communicate(timeout=600)
+        check(proc.returncode == 0, f"dryrun: a child failed: {err[-3000:]}")
+        recs.update(json.loads(out.strip().splitlines()[-1]))
+    log(f"  dry-run children {time.perf_counter() - t0:.1f} s")
     a = recs["A"]
     check(a["status"] == "ok", f"dryrun A: {a}")
     log(f"  A predicted state bytes {a['state_bytes']}")
@@ -2530,11 +2672,23 @@ def dryrun_phase(a_run, sa_run) -> dict:
         f"{sa['roofline']['model_flops']:.4e}: "
         f"{sa['roofline']['model_flops'] / prefill / BF16_OPS_PER_S:.4f} of "
         f"989e12 a second")
+    mp = recs["mp S-A"]
+    check(mp["status"] == "ok", f"dryrun mp S-A: {mp}")
+    mp_peak = mp["memory"]["argument_bytes"] + mp["memory"]["temp_bytes"]
+    mp_prefill = min(r["prefill_s"] for r in mp_sa_run["runs"])
+    log(f"  mp S-A {_roof_line(mp)}")
+    log(f"  mp S-A measured: prefill {mp_prefill:.5f} s, peak "
+        f"{mp_sa_run['peak_bytes']} B (generate, max_seq 2120; predicted "
+        f"at max_seq 2048); predicted / measured peak "
+        f"{mp_peak / mp_sa_run['peak_bytes']:.4f}")
     out = {"A": {"predicted_peak": peak, "measured_peak": a_run["peak_bytes"],
                  "step_s": a_run["step_s"], **a["roofline"]},
            "S-A": {"predicted_peak": sa_peak,
                    "measured_peak": sa_run["peak_bytes"],
-                   "prefill_s": prefill, **sa["roofline"]}}
+                   "prefill_s": prefill, **sa["roofline"]},
+           "mp S-A": {"predicted_peak": mp_peak,
+                      "measured_peak": mp_sa_run["peak_bytes"],
+                      "prefill_s": mp_prefill, **mp["roofline"]}}
     for arch, shape, multi_pod in DRYRUN_COMBOS:
         tag = arch + "__" + shape + ("__pod2x16x16" if multi_pod
                                      else "__pod16x16")
@@ -2649,8 +2803,10 @@ def main() -> int:
     check(model.cfg.n_layers == N_LAYERS, "yi-6b is not 32 layers deep")
     params = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
     log(f"yi-6b: {model.n_params():,} parameters on the card")
+    sa_out = {}
     for label, kw in (
-            ("S-A", dict(batch=8, prompt_len=2048, n_new=64, repeat=2)),
+            ("S-A", dict(batch=8, prompt_len=2048, n_new=64, repeat=2,
+                         keep=sa_out)),
             ("S-B", dict(batch=1, prompt_len=8192, n_new=32,
                          long_context=True)),
             ("S-C", dict(batch=8, prompt_len=2048, n_new=64,
@@ -2659,6 +2815,13 @@ def main() -> int:
                                              **kw)
         for k, v in launches.items():
             totals[k] += v
+    launches, serve["mp S-A"] = mp_serve_phase(
+        torch, model, params, "mp S-A", sa_out, batch=8, prompt_len=2048,
+        n_new=64)
+    _beside("mp S-A", serve["mp S-A"], serve["S-A"])
+    for k, v in launches.items():
+        totals[k] += v
+    del sa_out
     launches, serve["obs S-A"] = obs_serve_phase(torch, model, params)
     for k, v in launches.items():
         totals[k] += v
@@ -2722,7 +2885,7 @@ def main() -> int:
                                                       i_launches)
     for k, v in launches.items():
         totals[k] += v
-    runs["dryrun"] = dryrun_phase(runs["A"], serve["S-A"])
+    runs["dryrun"] = dryrun_phase(runs["A"], serve["S-A"], serve["mp S-A"])
     runs["examples"] = examples_phase(torch)
     check(d256 > 0, "the recurrent cells never launched flash at D 256")
     check(all(v > 0 for v in totals.values()),

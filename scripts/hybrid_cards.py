@@ -4,7 +4,7 @@ the cards of one host, against the data-parallel twin.
 
     python3 scripts/hybrid_cards.py [--nproc 4] [--device cuda]
                                     [--parts check,cells,stats,mp,ep,fsdp,
-                                             families]
+                                             families,serve]
 
 Both parts run on --nproc ranks through torchrun, for each mesh (node,
 local) of --meshes (default 1x4 and 2x2), twice: hybrid (the C2C
@@ -128,6 +128,46 @@ for every family, in one process a rank (NCCL):
     shape, and its share of the step at 6 all-to-alls a layer (2 in the
     forward, 2 in the checkpoint's recomputation, 2 in the backward).
 
+serve (only when asked for: `--parts serve`): model-parallel serving
+(`Engine` with a mesh and a planner), in one process a rank (NCCL). The
+weights are drawn one leaf at a time, a stacked leaf one repeat at a
+time, each from a generator seeded by (seed, leaf path, repeat), and each
+rank keeps its shards (`seeded_params`): no card holds a whole stacked
+leaf, and every layout draws the same weights.
+  * yi-6b at full width and depth, for each seed of YI_SEEDS (weights
+    and prompts): rank 0 alone serves the whole model (SERVE_BATCH x
+    SERVE_PROMPT prompts, YI_STEPS greedy decode steps) and evaluates the
+    same bf16 weights in f32 on the same tokens (the witness); the greedy
+    tokens are then teacher-forced through (data, model) = (1, --nproc)
+    and (2, --nproc / 2) under `Planner(mesh)`. At the prefill and every
+    step (relative RMS over the step's batch x vocabulary) a layout's
+    distance to the f32 evaluation is within YI_F32_FACTOR of the one-card
+    run's own, and its distance to the one-card run within YI_ONE_FACTOR
+    of that (both derived at the constants); the first greedy token is
+    equal in every row but those where the two runs' measured errors at
+    the two competing logits reach the one-card run's gap between them
+    (`_first_tokens`). At the first seed a control run at (1, --nproc)
+    with model rank 1's `wo` shard zeroed in every layer must fail the
+    bounds, and each layout generates SERVE_NEW tokens for its times;
+  * grok-1 at full width cut to SERVE_GROK_LAYERS of its 64 layers (8
+    experts, 2 a card at 4 ranks) at (1, --nproc) under `Planner(mesh)`,
+    SERVE_BATCH x SERVE_PROMPT prompts and SERVE_NEW greedy tokens, on the
+    gather dispatch and again with `moe_impl="ep"` (its prefill on the
+    expert-parallel dispatch; the decode gathers, as the reference's):
+    prefill s, TTFT, mean decode step, tok/s, each rank's peak allocated
+    bytes (under 80 GB), and the all-reduces' share of the prefill and of
+    a decode step (2 a layer and the embedding's, each timed on a buffer
+    of its shape). Each grok-1 run is warmed up by a 2-token generate.
+    Then, at a capacity factor where neither dispatch drops a token
+    (n_experts / top_k), the gather dispatch's prefill of the same
+    prompts runs every moe layer on the ep dispatch too, on the same
+    input: each layer's ep output within GROK_MOE_TOL of the gather's
+    (relative RMS over every token; derived at the constant), and a
+    control with rank 1's `w2` zeroed in the first layer on the ep side
+    must fail it. The ep dispatch's own prefill at that capacity gives
+    the two cascades' last-token logits apart (recorded, not held: see
+    GROK_MOE_TOL).
+
 Writes everything to --out as JSON and exits non-zero if a run fails or a
 pair disagrees. `--device cpu` runs the same on gloo ranks (a rehearsal:
 no time it prints is a device's; `--cells-config smoke --cells-seq 32`
@@ -162,6 +202,48 @@ FAMILIES = (("minicpm3-4b", 4, None), ("recurrentgemma-2b", 3, None),
             ("llava-next-mistral-7b", 4, 1472))
 GROK_LAYERS = 2
 GROK_BATCH = 4
+# serve part: grok-1's depth, the traffic (G-A's and S-A's), the yi-6b
+# pairs' teacher-forced steps
+SERVE_GROK_LAYERS = 16
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 2048, 64
+YI_STEPS = 16
+YI_SEEDS = (0, 1, 2)
+# the yi-6b layouts' bounds, against the f32 evaluation of the same bf16
+# weights (the witness). A layout and the one-card run are bf16
+# evaluations of one function, each at its own rounding distance from it.
+# A layout rounds where the one card rounds and, in two sublayers a layer
+# (the attention's and the MLP's out-projections), more: each of its p
+# partial products (each at 1/sqrt(p) of the output's RMS) once and the
+# all-reduce's p - 1 partial sums (k/p of it in variance for the k-th),
+# in place of the one GEMM output rounding: 1 + (p(p+1)/2 - 1)/p units of
+# a rounding's variance against 1, that is 3.25 at p 4 and 2 at p 2. Of
+# the ~14 roundings a layer's output passes in the one-card run (the
+# norm, q, k, v, the softmax, the attention output, the out-projection,
+# the residual add; the norm, gate, up, their product, down, the add)
+# the layout adds 2 x 2.25 units at p 4 (2 x 1 at p 2), so its variance
+# grows by about 32% (14%), its distance by about 1.15x (1.07x). The bound
+# YI_F32_FACTOR is sqrt(2): a layout's extra roundings as many as all of
+# the one card's own, three times the count above. The two runs' errors
+# are at most independent, so the layout lies from the one-card run
+# within sqrt(1 + 2) of the one card's own distance: YI_ONE_FACTOR
+YI_F32_FACTOR = 2 ** 0.5
+YI_ONE_FACTOR = 3 ** 0.5
+# grok-1's moe layers, ep against gather on the same input at a capacity
+# where neither drops a token: the same f32 routes, the same two expert
+# products a token from the same bf16 weights and rows. They differ in
+# the expert GEMMs' row counts (another tiling may round an output one
+# ulp apart) and in the combine: the gather dispatch adds a rank's
+# weighted products and then the ranks' partials in the all-reduce (zeros
+# are exact: at most one more rounding a token), the ep dispatch the two
+# returned products. So an element differs by at most about two bf16
+# roundings (u = 2^-8 each at most u/2 of it), a relative RMS of at most
+# about u = 3.9e-3; the bound is 2.5 times that. The two dispatches'
+# prefills in full are not held: a layer's rounding moves the next
+# layer's router logits, and a token whose second and third experts are
+# that close may take another expert from there on, which no rounding
+# bound covers
+GROK_MOE_TOL = 1e-2
+HBM = 80e9
 
 
 def bf16_param_bound(a, b, lrs):
@@ -863,6 +945,421 @@ def families_worker(args) -> int:
     return 0
 
 
+def serve_part(args, work: pathlib.Path) -> tuple:
+    out = work / "serve.json"
+    proc = _torchrun(args.nproc, [
+        str(pathlib.Path(__file__).resolve()), "--worker", "serve",
+        "--device", args.device, "--cells-config", args.cells_config,
+        "--cells-seq", str(args.cells_seq), "--worker-out", str(out)],
+        args.timeout)
+    r = json.loads(out.read_text()) if out.exists() else {}
+    r["rc"] = proc.returncode
+    for seed, yi in r.get("yi", {}).items():
+        print(f"serve yi-6b seed {seed} one card, bf16 against f32: "
+              f"relative RMS {max(yi['one_card_vs_f32']):.3e}", flush=True)
+        for name, run in yi["layouts"].items():
+            print(f"serve yi-6b seed {seed} {name}: to f32 "
+                  f"{max(run['rel_rms_f32']):.3e} (worst step ratio "
+                  f"{run['f32_ratio']:.3f} to the one card's, bound "
+                  f"{YI_F32_FACTOR:.3f}), to the one card "
+                  f"{run['worst_rel_rms']:.3e} (ratio {run['one_ratio']:.3f}"
+                  f", bound {YI_ONE_FACTOR:.3f}), first tokens equal in "
+                  f"{run['first_tokens_equal']} rows, ties "
+                  f"{run['first_token_ties']}; {_times(run)}", flush=True)
+    grok = r.get("grok", {})
+    for name in ("gather", "ep"):
+        if name in grok:
+            print(f"serve grok-1 {name}: {_times(grok[name])}", flush=True)
+    if "moe_layers" in grok:
+        g = grok["moe_layers"]
+        print(f"serve grok-1 moe layers, ep against gather on the same "
+              f"input (no drops): worst relative RMS "
+              f"{max(g['rel_rms']):.3e} (bound {GROK_MOE_TOL}); control "
+              f"{g['control_rel_rms']:.3e}; the two prefills' last-token "
+              f"logits {g['prefill_logits_rel_rms']:.3e} apart, first "
+              f"tokens equal in {g['prefill_first_tokens_equal']} rows",
+              flush=True)
+    ok = proc.returncode == 0 and r.get("agree", False)
+    print(f"serve: {'agree' if ok else 'FAILED'}", flush=True)
+    if not ok:
+        print(proc.stdout[-3000:], proc.stderr[-4000:], file=sys.stderr)
+    return r, ok
+
+
+def _times(run: dict) -> str:
+    t = run.get("times")
+    if not t:
+        return ""
+    return (f"prefill {t['prefill_s']:.4f} s, TTFT {t['ttft_s']:.4f} s, "
+            f"decode step {t['decode_step_s']:.5f} s, "
+            f"{t['decode_tok_s']:.1f} tok/s; peak a rank "
+            f"{run.get('peak_bytes')}")
+
+
+def seeded_params(torch, model, dev, *, seed=0, planner=None, mesh=None):
+    """This rank's shards under `planner` on `mesh` (the whole parameters
+    without one) of weights drawn one leaf at a time, a stacked leaf one
+    repeat at a time, each from a generator seeded by (seed, leaf path,
+    repeat): the same weights under every layout, and at most one
+    repeat of one leaf drawn whole at a time."""
+    import dataclasses
+    import zlib
+    from repro_torch import convert, tree as tree_lib
+    from repro_torch.models import common
+    from repro_torch.train import trainer as tr
+    specs = (tr.param_specs(model, planner) if planner is not None else
+             tree_lib.tree_map(lambda pd: (None,) * len(pd.shape),
+                               model.param_defs()))
+    coord = (None if mesh is None else
+             {a: mesh.get_local_rank(a) for a in mesh.mesh_dim_names})
+    sizes = {"_": 1} if mesh is None else None
+
+    def draw(path, pd, shape, key):
+        gen = torch.Generator(device=dev).manual_seed(zlib.crc32(
+            f"{seed}/{'/'.join(path)}/{key}".encode()))
+        return common.init_param(gen, dataclasses.replace(pd, shape=shape),
+                                 dev)
+
+    def cut(t, spec):
+        return convert.shard_params({"x": t}, {"x": spec},
+                                    sizes or mesh, coord or {})["x"]
+
+    def one(path, pd, spec):
+        if not model.stacked_path(path):
+            return cut(draw(path, pd, pd.shape, "-"), spec)
+        out = None
+        for r in range(pd.shape[0]):
+            part = cut(draw(path, pd, pd.shape[1:], r), spec[1:])
+            if out is None:
+                out = part.new_empty((pd.shape[0], *part.shape))
+            out[r] = part
+            del part
+        return out
+    return tree_lib.map_with_path(one, model.param_defs(), specs)
+
+
+def _serve_times(torch, engine, prompts, n_new, dev) -> tuple:
+    """`engine.generate` timed: (the tokens, prefill s, TTFT, the mean
+    decode step after the first, tok/s; each rank's peak allocated
+    bytes)."""
+    import torch.distributed as dist
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    dist.barrier()
+    t = {}
+    toks = engine.generate(prompts, n_new, timings=t)
+    steady = t["decode_s"][1:] or t["decode_s"]
+    step = sum(steady) / len(steady)
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" \
+        else None
+    peaks = [None] * dist.get_world_size()
+    dist.all_gather_object(peaks, peak)
+    return toks, {"prefill_s": t["prefill_s"],
+                  "ttft_s": t["first_token_s"], "decode_step_s": step,
+                  "decode_tok_s": prompts.shape[0] / step}, peaks
+
+
+def _teacher_forced(torch, model, params, engine, prompts, teacher,
+                    dev) -> list:
+    """The prefill's and each step's logits (f32, on the host) of the
+    whole batch, `teacher` (B, steps) fed to the decode steps."""
+    from repro_torch.models.transformer import Batch
+    kw = {**engine.mp_kw, **engine.ctx_kw}
+    if "tp_axis" in kw:
+        kw["max_seq"] = engine.cfg.max_seq
+    rows = torch.as_tensor(engine.rows(prompts), device=dev)
+    logits, cache, pos = model.prefill(
+        params, Batch(tokens=rows), engine.cfg.max_seq,
+        **{k: v for k, v in kw.items() if k != "max_seq"})
+    out = [engine.whole(logits).float().cpu()]
+    tf = torch.as_tensor(engine.rows(teacher), device=dev)
+    for i in range(teacher.shape[1]):
+        logits, cache = model.decode_step(params, cache, tf[:, i:i + 1],
+                                          pos + i, **kw)
+        out.append(engine.whole(logits).float().cpu())
+    del cache
+    return out
+
+
+def _first_tokens(got, one, f32) -> dict:
+    """The first greedy token of each row against the one-card run's. A
+    row whose tokens differ is a tie bf16 does not resolve when the two
+    runs' measured errors (to the f32 evaluation) at the two competing
+    logits, the one card's token and the layout's, reach the one-card
+    run's gap between them: the roundings alone can then swap the two.
+    Ties are counted the same way for every row (the competing logit of
+    a row whose tokens agree is the one card's second), and a differing
+    row that is no tie fails."""
+    i1 = one.argmax(-1)
+    i2 = one.topk(2, dim=-1).indices[:, 1]
+    equal = got.argmax(-1) == i1
+    j = got.argmax(-1).where(~equal, i2)
+
+    def at(t, i):
+        return t.gather(-1, i[:, None])[:, 0]
+    gap = at(one, i1) - at(one, j)
+    reach = sum((at(e, i1).abs() + at(e, j).abs())
+                for e in (one - f32, got - f32))
+    ties = gap <= reach
+    return {"first_tokens_equal": int(equal.sum()),
+            "first_token_ties": int(ties.sum()),
+            "first_tokens_held": bool((equal | ties).all())}
+
+
+def _rel_rms(a, b) -> float:
+    return float((a - b).square().mean().sqrt() / b.square().mean().sqrt())
+
+
+def serve_worker(args) -> int:
+    """One rank of the serve part (see the module docstring)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import registry
+    from repro_torch.core import planner as pl
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models.transformer import Model
+    from repro_torch.serve.engine import Engine, EngineConfig
+    from repro_torch.train import trainer as tr
+    dev = mesh_lib.resolve_device(args.device)
+    n = args.nproc
+    cells = args.cells_config == "cells"
+    prompt = SERVE_PROMPT if cells else args.cells_seq
+    new = SERVE_NEW if cells else 4
+    steps = YI_STEPS if cells else 4
+    mp_mesh = mesh_lib.make_host_mesh(1, n, device=dev)
+    rank0 = dist.get_rank() == 0
+    rec = {"device": [torch.cuda.get_device_name(dev)]
+           if dev.type == "cuda" else ["cpu rehearsal"], "yi": {}}
+    agree = True
+
+    def get(arch):
+        return registry.get_config(arch) if cells else \
+            registry.get_smoke_config(arch)
+
+    # bf16 also in a rehearsal (the smoke config's f32 would be its own
+    # witness)
+    cfg = dataclasses.replace(get("yi-6b"), dtype=torch.bfloat16)
+    for seed in YI_SEEDS:
+        yi = _yi_seed(torch, Model(cfg), mp_mesh, dev, seed=seed,
+                      prompt=prompt, steps=steps,
+                      new=new if seed == YI_SEEDS[0] else None)
+        rec["yi"][seed] = yi
+        agree = agree and yi.get("agree", True)
+
+    # grok-1 at SERVE_GROK_LAYERS layers over the model group of n ranks
+    cfg = get("grok-1-314b")
+    if cells:
+        cfg = dataclasses.replace(cfg, n_layers=SERVE_GROK_LAYERS)
+    model = Model(cfg)
+    prompts = np.random.default_rng(1).integers(
+        0, cfg.vocab, (SERVE_BATCH, prompt)).astype(np.int32)
+    planner = pl.Planner(mesh=mp_mesh)
+    params = seeded_params(torch, model, dev, planner=planner, mesh=mp_mesh)
+    grok = {"config": f"{cfg.name} n_layers={cfg.n_layers} "
+                      f"({model.n_params():,} parameters), (1, {n}) "
+                      f"Planner(mesh), {SERVE_BATCH} x {prompt}, {new} "
+                      f"new tokens, greedy"}
+    group = mp_mesh.get_group("model")
+    # the all-reduces' times on buffers of their shapes: the prefill's
+    # (batch, prompt, d) and a decode step's (batch, 1, d), 2 a layer and
+    # the embedding's
+    calls = 2 * cfg.n_layers + 1
+    for kind, shape in (("prefill", (SERVE_BATCH, prompt, cfg.d_model)),
+                        ("decode", (SERVE_BATCH, 1, cfg.d_model))):
+        buf = torch.zeros(shape, dtype=cfg.dtype, device=dev)
+        grok[f"all_reduce_{kind}_s"] = _median_s(
+            torch, lambda: dist.all_reduce(buf, group=group))
+        del buf
+    for name, comm in (("gather", tr.CommConfig()),
+                       ("ep", tr.CommConfig(moe_impl="ep"))):
+        eng = Engine(model, params, EngineConfig(max_seq=prompt + new + 8),
+                     mesh=mp_mesh, planner=planner, comm=comm)
+        # a warm-up: the ep dispatch's first all-to-all sets up NCCL's
+        # peer-to-peer connections, the first prefill the allocator's pool
+        eng.generate(prompts, 2)
+        toks, times, peaks = _serve_times(torch, eng, prompts, new, dev)
+        run = {"times": times, "peak_bytes": peaks,
+               "tokens_in_vocab": bool(((toks >= 0) & (toks < cfg.vocab))
+                                       .all()),
+               "all_reduce_share_prefill": calls * grok[
+                   "all_reduce_prefill_s"] / times["prefill_s"],
+               "all_reduce_share_decode": calls * grok[
+                   "all_reduce_decode_s"] / times["decode_step_s"]}
+        if name == "gather":
+            grok_tokens = toks
+        else:
+            run["tokens_equal_gather"] = float((toks == grok_tokens).mean())
+        run["agree"] = run["tokens_in_vocab"] and all(
+            p is None or p < HBM for p in peaks)
+        agree = agree and run["agree"]
+        grok[name] = run
+        del eng
+    m = cfg.moe
+    nodrop = Model(dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=m.n_experts / m.top_k)))
+    g = _moe_layers(torch, nodrop, params, mp_mesh, planner, prompts,
+                    prompt + 8, dev)
+    g["agree"] = max(g["rel_rms"]) <= GROK_MOE_TOL \
+        and g["control_rel_rms"] > GROK_MOE_TOL
+    agree = agree and g["agree"]
+    grok["moe_layers"] = g
+    rec["grok"] = grok
+    rec["agree"] = agree
+    if rank0:
+        pathlib.Path(args.worker_out).write_text(json.dumps(rec))
+    dist.destroy_process_group()
+    return 0
+
+
+def _yi_seed(torch, model, mp_mesh, dev, *, seed, prompt, steps, new):
+    """yi-6b's layouts against the one-card run and the f32 witness, at
+    weights and prompts of `seed` (see the module docstring); `new`: also
+    the control and each layout's times over that many new tokens."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from repro_torch import tree as tree_lib
+    from repro_torch.core import planner as pl
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models.transformer import Model
+    from repro_torch.serve.engine import Engine, EngineConfig
+    cfg, n = model.cfg, dist.get_world_size()
+    rank0 = dist.get_rank() == 0
+    max_seq = prompt + max(new or 0, steps) + 8
+    ecfg = EngineConfig(max_seq=max_seq)
+    prompts = np.random.default_rng(seed).integers(
+        0, cfg.vocab, (SERVE_BATCH, prompt)).astype(np.int32)
+    teacher = torch.zeros((SERVE_BATCH, steps), dtype=torch.int32,
+                          device=dev)
+    one_card, f32, yi = [], [], {
+        "config": f"{cfg.name} ({model.n_params():,} parameters), "
+                  f"{SERVE_BATCH} x {prompt}, {steps} teacher-forced steps, "
+                  f"seed {seed}",
+        "layouts": {}}
+    if rank0:
+        whole = seeded_params(torch, model, dev, seed=seed)
+        eng = Engine(model, whole, ecfg)
+        teacher.copy_(torch.as_tensor(eng.generate(prompts, steps),
+                                      device=dev))
+        one_card = _teacher_forced(torch, model, whole, eng, prompts,
+                                   teacher.cpu().numpy(), dev)
+        # the witness: the same bf16 weights evaluated in f32, how far
+        # the one-card bf16 run itself lies from the function it rounds
+        model32 = Model(dataclasses.replace(cfg, dtype=torch.float32))
+        whole = tree_lib.tree_map(lambda t: t.float(), whole)
+        f32 = _teacher_forced(torch, model32, whole,
+                              Engine(model32, whole, ecfg), prompts,
+                              teacher.cpu().numpy(), dev)
+        yi["one_card_vs_f32"] = [_rel_rms(a, b) for a, b in zip(one_card,
+                                                                f32)]
+        del whole, eng, model32
+    dist.broadcast(teacher, 0)
+    teacher = teacher.cpu().numpy()
+    layouts = [("1x%d" % n, (1, n), False), ("2x%d" % (n // 2), (2, n // 2),
+                                            False)]
+    if new:
+        layouts.append(("1x%d zeroed wo shard" % n, (1, n), True))
+    agree = True
+    for name, (data, msize), control in layouts:
+        mesh = mp_mesh if data == 1 else mesh_lib.make_host_mesh(
+            data, msize, device=dev)
+        planner = pl.Planner(mesh=mesh)
+        params = seeded_params(torch, model, dev, seed=seed, planner=planner,
+                               mesh=mesh)
+        if control and mesh.get_local_rank("model") == 1:
+            params["blocks"]["p0_attn"]["attn"]["wo"].zero_()
+        eng = Engine(model, params, ecfg, mesh=mesh, planner=planner)
+        got = _teacher_forced(torch, model, params, eng, prompts, teacher,
+                              dev)
+        run = {}
+        if new and not control:
+            _, run["times"], run["peak_bytes"] = _serve_times(
+                torch, eng, prompts, new, dev)
+        if rank0:
+            own = yi["one_card_vs_f32"]
+            errs = [_rel_rms(a, b) for a, b in zip(got, one_card)]
+            to32 = [_rel_rms(a, b) for a, b in zip(got, f32)]
+            run.update(rel_rms=errs, worst_rel_rms=max(errs),
+                       rel_rms_f32=to32,
+                       f32_ratio=max(a / b for a, b in zip(to32, own)),
+                       one_ratio=max(a / b for a, b in zip(errs, own)),
+                       **_first_tokens(got[0], one_card[0], f32[0]))
+            within = run["f32_ratio"] <= YI_F32_FACTOR and \
+                run["one_ratio"] <= YI_ONE_FACTOR
+            # the control must fail the bounds
+            run["agree"] = (not within) if control else \
+                within and run["first_tokens_held"]
+            agree = agree and run["agree"]
+        yi["layouts"][name] = run
+        del params, eng, got
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    yi["agree"] = agree
+    return yi
+
+
+def _moe_layers(torch, model, params, mesh, planner, prompts, max_seq,
+                dev) -> dict:
+    """The gather dispatch's prefill of `prompts` with every moe layer
+    run on the ep dispatch too, on the same input: each layer's relative
+    RMS of the ep output against the gather's (the cascade follows the
+    gather's), and the first layer's with rank 1's `w2` shard zeroed on
+    the ep side (the control); then the ep dispatch's own prefill, and
+    its last-token logits against the gather's."""
+    import torch.distributed as dist
+    from repro_torch.models import blocks, moe
+    from repro_torch.models.transformer import Batch
+    from repro_torch.serve.engine import Engine, EngineConfig
+    from repro_torch.train import trainer as tr
+    cfg = model.cfg
+    ecfg = EngineConfig(max_seq=max_seq)
+    gather = Engine(model, params, ecfg, mesh=mesh, planner=planner)
+    ep_eng = Engine(model, params, ecfg, mesh=mesh, planner=planner,
+                    comm=tr.CommConfig(moe_impl="ep"))
+    ep = ep_eng.mp_kw["moe"]
+    group = ep["model_group"]
+    errs, control = [], []
+    residual = blocks._moe_residual
+
+    def both(p, h, ctx):
+        x = blocks.norm_apply(p["ln2"], h, cfg)
+        tp, lay = ctx.sub_tp("moe")
+        y, aux = moe.moe_apply(p["moe"], x, cfg.moe, act=cfg.mlp_act,
+                               batch_groups=ctx.batch_groups, tp_axis=tp,
+                               layout=lay)
+
+        def on_ep(pm):
+            return moe.moe_apply_ep(
+                pm, x, cfg.moe, act=cfg.mlp_act, model_group=group,
+                batch_groups=ep["batch_groups"], wgather_wire="bf16",
+                layout=lay)[0]
+        errs.append(_rel_rms(on_ep(p["moe"]).float(), y.float()))
+        if not control:
+            pm = p["moe"]
+            if dist.get_rank(group) == 1:
+                pm = {**pm, "w2": torch.zeros_like(pm["w2"])}
+            control.append(_rel_rms(on_ep(pm).float(), y.float()))
+        return h + y, aux
+
+    tokens = torch.as_tensor(prompts, device=dev)
+    blocks._moe_residual = both
+    try:
+        logits_g = model.prefill(params, Batch(tokens=tokens), max_seq,
+                                 **gather.mp_kw)[0].float().cpu()
+    finally:
+        blocks._moe_residual = residual
+    logits_e = model.prefill(params, Batch(tokens=tokens), max_seq,
+                             **ep_eng.mp_kw)[0].float().cpu()
+    return {"capacity_factor": cfg.moe.capacity_factor, "rel_rms": errs,
+            "control_rel_rms": control[0],
+            "prefill_logits_rel_rms": _rel_rms(logits_e, logits_g),
+            "prefill_first_tokens_equal": int(
+                (logits_e.argmax(-1) == logits_g.argmax(-1)).sum())}
+
+
 def _median_s(torch, fn, n=5):
     """The median host time of fn() over n calls after one warm-up, each
     ending in a device synchronize and a barrier."""
@@ -1081,7 +1578,7 @@ def main() -> int:
                                          "hybrid_cards.json"))
     ap.add_argument("--worker", choices=["hybrid", "dp", "stats", "mp",
                                          "ep", "fsdp-pair", "fsdp-full",
-                                         "families"],
+                                         "families", "serve"],
                     default=None,
                     help=argparse.SUPPRESS)
     ap.add_argument("--arch", default="yi-6b", help=argparse.SUPPRESS)
@@ -1095,6 +1592,8 @@ def main() -> int:
         return fsdp_worker(args)
     if args.worker == "families":
         return families_worker(args)
+    if args.worker == "serve":
+        return serve_worker(args)
     if args.worker:
         return worker(args)
     if args.device == "cuda":
@@ -1130,6 +1629,9 @@ def main() -> int:
         ok = ok and good
     if "families" in parts:
         report["families"], good = families_part(args, work)
+        ok = ok and good
+    if "serve" in parts:
+        report["serve"], good = serve_part(args, work)
         ok = ok and good
     shutil.rmtree(work, ignore_errors=True)
     pathlib.Path(args.out).write_text(json.dumps(report, indent=1))

@@ -31,13 +31,13 @@ counted run.
 
 Training runs `trainer.make_train_step` on rank 0's shards (the planner's
 specs; `sharded_state`), the global batch as the argument, rank 0 taking
-its rows. Serving runs `Model.prefill` / `Model.decode_step`, which the
-port runs on one rank with whole parameters (its serving has no model
-axis): rank 0 takes its rows of the batch over the batch axes and the
-whole weights, and the record's `planned` entry gives the per-rank bytes
-the planner's layout (`cache_spec_tree`, the parameter specs) would hold.
-The quant8 and flash wrappers give `meta` tensors their outputs' shapes
-(`kernels/ops.py`). A step that reads a value on the host (`.item()`)
+its rows. Serving runs `Model.prefill` / `Model.decode_step` on rank 0's
+parameter shards, its rows of the batch over the batch axes and, for a
+decode, its shard of the cache under the reference's cache layout
+(`serve.engine.cache_spec_tree`), under the planner's layout, FSDP splits
+and moe dispatch (`serve.engine.serving_options`; `--moe-impl ep` takes
+the ep dispatch's prefill). The quant8 and flash wrappers give `meta`
+tensors their outputs' shapes (`kernels/ops.py`). A step that reads a value on the host (`.item()`)
 cannot run on `meta`, and its record is `failed` with that reason. One
 size the port takes from the data has a shape rule on `meta` instead: the
 gspmd gather dispatch of a MoE model at dp > 1 sizes each rank's expert
@@ -85,6 +85,7 @@ from repro_torch.launch import roofline as rf
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.transformer import Batch, Model
 from repro_torch.optim import optimizers as opt_lib
+from repro_torch.serve.engine import cache_spec_tree, serving_options
 from repro_torch.train import trainer as tr
 
 META = torch.device("meta")
@@ -157,14 +158,6 @@ def param_specs_meta(model: Model, planner: Planner):
                                   tr.param_specs(model, planner))
 
 
-def whole_params_meta(model: Model):
-    """The whole parameters as `meta` tensors (what the port's serving
-    path holds on a rank)."""
-    return tree_lib.tree_map(
-        lambda pd: torch.empty(pd.shape, dtype=pd.dtype, device=META),
-        model.param_defs())
-
-
 def train_state_meta(model: Model, optimizer, mesh, planner: Planner,
                      comm: tr.CommConfig) -> tr.TrainState:
     """Rank 0's train state on `meta`: its parameter shards, the optimizer
@@ -197,53 +190,6 @@ def batch_specs(cfg: ModelConfig, shape: InputShape, *, with_labels: bool,
         frame_embeds=(t(B, cfg.encoder.n_frames, cfg.encoder.d_input,
                         dtype=torch.bfloat16)
                       if cfg.encoder is not None else None))
-
-
-def cache_spec_tree(cache, planner: Planner, batch: int, mesh):
-    """Rank 0's shard of a decode-cache tree under the reference's cache
-    layout (`repro/launch/dryrun.py:cache_spec_tree`), by leaf name: the
-    batch over the batch axes, then the KV heads (or else the sequence),
-    MLA's latent sequence, the SSM's heads, the conv channels or the
-    RG-LRU width over the model axis where they divide. Returns (the shard
-    `meta` tensors, the spec tree)."""
-    ms, mx = planner.model_size, planner.model_axis
-    baxes = planner.batch_spec_axes(batch)
-    lead = baxes if len(baxes) > 1 else (baxes[0] if baxes else None)
-
-    def div(n):
-        return ms > 1 and n % ms == 0
-
-    def spec_of(path, t):
-        keys = [str(k) for k in path]
-        off = 1 if "blocks" in keys else 0
-        name = keys[-1]
-        dims = [None] * t.dim()
-        if t.dim() > off:
-            dims[off] = lead
-        if name in ("k", "v", "k_s", "v_s"):       # (B, S, KV, hd|1)
-            if div(t.shape[off + 2]):
-                dims[off + 2] = mx
-            elif div(t.shape[off + 1]):
-                dims[off + 1] = mx
-        elif name in ("ckv", "kpe"):               # (B, S, r)
-            if div(t.shape[off + 1]):
-                dims[off + 1] = mx
-        elif name == "state":                      # (B, H, N, P)
-            if div(t.shape[off + 1]):
-                dims[off + 1] = mx
-        elif name in ("conv", "conv_x", "conv_B", "conv_C"):  # (B, W-1, C)
-            if div(t.shape[off + 2]):
-                dims[off + 2] = mx
-        elif name == "h":                          # (B, width)
-            if div(t.shape[off + 1]):
-                dims[off + 1] = mx
-        return tuple(dims)
-
-    specs = tree_lib.map_with_path(spec_of, cache)
-    shards = tree_lib.map_with_path(
-        lambda _, t, s: torch.empty(shard_shape(t.shape, s, mesh),
-                                    dtype=t.dtype, device=META), cache, specs)
-    return shards, specs
 
 
 # --------------------------------------------------------------------------
@@ -401,9 +347,9 @@ def _opt_for(cfg: ModelConfig):
 
 def _ctx_kw(cfg: ModelConfig, shape: InputShape,
             comm: tr.CommConfig) -> dict:
-    """The serving options of a combination. The reference's also passes
-    the ep dispatch's mesh options; the port's serving runs the gather
-    dispatch on one rank, so those have no counterpart."""
+    """The serving options of a combination beside the model-parallel ones
+    (`serve.engine.serving_options`, which carry the reference's ep mesh
+    options)."""
     kw = {}
     if shape.name == "long_500k" and not cfg.is_native_long:
         kw["window_override"] = cfg.long_context_window
@@ -439,9 +385,14 @@ def build_train(cfg, shape, mesh, planner, comm):
     return step_fn, (state, batch), parts, _nbytes(batch) // dp
 
 
-def build_prefill(cfg, shape, mesh, planner, comm):
+def build_prefill(cfg, shape, mesh, planner, comm, *,
+                  force_model_parallel: bool = False):
+    """(step, args, the state's bytes by part, rank 0's batch bytes): the
+    prefill on rank 0's parameter shards and rows."""
     model = Model(cfg)
-    kw = _ctx_kw(cfg, shape, comm)
+    kw = {**serving_options(model, mesh, planner, comm,
+                            force_model_parallel=force_model_parallel),
+          **_ctx_kw(cfg, shape, comm)}
 
     def fn(params, batch):
         logits, cache, _ = model.prefill(params, batch, shape.seq_len, **kw)
@@ -449,45 +400,34 @@ def build_prefill(cfg, shape, mesh, planner, comm):
 
     batch = batch_specs(cfg, shape, with_labels=False,
                         rows=_rows(shape, planner))
-    params = whole_params_meta(model)
+    params = param_specs_meta(model, planner)
     return fn, (params, batch), {"params": _nbytes(params)}, _nbytes(batch)
 
 
-def build_decode(cfg, shape, mesh, planner, comm):
+def build_decode(cfg, shape, mesh, planner, comm, *,
+                 force_model_parallel: bool = False):
+    """The decode step on rank 0's parameter shards, rows and cache
+    shard."""
     model = Model(cfg)
-    kw = _ctx_kw(cfg, shape, comm)
+    ctx_kw = _ctx_kw(cfg, shape, comm)
+    kw = {**serving_options(model, mesh, planner, comm,
+                            force_model_parallel=force_model_parallel),
+          **ctx_kw}
+    if "tp_axis" in kw:
+        kw["max_seq"] = shape.seq_len
     rows = _rows(shape, planner)
 
     def fn(params, cache, token, pos):
         return model.decode_step(params, cache, token, pos, **kw)
 
-    params = whole_params_meta(model)
-    cache = model.init_cache(rows, shape.seq_len, device=META, **kw)
+    params = param_specs_meta(model, planner)
+    cache, _ = cache_spec_tree(
+        model.init_cache(shape.global_batch, shape.seq_len, device=META,
+                         **ctx_kw), planner, shape.global_batch, mesh)
     token = torch.empty((rows, 1), dtype=torch.int32, device=META)
     args = (params, cache, token, shape.seq_len - 1)
     return fn, args, {"params": _nbytes(params),
                       "cache": _nbytes(cache)}, _nbytes(token)
-
-
-def planned_serving_bytes(cfg, shape, comm, planner: Planner) -> dict:
-    """Rank 0's bytes under the planner's layout (the reference's): its
-    parameter shards and, for a decode, its shard of the whole batch's
-    cache (`cache_spec_tree`)."""
-    model = Model(cfg)
-    specs = tr.param_specs(model, planner)
-    out = {"params": sum(
-        math.prod(shard_shape(pd.shape, s, planner.mesh)) * torch.empty(
-            (), dtype=pd.dtype).element_size()
-        for pd, s in zip(tree_lib.leaves(model.param_defs()),
-                         tree_lib.leaves(specs)))}
-    if shape.kind == "decode":
-        kw = _ctx_kw(cfg, shape, comm)
-        cache = model.init_cache(shape.global_batch, shape.seq_len,
-                                 device=META, **kw)
-        out["cache"] = _nbytes(cache_spec_tree(cache, planner,
-                                               shape.global_batch,
-                                               planner.mesh)[0])
-    return out
 
 
 BUILDERS = {"train": build_train, "prefill": build_prefill,
@@ -532,11 +472,14 @@ def dryrun_one(arch: str, shape_name: str, *, multi_pod: bool = False,
                cfg: Optional[ModelConfig] = None,
                shape: Optional[InputShape] = None,
                mesh=None, mesh_name: Optional[str] = None,
-               planner: Optional[Planner] = None) -> dict:
+               planner: Optional[Planner] = None,
+               force_model_parallel: bool = False) -> dict:
     """One combination's record. `cfg`, `shape`, `mesh` (with
     `mesh_name`) and `planner` override the registry's config,
     `SHAPES[shape_name]`, the production mesh and `make_planner`'s choice
-    (e.g. a train cell's configuration at world size 1)."""
+    (e.g. a train cell's configuration at world size 1);
+    `force_model_parallel` serves model-parallel over a model axis of one
+    rank too."""
     cfg = cfg or registry.get_config(arch)
     shape = shape or SHAPES[shape_name]
     comm = comm or tr.CommConfig()
@@ -598,8 +541,10 @@ def dryrun_one(arch: str, shape_name: str, *, multi_pod: bool = False,
             rec["telemetry"] = telemetry_path
 
     t0 = time.time()
+    extra = {} if train else {"force_model_parallel": force_model_parallel}
     fn, args, parts, batch_bytes = BUILDERS[shape.kind](cfg, shape, mesh,
-                                                        planner, comm)
+                                                        planner, comm,
+                                                        **extra)
     rec["lower_s"] = time.time() - t0
     run = run_counted(fn, *args)
     rec["compile_s"] = run.seconds
@@ -619,10 +564,6 @@ def dryrun_one(arch: str, shape_name: str, *, multi_pod: bool = False,
             "capacity, rank 0's tokens) slots an expert: the step sizes them "
             "from the routed counts, which meta tensors do not hold; FLOPs, "
             "bytes and temp_bytes are upper bounds")
-    if not train:
-        rec["serving"] = ("whole parameters a rank (the port's serving has "
-                          "no model axis)")
-        rec["planned"] = planned_serving_bytes(cfg, shape, comm, planner)
     rec["cost_full"] = {"flops": run.flops,
                         "bytes accessed": run.bytes_accessed}
     if stats is not None:

@@ -356,12 +356,34 @@ def gqa_init_cache(batch: int, max_seq: int, a: AttnConfig, dtype, *,
 
 
 def gqa_prefill(p: dict, x: torch.Tensor, a: AttnConfig, *,
-                window: int | None = None, kv_dtype: str = "native"):
+                window: int | None = None, kv_dtype: str = "native",
+                tp_axis=None, layout: dict | None = None,
+                kv_split: int | None = None):
     """`gqa_apply` over the whole prompt, and the cache of the K/V it
     attended to (ring-compacted if windowed): returns (y, cache). The
-    reference's `gqa_prefill_cache` projects K/V a second time."""
-    o, k, v = _attend(*_project(p, x), a, pos0=0, window=window, mask=None)
-    y = o @ p["wo"]
+    reference's `gqa_prefill_cache` projects K/V a second time.
+
+    Under model parallelism (`tp_axis`, `layout`) the attention runs as in
+    `gqa_apply` and the cache holds the K/V heads the cache layout gives
+    this rank (`kv_split` 2: its KV heads, which head-sharded attention
+    computed; else every head), every slot: `Model.prefill` keeps this
+    rank's slots where the layout splits them (`kv_split` 1)."""
+    if tp_axis is None:
+        o, k, v = _attend(*_project(p, x), a, pos0=0, window=window,
+                          mask=None)
+        y = o @ p["wo"]
+    elif head_aligned(layout, a, dist.get_world_size(tp_axis)):
+        o, k, v = _attend(*_project(p, cl.tp_replicate(x, tp_axis)), a,
+                          pos0=0, window=window, mask=None)
+        y = cl.tp_psum(o @ p["wo"], tp_axis)
+    else:
+        xr = cl.tp_replicate(x, tp_axis)
+        o, k, v = _attend(*(gathered_cols(p[n], x, xr, layout[n], tp_axis)
+                            for n in ("wq", "wk", "wv")), a, pos0=0,
+                          window=window, mask=None)
+        y = gathered_rows(o, p["wo"], layout["wo"], tp_axis)
+        if kv_split == 2:
+            k, v = (common.own_part(t, 2, tp_axis) for t in (k, v))
     S = x.shape[1]
     if window and S > window:
         # keep the last `window` positions, position p at ring slot
@@ -375,75 +397,186 @@ def gqa_prefill(p: dict, x: torch.Tensor, a: AttnConfig, *,
     return y, {"k": k, "v": v}
 
 
+def _combine_softmax(scores: torch.Tensor, values: torch.Tensor, eq: str,
+                     group, dtype) -> torch.Tensor:
+    """`einsum(eq, softmax(scores), values)` in `dtype`, the softmax over
+    the last dimension of `scores` (the cache's slots). With `group` the
+    slots are split over it: each rank takes its slots' running max, sum
+    of exponentials and exponential-weighted values (f32); the max is
+    MAX-reduced over the group (`tp_max`) and the rescaled sums added
+    (`tp_psum`), so every rank gets the softmax over all slots."""
+    if group is None:
+        return torch.einsum(eq, torch.softmax(scores, dim=-1).to(dtype),
+                            values)
+    m = cl.tp_max(torch.amax(scores, dim=-1, keepdim=True), group)
+    e = torch.exp(scores - m)
+    denom = cl.tp_psum(torch.sum(e, dim=-1), group)
+    o = cl.tp_psum(torch.einsum(eq, e, values.to(torch.float32)), group)
+    # the sums laid out as o (the small output, not the scores, is divided)
+    rows, out = eq.split(",")[0][:-1], eq.split("->")[1]
+    denom = torch.einsum(f"{rows}->{''.join(c for c in out if c in rows)}",
+                         denom)
+    return (o / denom.reshape([n if c in rows else 1 for c, n in
+                               zip(out, o.shape)])).to(dtype)
+
+
+def _mask_slots(scores: torch.Tensor, valid: torch.Tensor | None):
+    """`scores` with the slots not `valid` (bool over the last dimension;
+    None: every slot) at -1e30."""
+    if valid is None:
+        return scores
+    return torch.where(valid, scores, torch.full(
+        (), -1e30, dtype=scores.dtype, device=scores.device))
+
+
 def _decode_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 valid: torch.Tensor | None) -> torch.Tensor:
+                 valid: torch.Tensor | None, group=None) -> torch.Tensor:
     """`_sdpa(q, _repeat_kv(k, H), _repeat_kv(v, H), valid)` for one query
     token, without the repeated copy of the cache: q (B, 1, H, hd), k/v
     (B, slots, KV, hd), valid (slots,) bool or None (every slot). Query
-    head h reads KV head h // (H / KV), as `_repeat_kv` lays them out."""
+    head h reads KV head h // (H / KV), as `_repeat_kv` lays them out.
+    With `group` k/v are this rank's block of slots split over it, and the
+    softmax is combined over the ranks (`_combine_softmax`)."""
     B, _, H, hd = q.shape
     KV = k.shape[2]
     qg = q.reshape(B, KV, H // KV, hd)
     scores = torch.einsum("bkgd,bskd->bkgs", qg, k).to(torch.float32)
-    scores = scores / math.sqrt(hd)
-    if valid is not None:
-        scores = torch.where(valid, scores,
-                             torch.full((), -1e30, dtype=scores.dtype,
-                                        device=scores.device))
-    w = torch.softmax(scores, dim=-1).to(q.dtype)
-    return torch.einsum("bkgs,bskd->bkgd", w, v).reshape(B, 1, H, hd)
+    scores = _mask_slots(scores / math.sqrt(hd), valid)
+    return _combine_softmax(scores, v, "bkgs,bskd->bkgd", group,
+                            q.dtype).reshape(B, 1, H, hd)
+
+
+def _slots(cache_len: int, kv_split, group) -> tuple:
+    """(the cache's whole slot count, this rank's first slot): the slot
+    dimension is split over `group` when `kv_split` is 1."""
+    if kv_split != 1:
+        return cache_len, 0
+    return cache_len * dist.get_world_size(group), \
+        cache_len * dist.get_rank(group)
+
+
+def _decode_project(p: dict, x1: torch.Tensor, a: AttnConfig, names: tuple,
+                    tp_axis, layout) -> tuple:
+    """The one-token projections `names` of x1 and whether the heads are
+    this rank's (head-aligned model parallelism) or whole (no model axis,
+    or `gqa_gathered`'s rule)."""
+    if tp_axis is None:
+        return tuple(x1 @ p[n] for n in names), False
+    xr = cl.tp_replicate(x1, tp_axis)
+    if head_aligned(layout, a, dist.get_world_size(tp_axis)):
+        return tuple(xr @ p[n] for n in names), True
+    return tuple(gathered_cols(p[n], x1, xr, layout[n], tp_axis)
+                 for n in names), False
+
+
+def _decode_out(o: torch.Tensor, p: dict, tp_axis, layout,
+                aligned: bool) -> torch.Tensor:
+    """The out-projection of the attention output o (B, 1, heads * hd):
+    this rank's heads' partial sum through g, or a whole o through
+    `gathered_rows`."""
+    if tp_axis is None:
+        return o @ p["wo"]
+    if aligned:
+        return cl.tp_psum(o @ p["wo"], tp_axis)
+    return gathered_rows(o, p["wo"], layout["wo"], tp_axis)
+
+
+def _own_heads(q: torch.Tensor, kv_heads: int, group) -> torch.Tensor:
+    """The query heads (B, 1, H, hd) that read this rank's block of the
+    `kv_heads` KV heads (query head h reads KV head h // (H / KV))."""
+    n = kv_heads // dist.get_world_size(group)
+    g = q.shape[2] // kv_heads
+    return q.narrow(2, dist.get_rank(group) * n * g, n * g)
+
+
+def _attend_cache(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  valid, kv_heads: int, tp_axis, aligned: bool,
+                  kv_split) -> torch.Tensor:
+    """q (B, 1, H, hd) over the cache's k/v: the softmax combined over
+    the ranks' slots (`kv_split` 1), or whole heads attending over this
+    rank's KV heads (`kv_split` 2 with the heads computed whole) and the
+    outputs gathered, else `_decode_sdpa`. Returns (B, 1, H * hd)."""
+    B = q.shape[0]
+    if kv_split == 1:
+        return _decode_sdpa(q, k, v, valid, tp_axis).reshape(B, 1, -1)
+    if kv_split == 2 and not aligned:
+        o = _decode_sdpa(_own_heads(q, kv_heads, tp_axis), k, v, valid)
+        return cl.tp_all_gather(o.reshape(B, 1, -1), tp_axis)
+    return _decode_sdpa(q, k, v, valid).reshape(B, 1, -1)
 
 
 def gqa_decode(p: dict, x1: torch.Tensor, cache: dict, pos: int,
-               a: AttnConfig, *, window: int | None = None):
+               a: AttnConfig, *, window: int | None = None, tp_axis=None,
+               layout: dict | None = None, kv_split: int | None = None):
     """One-token decode. x1 (B, 1, d); pos (int) is the current length.
-    Writes the token's K/V into `cache` in place; returns (y, cache)."""
-    B = x1.shape[0]
-    H, KV, hd = a.n_heads, a.n_kv, a.head_dim
-    slots = cache["k"].shape[1]
-    q = _split_heads(x1 @ p["wq"], H, hd)
-    k1 = _split_heads(x1 @ p["wk"], KV, hd)
-    v1 = _split_heads(x1 @ p["wv"], KV, hd)
+    Writes the token's K/V into `cache` in place; returns (y, cache).
+
+    Under model parallelism (`tp_axis`, `layout`) the cache is this rank's
+    shard under the cache layout: its KV heads (`kv_split` 2), its block
+    of the slots (`kv_split` 1, where the KV heads do not split: only the
+    rank holding the slot `pos` lands in writes it, and the softmax is
+    combined over the ranks), or all of it (None)."""
+    hd = a.head_dim
+    (q, k1, v1), aligned = _decode_project(p, x1, a, ("wq", "wk", "wv"),
+                                           tp_axis, layout)
+    q, k1, v1 = (_split_heads(t, t.shape[-1] // hd, hd) for t in (q, k1, v1))
     posv = torch.full((1,), pos, device=x1.device)
     q = common.apply_rope(q, posv, rotary_frac=a.rotary_frac,
                           theta=a.rope_theta)
     k1 = common.apply_rope(k1, posv, rotary_frac=a.rotary_frac,
                            theta=a.rope_theta)
+    kv_heads = k1.shape[2]
+    if kv_split == 2 and not aligned:
+        k1, v1 = (common.own_part(t, 2, tp_axis) for t in (k1, v1))
+    n = cache["k"].shape[1]
+    slots, lo = _slots(n, kv_split, tp_axis)
     # the reference's dynamic_update_slice clamps the slot into range
-    write = pos % slots if window else min(pos, slots - 1)
+    k, v = _write_kv(cache, k1, v1, (pos % slots if window
+                                     else min(pos, slots - 1)) - lo, x1.dtype)
+    # a full ring: every slot holds one of the last `slots` positions;
+    # before that only slots <= pos are written
+    idx = torch.arange(lo, lo + n, device=x1.device)
+    valid = None if window and pos >= slots else idx <= pos
+    o = _attend_cache(q, k, v, valid, kv_heads, tp_axis, aligned, kv_split)
+    return _decode_out(o, p, tp_axis, layout, aligned), cache
+
+
+def _write_kv(cache: dict, k1: torch.Tensor, v1: torch.Tensor, write: int,
+              dtype) -> tuple:
+    """Write the token's K/V (B, 1, KV, hd) at slot `write` of `cache` (int8
+    with its scales when the cache has them; nothing when `write` is not
+    one of its slots) and return the cache's K/V in `dtype`."""
+    if 0 <= write < cache["k"].shape[1]:
+        if "k_s" in cache:
+            k1q, k1s = _kv_quant(k1)
+            v1q, v1s = _kv_quant(v1)
+            cache["k"][:, write] = k1q[:, 0]
+            cache["v"][:, write] = v1q[:, 0]
+            cache["k_s"][:, write] = k1s[:, 0]
+            cache["v_s"][:, write] = v1s[:, 0]
+        else:
+            cache["k"][:, write] = k1[:, 0]
+            cache["v"][:, write] = v1[:, 0]
     if "k_s" in cache:
-        k1q, k1s = _kv_quant(k1)
-        v1q, v1s = _kv_quant(v1)
-        cache["k"][:, write] = k1q[:, 0]
-        cache["v"][:, write] = v1q[:, 0]
-        cache["k_s"][:, write] = k1s[:, 0]
-        cache["v_s"][:, write] = v1s[:, 0]
-        k = _kv_dequant(cache["k"], cache["k_s"], x1.dtype)
-        v = _kv_dequant(cache["v"], cache["v_s"], x1.dtype)
-    else:
-        cache["k"][:, write] = k1[:, 0]
-        cache["v"][:, write] = v1[:, 0]
-        k, v = cache["k"], cache["v"]
-    idx = torch.arange(slots, device=x1.device)
-    if window and pos >= slots:
-        # ring buffer: once full, every slot holds one of the last `slots`
-        # positions; before that only slots <= pos are written
-        valid = torch.ones_like(idx, dtype=torch.bool)
-    else:
-        valid = idx <= pos
-    o = _decode_sdpa(q, k, v, valid)
-    return o.reshape(B, 1, H * hd) @ p["wo"], cache
+        return (_kv_dequant(cache["k"], cache["k_s"], dtype),
+                _kv_dequant(cache["v"], cache["v_s"], dtype))
+    return cache["k"], cache["v"]
 
 
 def gqa_decode_cross(p: dict, x1: torch.Tensor, cross_kv: dict,
-                     a: AttnConfig) -> torch.Tensor:
+                     a: AttnConfig, *, tp_axis=None,
+                     layout: dict | None = None,
+                     kv_split: int | None = None) -> torch.Tensor:
     """Cross-attention for one decoder token against the fixed encoder K/V
-    of the cache (`{"k", "v"}`, (B, Sk, KV, hd) each)."""
-    B = x1.shape[0]
-    H, hd = a.n_heads, a.head_dim
-    q = _split_heads(x1 @ p["wq"], H, hd)
-    o = _decode_sdpa(q, cross_kv["k"], cross_kv["v"], None)
-    return o.reshape(B, 1, H * hd) @ p["wo"]
+    of the cache (`{"k", "v"}`, (B, Sk, KV, hd) each). Under model
+    parallelism the encoder K/V are this rank's shard under the cache
+    layout, as in `gqa_decode` (`kv_split` 1: its block of the frames)."""
+    hd = a.head_dim
+    (q,), aligned = _decode_project(p, x1, a, ("wq",), tp_axis, layout)
+    q = _split_heads(q, q.shape[-1] // hd, hd)
+    o = _attend_cache(q, cross_kv["k"], cross_kv["v"], None, a.n_kv,
+                      tp_axis, aligned, kv_split)
+    return _decode_out(o, p, tp_axis, layout, aligned)
 
 
 # =============================== MLA =========================================
@@ -541,23 +674,37 @@ def mla_apply(p: dict, x: torch.Tensor, m: MLAConfig, *, pos0: int = 0,
     (`MLA_HEAD_SHARDED` not whole over the group) every column-split
     up-projection is gathered and the attention runs on the full heads
     (`gqa_gathered`'s rule)."""
+    return _mla_forward(p, x, m, pos0=pos0, window=window, kv_chunk=kv_chunk,
+                        tp_axis=tp_axis, layout=layout)[0]
+
+
+def _mla_aligned(layout: dict, m: MLAConfig, group) -> bool:
+    """Does the layout give each rank of `group` whole MLA heads?"""
+    return layout == MLA_HEAD_SHARDED and \
+        m.n_heads % dist.get_world_size(group) == 0
+
+
+def _mla_forward(p: dict, x: torch.Tensor, m: MLAConfig, *, pos0: int,
+                 window: int | None, kv_chunk: int | None, tp_axis,
+                 layout: dict | None) -> tuple:
+    """(`mla_apply`'s output, the whole latents ckv and kpe it attended
+    over)."""
     cq, ckv, kpe = _mla_latents(p, x, m, pos0)
     kw = dict(pos0=pos0, window=window, kv_chunk=kv_chunk)
     if tp_axis is None:
         return _mla_core(cq @ p["w_uq"], ckv @ p["w_uk"], ckv @ p["w_uv"],
-                         kpe, m, **kw) @ p["wo"]
-    if layout == MLA_HEAD_SHARDED and \
-            m.n_heads % dist.get_world_size(tp_axis) == 0:
-        cq, ckv, kpe = (cl.tp_replicate(t, tp_axis) for t in (cq, ckv, kpe))
-        o = _mla_core(cq @ p["w_uq"], ckv @ p["w_uk"], ckv @ p["w_uv"], kpe,
-                      m, **kw)
-        return cl.tp_psum(o @ p["wo"], tp_axis)
+                         kpe, m, **kw) @ p["wo"], ckv, kpe
+    if _mla_aligned(layout, m, tp_axis):
+        cqr, ckvr, kper = (cl.tp_replicate(t, tp_axis) for t in (cq, ckv, kpe))
+        o = _mla_core(cqr @ p["w_uq"], ckvr @ p["w_uk"], ckvr @ p["w_uv"],
+                      kper, m, **kw)
+        return cl.tp_psum(o @ p["wo"], tp_axis), ckv, kpe
     cqr, ckvr = cl.tp_replicate(cq, tp_axis), cl.tp_replicate(ckv, tp_axis)
     q = gathered_cols(p["w_uq"], cq, cqr, layout["w_uq"], tp_axis)
     k_nope, v = (gathered_cols(p[n], ckv, ckvr, layout[n], tp_axis)
                  for n in ("w_uk", "w_uv"))
     o = _mla_core(q, k_nope, v, kpe, m, **kw)
-    return gathered_rows(o, p["wo"], layout["wo"], tp_axis)
+    return gathered_rows(o, p["wo"], layout["wo"], tp_axis), ckv, kpe
 
 
 def mla_init_cache(batch: int, max_seq: int, m: MLAConfig, dtype, *,
@@ -570,13 +717,16 @@ def mla_init_cache(batch: int, max_seq: int, m: MLAConfig, dtype, *,
 
 
 def mla_prefill(p: dict, x: torch.Tensor, m: MLAConfig, *,
-                window: int | None = None):
+                window: int | None = None, tp_axis=None,
+                layout: dict | None = None):
     """`mla_apply` over the whole prompt, and the latent cache of the
     `ckv`/`kpe` it attended over (ring-compacted if windowed): returns
-    (y, cache). The reference's `mla_prefill_cache` computes them again."""
-    cq, ckv, kpe = _mla_latents(p, x, m, 0)
-    y = _mla_core(cq @ p["w_uq"], ckv @ p["w_uk"], ckv @ p["w_uv"], kpe, m,
-                  pos0=0, window=window, kv_chunk=None) @ p["wo"]
+    (y, cache). The reference's `mla_prefill_cache` computes them again.
+    Under model parallelism the latents are whole on every rank, and
+    `Model.prefill` keeps this rank's slots where the cache layout splits
+    them."""
+    y, ckv, kpe = _mla_forward(p, x, m, pos0=0, window=window, kv_chunk=None,
+                               tp_axis=tp_axis, layout=layout)
     S = x.shape[1]
     if window and S > window:
         # position p at ring slot p % window
@@ -586,41 +736,67 @@ def mla_prefill(p: dict, x: torch.Tensor, m: MLAConfig, *,
 
 
 def mla_decode(p: dict, x1: torch.Tensor, cache: dict, pos: int,
-               m: MLAConfig, *, window: int | None = None):
+               m: MLAConfig, *, window: int | None = None, tp_axis=None,
+               layout: dict | None = None, kv_split: int | None = None):
     """Absorbed-projection MLA decode: W_uk folds into the query and W_uv
     into the output, so the attention acts on the latent cache. x1 (B, 1,
     d); writes the token's latent into `cache` in place; returns (y,
-    cache)."""
-    B = x1.shape[0]
-    H, r = m.n_heads, m.kv_lora_rank
-    slots = cache["ckv"].shape[1]
+    cache).
+
+    Under model parallelism (`tp_axis`, `layout`) the latent cache is this
+    rank's block of the slots (`kv_split` 1) or whole. With whole heads a
+    rank absorbs its heads' queries; over split slots the absorbed queries
+    of all heads are gathered (B x H x (r + rope), small), the softmax is
+    combined over the ranks, and a rank expands its heads' context. With
+    heads split the column-split up-projections are gathered whole (the
+    decode's weights, as `gqa_gathered` gathers the training's
+    products)."""
+    B, r = x1.shape[0], m.kv_lora_rank
     cq = common.rmsnorm(x1 @ p["w_dq"], p["q_norm"])
-    q = (cq @ p["w_uq"]).reshape(B, 1, H, m.qk_nope_dim + m.qk_rope_dim)
-    q_nope, q_pe = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
     posv = torch.full((1,), pos, device=x1.device)
-    q_pe = common.apply_rope(q_pe, posv, theta=m.rope_theta)
     ckv1_full = x1 @ p["w_dkv"]
     ckv1 = common.rmsnorm(ckv1_full[..., :r], p["kv_norm"])
     kpe1 = common.apply_rope(ckv1_full[..., None, r:], posv,
                              theta=m.rope_theta)[..., 0, :]
-    # the reference's dynamic_update_slice clamps the slot into range
-    write = pos % slots if window else min(pos, slots - 1)
-    cache["ckv"][:, write] = ckv1[:, 0]
-    cache["kpe"][:, write] = kpe1[:, 0]
-    ckv, kpe = cache["ckv"], cache["kpe"]
+    aligned = tp_axis is None or _mla_aligned(layout, m, tp_axis)
+    split = tp_axis is not None and kv_split == 1
+    w_uq, w_uk, w_uv = p["w_uq"], p["w_uk"], p["w_uv"]
+    if tp_axis is not None:
+        cq = cl.tp_replicate(cq, tp_axis)
+        if not aligned:   # whole heads: the column-split up-projections
+            w_uq, w_uk, w_uv = (cl.tp_all_gather(p[n], tp_axis)
+                                if layout[n] == -1 else p[n]
+                                for n in ("w_uq", "w_uk", "w_uv"))
+    Hh = w_uk.shape[-1] // m.qk_nope_dim          # the heads computed here
+    q = (cq @ w_uq).reshape(B, 1, Hh, m.qk_nope_dim + m.qk_rope_dim)
+    q_nope = q[..., :m.qk_nope_dim]
+    q_pe = common.apply_rope(q[..., m.qk_nope_dim:], posv, theta=m.rope_theta)
     q_abs = torch.einsum("bqhn,rhn->bqhr", q_nope,
-                         p["w_uk"].reshape(r, H, m.qk_nope_dim))
+                         w_uk.reshape(r, Hh, m.qk_nope_dim))
+    n = cache["ckv"].shape[1]
+    slots, lo = _slots(n, kv_split, tp_axis)
+    # the reference's dynamic_update_slice clamps the slot into range; of
+    # split slots only the rank holding it writes
+    write = (pos % slots if window else min(pos, slots - 1)) - lo
+    if 0 <= write < n:
+        cache["ckv"][:, write] = ckv1[:, 0]
+        cache["kpe"][:, write] = kpe1[:, 0]
+    if split and aligned:      # every head's absorbed query
+        q_abs = cl.tp_all_gather(q_abs.reshape(B, 1, -1), tp_axis).reshape(
+            B, 1, m.n_heads, r)
+        q_pe = cl.tp_all_gather(q_pe.reshape(B, 1, -1), tp_axis).reshape(
+            B, 1, m.n_heads, m.qk_rope_dim)
+    ckv, kpe = cache["ckv"], cache["kpe"]
     scores = (torch.einsum("bqhr,bkr->bhqk", q_abs, ckv)
               + torch.einsum("bqhd,bkd->bhqk", q_pe, kpe)).to(torch.float32)
     scores = scores / math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
-    if not (window and pos >= slots):
-        # before a ring is full only the slots <= pos hold positions
-        valid = torch.arange(slots, device=x1.device) <= pos
-        scores = torch.where(valid, scores,
-                             torch.full((), -1e30, dtype=scores.dtype,
-                                        device=scores.device))
-    w = torch.softmax(scores, dim=-1).to(x1.dtype)
-    ctx = torch.einsum("bhqk,bkr->bqhr", w, ckv)
+    # before a ring is full only the slots <= pos hold positions
+    valid = None if window and pos >= slots else \
+        torch.arange(lo, lo + n, device=x1.device) <= pos
+    ctx = _combine_softmax(_mask_slots(scores, valid), ckv, "bhqk,bkr->bqhr",
+                           tp_axis if split else None, x1.dtype)
+    if split and aligned:      # this rank's heads' context
+        ctx = common.own_part(ctx, 2, tp_axis)
     o = torch.einsum("bqhr,rhv->bqhv", ctx,
-                     p["w_uv"].reshape(r, H, m.v_head_dim))
-    return o.reshape(B, 1, H * m.v_head_dim) @ p["wo"], cache
+                     w_uv.reshape(r, Hh, m.v_head_dim)).reshape(B, 1, -1)
+    return _decode_out(o, p, tp_axis, layout, aligned), cache

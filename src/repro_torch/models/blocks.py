@@ -12,16 +12,19 @@ Ports these kinds of `repro/models/blocks.py`:
   enc    -- bidirectional self-attention + MLP (encoder towers)
   cross  -- causal self-attention + cross-attention + MLP (enc-dec decoders)
 with rmsnorm or layernorm: full-sequence apply, serving caches and
-one-token decode (unsharded, as in the reference). Under model parallelism
-(`BlockCtx.layout`) every kind runs sharded by its layout: attention by
-head (or gathered), MLA, the SSM and the RG-LRU by head or channel, the
-experts by expert or by their ff, the MLPs by feature; under a hybrid plan
-the "attn" and "local" kinds detect their shards from the shapes.
+one-token decode. Under model parallelism (`BlockCtx.layout`) every kind
+runs sharded by its layout: attention by head (or gathered), MLA, the SSM
+and the RG-LRU by head or channel, the experts by expert or by their ff,
+the MLPs by feature; under a hybrid plan the "attn" and "local" kinds
+detect their shards from the shapes. Serving under model parallelism
+keeps each cache leaf as the reference's cache layout splits it
+(`BlockCtx.cache_split`).
 `block_apply` returns (h, aux): the router's load-balance loss of a "moe"
 block, None for every other kind (the reference's zero scalar, which the
-port neither makes nor adds). A moe block trains on the
+port neither makes nor adds). A moe block trains and prefills on the
 gather dispatch or, with `BlockCtx.moe_impl == "ep"`, on the
-expert-parallel one (`moe.moe_apply_ep`); serving gathers.
+expert-parallel one (`moe.moe_apply_ep`); `Model.decode_step` gathers, as
+the reference's `block_decode` does.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import tree as tree_lib
 from repro_torch.configs.base import ModelConfig
@@ -117,6 +121,10 @@ class BlockCtx:
     batch_groups: tuple = ()
     fsdp_groups: tuple = ()
     wgather_wire: str = "bf16"
+    # serving under model parallelism: the model-split dimension of each
+    # of this block's cache leaves (`transformer.cache_model_dim`), the
+    # tree of its cache
+    cache_split: Optional[dict] = None
 
     def attn_tp(self, p_attn: dict, a):
         if self.tp_axis is None:
@@ -266,36 +274,65 @@ def block_init_cache(kind: str, cfg: ModelConfig, batch: int, max_seq: int,
                                    kv_dtype=ctx.kv_dtype, device=device)
 
 
+def _split(ctx: BlockCtx, *names):
+    """The model-split dimension of the cache leaf at `names` (None
+    without a model axis or where the layout keeps it whole)."""
+    t = ctx.cache_split
+    for n in names:
+        if t is None:
+            return None
+        t = t[n]
+    return t
+
+
 def block_prefill(kind: str, p: dict, h: torch.Tensor, ctx: BlockCtx):
     """`block_apply` over the prompt; returns (h, the block's cache after
     the prompt). Takes the place of the reference's `block_prefill_cache`,
     which projects the block input's K/V (MLA: its latent; cross: the
-    encoder's K/V; the recurrent kinds: runs the scan) a second time."""
+    encoder's K/V; the recurrent kinds: runs the scan) a second time.
+    Under model parallelism the cache leaves hold this rank's heads or
+    channels and every slot; `Model.prefill` keeps this rank's slots."""
     _check_kind(kind)
     cfg = ctx.cfg
     x = norm_apply(p["ln1"], h, cfg)
     if kind == "ssm":
-        y, cache = ssm.ssm_prefill(p["ssm"], x, cfg.ssm)
+        y, cache = ssm.ssm_prefill(p["ssm"], x, cfg.ssm,
+                                   tp_axis=ctx.sub_tp("ssm")[0],
+                                   split=ctx.cache_split)
         return h + y, cache
+    mlp_tp = None if kind == "moe" else ctx.mlp_tp(p["mlp"])
     if kind == "rglru":
-        y, cache = rglru.rglru_prefill(p["rec"], x, cfg.rglru)
-        return _mlp_residual(p, h + y, cfg), cache
+        y, cache = rglru.rglru_prefill(p["rec"], x, cfg.rglru,
+                                       tp_axis=ctx.sub_tp("rec")[0])
+        return _mlp_residual(p, h + y, cfg, mlp_tp), cache
     if kind == "mla":
+        tp, lay = ctx.sub_tp("mla")
         y, cache = attn_mod.mla_prefill(p["mla"], x, cfg.mla,
-                                        window=ctx.window_override)
-        return _mlp_residual(p, h + y, cfg), cache
+                                        window=ctx.window_override,
+                                        tp_axis=tp, layout=lay)
+        return _mlp_residual(p, h + y, cfg, mlp_tp), cache
+    tp, lay = ctx.sub_tp("attn")
     if kind == "cross":
-        y, self_c = attn_mod.gqa_prefill(p["attn"], x, cfg.attn)
-        k, v = attn_mod.gqa_cross_kv(p["xattn"], ctx.enc_out, cfg.attn)
-        h = _cross_residual(p, h + y, (k, v), cfg)
-        return _mlp_residual(p, h, cfg), {"self": self_c,
-                                          "cross": {"k": k, "v": v}}
+        y, self_c = attn_mod.gqa_prefill(p["attn"], x, cfg.attn, tp_axis=tp,
+                                         layout=lay,
+                                         kv_split=_split(ctx, "self", "k"))
+        xtp, xlay = ctx.sub_tp("xattn")
+        k, v = attn_mod.gqa_cross_kv(p["xattn"], ctx.enc_out, cfg.attn,
+                                     tp_axis=xtp, layout=xlay,
+                                     enc_rep=ctx.enc_rep)
+        h = _cross_residual(p, h + y, (k, v), cfg, xtp, xlay)
+        if _split(ctx, "cross", "k") == 2 and not attn_mod.head_aligned(
+                xlay, cfg.attn, dist.get_world_size(xtp)):
+            k, v = (common.own_part(t, 2, xtp) for t in (k, v))
+        return _mlp_residual(p, h, cfg, mlp_tp), {"self": self_c,
+                                                  "cross": {"k": k, "v": v}}
     y, cache = attn_mod.gqa_prefill(p["attn"], x, cfg.attn,
                                     window=ctx.window_for(kind),
-                                    kv_dtype=ctx.kv_dtype)
+                                    kv_dtype=ctx.kv_dtype, tp_axis=tp,
+                                    layout=lay, kv_split=_split(ctx, "k"))
     if kind == "moe":
         return _moe_residual(p, h + y, ctx)[0], cache
-    return _mlp_residual(p, h + y, cfg), cache
+    return _mlp_residual(p, h + y, cfg, mlp_tp), cache
 
 
 # --- decode ------------------------------------------------------------------------
@@ -303,30 +340,45 @@ def block_prefill(kind: str, p: dict, h: torch.Tensor, ctx: BlockCtx):
 def block_decode(kind: str, p: dict, h1: torch.Tensor, cache: dict, pos: int,
                  ctx: BlockCtx):
     """One token through the block; returns (h1, cache), the cache updated
-    in place."""
+    in place. Under model parallelism the cache is this rank's shard under
+    the reference's cache layout (`ctx.cache_split`)."""
     _check_kind(kind)
     cfg = ctx.cfg
     x = norm_apply(p["ln1"], h1, cfg)
     if kind == "ssm":
-        y, cache = ssm.ssm_decode(p["ssm"], x, cache, cfg.ssm)
+        y, cache = ssm.ssm_decode(p["ssm"], x, cache, cfg.ssm,
+                                  tp_axis=ctx.sub_tp("ssm")[0],
+                                  split=ctx.cache_split)
         return h1 + y, cache
+    mlp_tp = None if kind == "moe" else ctx.mlp_tp(p["mlp"])
     if kind == "rglru":
-        y, cache = rglru.rglru_decode(p["rec"], x, cache, cfg.rglru)
-        return _mlp_residual(p, h1 + y, cfg), cache
+        y, cache = rglru.rglru_decode(p["rec"], x, cache, cfg.rglru,
+                                      tp_axis=ctx.sub_tp("rec")[0])
+        return _mlp_residual(p, h1 + y, cfg, mlp_tp), cache
     if kind == "mla":
+        tp, lay = ctx.sub_tp("mla")
         y, cache = attn_mod.mla_decode(p["mla"], x, cache, pos, cfg.mla,
-                                       window=ctx.window_override)
-        return _mlp_residual(p, h1 + y, cfg), cache
+                                       window=ctx.window_override,
+                                       tp_axis=tp, layout=lay,
+                                       kv_split=_split(ctx, "ckv"))
+        return _mlp_residual(p, h1 + y, cfg, mlp_tp), cache
+    tp, lay = ctx.sub_tp("attn")
     if kind == "cross":
-        y, _ = attn_mod.gqa_decode(p["attn"], x, cache["self"], pos, cfg.attn)
+        y, _ = attn_mod.gqa_decode(p["attn"], x, cache["self"], pos, cfg.attn,
+                                   tp_axis=tp, layout=lay,
+                                   kv_split=_split(ctx, "self", "k"))
         h1 = h1 + y
         x = norm_apply(p["ln_x"], h1, cfg)
-        h1 = h1 + attn_mod.gqa_decode_cross(p["xattn"], x, cache["cross"],
-                                            cfg.attn)
-        return _mlp_residual(p, h1, cfg), cache
+        xtp, xlay = ctx.sub_tp("xattn")
+        h1 = h1 + attn_mod.gqa_decode_cross(
+            p["xattn"], x, cache["cross"], cfg.attn, tp_axis=xtp,
+            layout=xlay, kv_split=_split(ctx, "cross", "k"))
+        return _mlp_residual(p, h1, cfg, mlp_tp), cache
     y, cache = attn_mod.gqa_decode(p["attn"], x, cache, pos, cfg.attn,
-                                   window=ctx.window_for(kind))
+                                   window=ctx.window_for(kind), tp_axis=tp,
+                                   layout=lay, kv_split=_split(ctx, "k"))
     if kind == "moe":
         # the B tokens of the step routed together, at their own capacity
+        # (`Model.decode_step` puts them on the gather dispatch)
         return _moe_residual(p, h1 + y, ctx)[0], cache
-    return _mlp_residual(p, h1 + y, cfg), cache
+    return _mlp_residual(p, h1 + y, cfg, mlp_tp), cache

@@ -207,6 +207,13 @@ def vocab_parallel_xent(logits: torch.Tensor, labels: torch.Tensor, group,
     return _nll_mean(logz - gold, mask)
 
 
+def own_part(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's block of `t` along `dim`, split evenly over `group` in
+    rank order (a cache leaf's shard under the cache layout)."""
+    n = t.shape[dim] // dist.get_world_size(group)
+    return t.narrow(dim, dist.get_rank(group) * n, n)
+
+
 def embed_lookup(table: torch.Tensor, ids: torch.Tensor, *, group=None,
                  dim: int | None = None) -> torch.Tensor:
     """`table[ids]`. With `group`, `table` is this rank's shard of the

@@ -55,8 +55,9 @@ def _gates(p: dict, x: torch.Tensor, r: RGLRUConfig, tp_axis=None):
     columns of the replicated (w, w) gate matrices. Both the gathered x
     and the matrices feed only this rank's channels, so they enter through
     the f operator, which sums their partial gradients over the group. The
-    gated input reads this rank's channels of the gathered x, so x's three
-    cotangents add up in the order they do without a layout."""
+    gated input reads this rank's channels of the gathered x, taken after
+    the two products so that x's three cotangents add up in the order they
+    do without a layout (bitwise at one rank)."""
     xa = x.to(torch.float32)
     w_a, w_i, xl = p["w_a"], p["w_i"], xa
     if tp_axis is not None:
@@ -65,9 +66,12 @@ def _gates(p: dict, x: torch.Tensor, r: RGLRUConfig, tp_axis=None):
         xa = cl.tp_replicate(cl.tp_all_gather(xa, tp_axis), tp_axis)
         w_a, w_i = (cl.tp_replicate(w, tp_axis)[:, c0:c0 + n]
                     for w in (w_a, w_i))
-        xl = xa[..., c0:c0 + n]
     rt = torch.sigmoid(xa @ w_a.to(torch.float32) + p["b_a"])
     it = torch.sigmoid(xa @ w_i.to(torch.float32) + p["b_i"])
+    if tp_axis is not None:
+        # sliced after the products, as the dense path reads x last: the
+        # backward then adds x's three cotangents in the dense order
+        xl = xa[..., c0:c0 + n]
     log_a = -r.c_constant * F.softplus(p["lam"]) * rt
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) \
@@ -98,29 +102,30 @@ def _gate_out(p: dict, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     return (h * gate).to(x.dtype) @ p["w_out"]
 
 
-def rglru_prefill(p: dict, x: torch.Tensor, r: RGLRUConfig):
+def rglru_prefill(p: dict, x: torch.Tensor, r: RGLRUConfig, *,
+                  tp_axis=None):
     """The block over a full sequence x (B, S, d_model): returns (y, the
     cache after it: the last state h (B, w) f32 and the last W-1 pre-conv
-    inputs)."""
-    pre = x @ p["w_in"]
-    a, b = _gates(p, _causal_conv(pre, p["conv"]), r)
+    inputs). Under model parallelism (`tp_axis`) p holds this rank's
+    channels of w_in, w_gate, conv, b_a, b_i and lam and rows of w_out
+    (the gate matrices whole): x enters through the f operator, the
+    out-projection's partial sum leaves through g, and the cache holds
+    this rank's channels."""
+    xr = x if tp_axis is None else cl.tp_replicate(x, tp_axis)
+    pre = xr @ p["w_in"]
+    a, b = _gates(p, _causal_conv(pre, p["conv"]), r, tp_axis)
     h = linear_scan(a, b)
-    return _gate_out(p, x, h), {"h": h[:, -1, :],
-                                "conv": pre[:, -(r.conv_width - 1):, :]}
+    y = _gate_out(p, xr, h)
+    if tp_axis is not None:
+        y = cl.tp_psum(y, tp_axis)
+    return y, {"h": h[:, -1, :], "conv": pre[:, -(r.conv_width - 1):, :]}
 
 
 def rglru_apply(p: dict, x: torch.Tensor, r: RGLRUConfig, *,
                 tp_axis=None) -> torch.Tensor:
-    """Full-sequence forward. x (B, S, d_model). Under model parallelism
-    (`tp_axis`) p holds this rank's channels of w_in, w_gate, conv, b_a,
-    b_i and lam and rows of w_out (the gate matrices whole): x enters
-    through the f operator and the out-projection's partial sum leaves
-    through g."""
-    if tp_axis is None:
-        return rglru_prefill(p, x, r)[0]
-    xr = cl.tp_replicate(x, tp_axis)
-    a, b = _gates(p, _causal_conv(xr @ p["w_in"], p["conv"]), r, tp_axis)
-    return cl.tp_psum(_gate_out(p, xr, linear_scan(a, b)), tp_axis)
+    """Full-sequence forward. x (B, S, d_model); `tp_axis`: model
+    parallelism over that group (`rglru_prefill`)."""
+    return rglru_prefill(p, x, r, tp_axis=tp_axis)[0]
 
 
 def rglru_init_cache(batch: int, r: RGLRUConfig, dtype, device=None) -> dict:
@@ -132,14 +137,21 @@ def rglru_init_cache(batch: int, r: RGLRUConfig, dtype, device=None) -> dict:
     }
 
 
-def rglru_decode(p: dict, x1: torch.Tensor, cache: dict, r: RGLRUConfig):
+def rglru_decode(p: dict, x1: torch.Tensor, cache: dict, r: RGLRUConfig, *,
+                 tp_axis=None):
     """One step. x1 (B, 1, d_model). Writes the new h and conv tail into
-    `cache` in place; returns (y1 (B, 1, d_model), cache)."""
+    `cache` in place; returns (y1 (B, 1, d_model), cache). Under model
+    parallelism (`tp_axis`) p and the cache hold this rank's channels, as
+    in `rglru_prefill`."""
     x = x1[:, 0, :]
+    if tp_axis is not None:
+        x = cl.tp_replicate(x, tp_axis)
     u, conv = _conv_step(x @ p["w_in"], cache["conv"], p["conv"])
-    a, b = _gates(p, u, r)
+    a, b = _gates(p, u, r, tp_axis)
     h = a * cache["h"] + b
     y = _gate_out(p, x, h)
+    if tp_axis is not None:
+        y = cl.tp_psum(y, tp_axis)
     cache["h"].copy_(h)
     cache["conv"].copy_(conv)
     return y[:, None, :], cache

@@ -238,34 +238,67 @@ def ssm_init_cache(batch: int, d_model: int, s: SSMConfig, dtype,
     }
 
 
-def ssm_prefill(p: dict, u: torch.Tensor, s: SSMConfig):
+def ssm_prefill(p: dict, u: torch.Tensor, s: SSMConfig, *, tp_axis=None,
+                split: dict | None = None):
     """`ssm_apply` over the prompt and the cache after it: the final state
-    and the last W-1 pre-conv inputs of each conv. Returns (y, cache)."""
-    y, final, (xr, Br, Cr) = _mix(p, u, s)
+    and the last W-1 pre-conv inputs of each conv. Returns (y, cache).
+    Under model parallelism (`tp_axis`) the state and `conv_x` are this
+    rank's heads and channels, as `_mix` computes them; `conv_B` and
+    `conv_C`, computed whole, keep this rank's channels where the cache
+    layout splits them (`split`: the model-split dimension of each cache
+    leaf, or None)."""
+    y, final, (xr, Br, Cr) = _mix(p, u, s, tp_axis)
     W = s.conv_width
-    return y, {"state": final, "conv_x": xr[:, -(W - 1):, :],
-               "conv_B": Br[:, -(W - 1):, :], "conv_C": Cr[:, -(W - 1):, :]}
+    cache = {"state": final, "conv_x": xr[:, -(W - 1):, :],
+             "conv_B": Br[:, -(W - 1):, :], "conv_C": Cr[:, -(W - 1):, :]}
+    for name in ("conv_B", "conv_C"):
+        if split and split[name] is not None:
+            cache[name] = common.own_part(cache[name], -1, tp_axis)
+    return y, cache
 
 
-def ssm_decode(p: dict, u1: torch.Tensor, cache: dict, s: SSMConfig):
+def ssm_decode(p: dict, u1: torch.Tensor, cache: dict, s: SSMConfig, *,
+               tp_axis=None, split: dict | None = None):
     """One recurrent step. u1 (B, 1, d_model). Writes the new state and
     conv tails into `cache` in place; returns (y1 (B, 1, d_model),
-    cache)."""
-    B_, _, d_model = u1.shape
-    d_inner = s.expand * d_model
-    H = d_inner // s.head_dim
+    cache).
+
+    Under model parallelism (`tp_axis`) p and the cache's state and
+    `conv_x` hold this rank's heads and channels. The B and C
+    projections are whole on every rank (their weights replicated); where
+    the cache layout splits their conv tails (`split`), the whole tail is
+    gathered (B x (W-1) x G*N, small) for the step and this rank's
+    channels of the new tail kept."""
+    B_ = u1.shape[0]
     G, N = s.n_groups, s.d_state
     u = u1[:, 0, :]
+    if tp_axis is not None:
+        u = cl.tp_replicate(u, tp_axis)
     z = u @ p["w_z"]
     xr, Br, Cr, dt = _project(p, u)                         # dt (B, H)
+    H = dt.shape[-1]
+    d_inner = H * s.head_dim
     x, conv_x = _conv_step(xr, cache["conv_x"], p["conv_x"])
-    Bm, conv_B = _conv_step(Br, cache["conv_B"], p["conv_B"])
-    Cm, conv_C = _conv_step(Cr, cache["conv_C"], p["conv_C"])
-    x, Bm, Cm = F.silu(x), F.silu(Bm), F.silu(Cm)
+    tails = {}
+    for name, t in (("conv_B", Br), ("conv_C", Cr)):
+        tail = cache[name]
+        cut = split is not None and split[name] is not None
+        if cut:
+            tail = cl.tp_all_gather(tail, tp_axis)
+        y_, new = _conv_step(t, tail, p[name])
+        tails[name] = (y_, common.own_part(new, -1, tp_axis) if cut else new)
+    x, Bm, Cm = (F.silu(x), F.silu(tails["conv_B"][0]),
+                 F.silu(tails["conv_C"][0]))
+    if tp_axis is not None:
+        Bm, Cm = (_local_groups(t.reshape(B_, 1, G, N), H, s, tp_axis)
+                  [:, 0] for t in (Bm, Cm))
+    else:
+        Bm, Cm = Bm.reshape(B_, G, N), Cm.reshape(B_, G, N)
+    g = Bm.shape[1]                       # the groups this rank's heads read
     A = -torch.exp(p["A_log"])                                # (H,)
     xh = x.reshape(B_, H, s.head_dim).to(torch.float32)
-    Bh = Bm.reshape(B_, G, 1, N).expand(B_, G, H // G, N).reshape(B_, H, N)
-    Ch = Cm.reshape(B_, G, 1, N).expand(B_, G, H // G, N).reshape(B_, H, N)
+    Bh = Bm.reshape(B_, g, 1, N).expand(B_, g, H // g, N).reshape(B_, H, N)
+    Ch = Cm.reshape(B_, g, 1, N).expand(B_, g, H // g, N).reshape(B_, H, N)
     decay = torch.exp(dt * A)                                  # (B, H)
     state = (cache["state"] * decay[:, :, None, None]
              + Bh.to(torch.float32)[..., None]
@@ -273,9 +306,12 @@ def ssm_decode(p: dict, u1: torch.Tensor, cache: dict, s: SSMConfig):
     y = (Ch.to(torch.float32)[:, :, None, :] @ state)[:, :, 0]  # (B,H,P)
     y = y + xh * p["D"][None, :, None]
     y = y.reshape(B_, d_inner).to(u.dtype)
-    y = common.rmsnorm(y * F.silu(z), p["norm"])
+    y = common.rmsnorm(y * F.silu(z), p["norm"], group=tp_axis)
     cache["state"].copy_(state)
     cache["conv_x"].copy_(conv_x)
-    cache["conv_B"].copy_(conv_B)
-    cache["conv_C"].copy_(conv_C)
-    return (y @ p["w_out"])[:, None, :], cache
+    cache["conv_B"].copy_(tails["conv_B"][1])
+    cache["conv_C"].copy_(tails["conv_C"][1])
+    out = y @ p["w_out"]
+    if tp_axis is not None:
+        out = cl.tp_psum(out, tp_axis)
+    return out[:, None, :], cache

@@ -52,6 +52,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree as tree_lib
@@ -77,6 +78,7 @@ class Batch:
 class Model:
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
+        self._cache_splits: dict = {}
 
     # ---------------- parameter definitions ----------------
 
@@ -296,22 +298,11 @@ class Model:
         `moe_apply_ep`, which gathers them itself. The tail gathers each
         block's leaves just before it runs."""
         cfg = self.cfg
-
-        def block_ctx(part: str, key: str, kind: str):
-            """(the block's context, the FSDP splits its body gathers)."""
-            c = ctx
-            if layout is not None:
-                c = dataclasses.replace(c, layout=layout[part][key])
-            fs = None if fsdp is None else fsdp[part][key]
-            if fs is not None and kind == "moe" and ctx.moe_impl == "ep":
-                fs, c = _ep_experts(fs, c)
-            return c, fs
-
         aux = None
         if cfg.pattern_repeats > 0:
             keys = [f"p{i}_{k}" for i, k in enumerate(cfg.block_pattern)]
             stacked = [params["blocks"][key] for key in keys]
-            ctxs = [block_ctx("blocks", key, kind)
+            ctxs = [_block_ctx(ctx, layout, fsdp, "blocks", key, kind)
                     for key, kind in zip(keys, cfg.block_pattern)]
 
             def body(hh, aa, r):
@@ -329,7 +320,7 @@ class Model:
                     h, aux = body(h, aux, r)
         for i, kind in enumerate(cfg.tail_layers):
             key = f"t{i}_{kind}"
-            c, fs = block_ctx("tail", key, kind)
+            c, fs = _block_ctx(ctx, layout, fsdp, "tail", key, kind)
             h, a = blocks.block_apply(kind, gather_tree(params["tail"][key],
                                                         fs), h, c)
             aux = _add_aux(aux, a)
@@ -447,27 +438,81 @@ class Model:
 
     def init_cache(self, batch: int, max_seq: int, device=None,
                    **ctx_kw) -> dict:
+        """The empty decode cache of `batch` rows (a model-parallel rank's
+        shard of it: `serve.engine.cache_spec_tree`)."""
         cfg = self.cfg
         ctx = self._ctx(**ctx_kw)
+
+        def one(kind):
+            return blocks.block_init_cache(kind, cfg, batch, max_seq, ctx,
+                                           device)
+
         cache: dict = {}
         if cfg.pattern_repeats > 0:
             cache["blocks"] = {}
             for i, kind in enumerate(cfg.block_pattern):
-                one = blocks.block_init_cache(kind, cfg, batch, max_seq, ctx,
-                                              device)
                 cache["blocks"][f"p{i}_{kind}"] = tree_lib.tree_map(
                     lambda t: t[None].repeat((cfg.pattern_repeats,)
-                                             + (1,) * t.dim()), one)
+                                             + (1,) * t.dim()), one(kind))
         if cfg.tail_layers:
-            cache["tail"] = {
-                f"t{i}_{kind}": blocks.block_init_cache(kind, cfg, batch,
-                                                        max_seq, ctx, device)
-                for i, kind in enumerate(cfg.tail_layers)
-            }
+            cache["tail"] = {f"t{i}_{kind}": one(kind)
+                             for i, kind in enumerate(cfg.tail_layers)}
         return cache
 
+    def _cache_split(self, kind: str, max_seq: int, ctx: blocks.BlockCtx,
+                     tp_axis) -> Optional[dict]:
+        """The model-split dimension of each of a block's cache leaves
+        (`cache_model_dim`), or None without a model axis."""
+        if tp_axis is None:
+            return None
+        size = dist.get_world_size(tp_axis)
+        # the cache's shapes follow from these alone: made once, not at
+        # every decode step
+        key = (kind, max_seq, size, ctx.window_override, ctx.kv_dtype)
+        if key not in self._cache_splits:
+            c = blocks.block_init_cache(kind, self.cfg, 1, max_seq, ctx,
+                                        "meta")
+            self._cache_splits[key] = tree_lib.map_with_path(
+                lambda path, t: cache_model_dim(path[-1], t.shape, size), c)
+        return self._cache_splits[key]
+
+    def _serve_ctxs(self, ctx: blocks.BlockCtx, max_seq: int, tp_axis,
+                    layout, fsdp) -> dict:
+        """Per block, by part and key: (its context, carrying its cache
+        split, the FSDP splits its weights are gathered by); None without
+        a model axis or FSDP (every block takes `ctx` whole)."""
+        cfg = self.cfg
+        if tp_axis is None and layout is None and fsdp is None:
+            return None
+        parts = {"blocks": [(f"p{i}_{k}", k)
+                            for i, k in enumerate(cfg.block_pattern)]
+                 if cfg.pattern_repeats > 0 else [],
+                 "tail": [(f"t{i}_{k}", k)
+                          for i, k in enumerate(cfg.tail_layers)]}
+        out: dict = {}
+        for part, items in parts.items():
+            for key, kind in items:
+                c, fs = _block_ctx(ctx, layout, fsdp, part, key, kind)
+                out[(part, key)] = (dataclasses.replace(
+                    c, cache_split=self._cache_split(kind, max_seq, ctx,
+                                                     tp_axis)), fs)
+        return out
+
+    def _last_logits(self, params: dict, h: torch.Tensor, *, tp_axis,
+                     layout, fsdp) -> torch.Tensor:
+        """The head on the last position: (B, V) logits, whole on every
+        rank (a head split by vocabulary has its blocks gathered)."""
+        logits = self._head(params, h[:, -1:, :], group=tp_axis,
+                            layout=layout, fsdp=fsdp)[:, 0, :]
+        if self._head_dim(layout) == -1:
+            logits = cl.tp_all_gather(logits, tp_axis)
+        return logits
+
     @torch.inference_mode()
-    def prefill(self, params: dict, batch: Batch, max_seq: int, **ctx_kw):
+    def prefill(self, params: dict, batch: Batch, max_seq: int, *,
+                tp_axis=None, layout: Optional[dict] = None,
+                fsdp: Optional[dict] = None, moe: Optional[dict] = None,
+                **ctx_kw):
         """Consume the prompt; return (last-token logits, cache, prompt_len).
 
         The cache is laid out for `decode_step`: windowed blocks get ring
@@ -477,10 +522,25 @@ class Model:
         n_frames rows; a recurrent block's state and conv tails keep their
         shapes. The encoder runs once, before the blocks; the
         prompt length counts a VLM's image tokens.
+
+        `tp_axis`, `layout`, `fsdp` and `moe` are `forward`'s: under model
+        parallelism `params` holds this rank's shards and `batch` this data
+        rank's rows, the blocks run model-parallel, FSDP-split leaves are
+        gathered one repeat at a time, and the moe blocks take `moe`'s
+        dispatch. Each cache leaf is then this rank's shard under the
+        reference's cache layout (`cache_model_dim`), and the logits come
+        back whole on every rank.
         """
         cfg = self.cfg
-        ctx = self._ctx(enc_out=self._encode(params, batch), **ctx_kw)
-        h = self._embed(params, batch)
+        enc = self._encode(params, batch, fsdp, tp_axis=tp_axis,
+                           layout=layout)
+        ctx = self._ctx(enc_out=enc, tp_axis=tp_axis, moe=moe, **ctx_kw)
+        if enc is not None and layout is not None:
+            ctx = dataclasses.replace(ctx,
+                                      enc_rep=cl.tp_replicate(enc, tp_axis))
+        ctxs = self._serve_ctxs(ctx, max_seq, tp_axis, layout, fsdp)
+        h = self._embed(params, batch, group=tp_axis, layout=layout,
+                        fsdp=fsdp)
         S = h.shape[1]
         cache: dict = {}
 
@@ -496,20 +556,27 @@ class Model:
                  else ctx.window_for(kind))
             return not w or w >= max_seq
 
-        def put(bufs: dict, c: dict, r: Optional[int], grow: bool) -> None:
+        def put(bufs: dict, c: dict, split, r: Optional[int],
+                grow: bool) -> None:
             for key, t in c.items():
+                sp = None if split is None else split[key]
                 if isinstance(t, dict):
                     # a cross block's caches: only "self" grows
-                    put(bufs.setdefault(key, {}), t, r,
+                    put(bufs.setdefault(key, {}), t, sp, r,
                         grow and key == "self")
                     continue
                 n = (max(S, max_seq) if grow and t.dim() >= 2
                      and t.shape[1] == S else t.shape[1])
-                shape = (t.shape[0], n) + tuple(t.shape[2:])
+                lo, hi = 0, n
+                if sp == 1 and key in SLOT_LEAVES:   # this rank's slots
+                    lo, hi = _own_range(n, tp_axis)
+                shape = (t.shape[0], hi - lo) + tuple(t.shape[2:])
                 if key not in bufs:
                     lead = () if r is None else (cfg.pattern_repeats,)
                     bufs[key] = t.new_zeros(lead + shape)
-                (bufs[key] if r is None else bufs[key][r])[:, :t.shape[1]] = t
+                part = t[:, lo:min(hi, t.shape[1])]
+                (bufs[key] if r is None else bufs[key][r])[
+                    :, :part.shape[1]] = part
 
         if cfg.pattern_repeats > 0:
             stacked = [params["blocks"][f"p{i}_{k}"]
@@ -519,44 +586,117 @@ class Model:
             for r in range(cfg.pattern_repeats):
                 for i, (kind, ps) in enumerate(zip(cfg.block_pattern,
                                                    stacked)):
-                    h, c = blocks.block_prefill(kind, _slice_tree(ps, r), h,
-                                                ctx)
-                    put(cache["blocks"][f"p{i}_{kind}"], c, r, grows(kind))
+                    key = f"p{i}_{kind}"
+                    c, fs = ctxs[("blocks", key)] if ctxs else (ctx, None)
+                    h, cc = blocks.block_prefill(
+                        kind, gather_tree(_slice_tree(ps, r), fs), h, c)
+                    put(cache["blocks"][key], cc, c.cache_split, r,
+                        grows(kind))
         if cfg.tail_layers:
             cache["tail"] = {}
             for i, kind in enumerate(cfg.tail_layers):
-                h, c = blocks.block_prefill(
-                    kind, params["tail"][f"t{i}_{kind}"], h, ctx)
-                put(cache["tail"].setdefault(f"t{i}_{kind}", {}), c, None,
-                    grows(kind))
-        logits = self._head(params, h[:, -1:, :])
-        return logits[:, 0, :], cache, S
+                key = f"t{i}_{kind}"
+                c, fs = ctxs[("tail", key)] if ctxs else (ctx, None)
+                h, cc = blocks.block_prefill(
+                    kind, gather_tree(params["tail"][key], fs), h, c)
+                put(cache["tail"].setdefault(key, {}), cc, c.cache_split,
+                    None, grows(kind))
+        return self._last_logits(params, h, tp_axis=tp_axis, layout=layout,
+                                 fsdp=fsdp), cache, S
 
     @torch.inference_mode()
     def decode_step(self, params: dict, cache: dict, token: torch.Tensor,
-                    pos: int, **ctx_kw):
+                    pos: int, *, tp_axis=None, layout: Optional[dict] = None,
+                    fsdp: Optional[dict] = None, moe: Optional[dict] = None,
+                    max_seq: Optional[int] = None, **ctx_kw):
         """One-token decode. token (B, 1) integer, pos (int) the number of
         tokens already in the cache. Returns (logits (B, V), cache), the
-        cache's tensors updated in place."""
+        cache's tensors updated in place.
+
+        `tp_axis`, `layout`, `fsdp` and `moe` as in `prefill`, whose cache
+        shards this takes; `max_seq` (the prefill's) is needed with them:
+        a shard's length cannot tell a whole ring of slots from a split
+        one. The moe blocks route each step's tokens on the gather
+        dispatch, as the reference's decode does, with `moe`'s batch
+        groups."""
         cfg = self.cfg
-        ctx = self._ctx(**ctx_kw)
+        if tp_axis is not None and max_seq is None:
+            raise ValueError("decode_step under model parallelism needs the "
+                             "prefill's max_seq")
+        if moe is not None:
+            moe = {**moe, "moe_impl": "gather"}
+        ctx = self._ctx(tp_axis=tp_axis, moe=moe, **ctx_kw)
+        ctxs = self._serve_ctxs(ctx, max_seq, tp_axis, layout, fsdp)
         pos = int(pos)
-        h = self._embed(params, Batch(tokens=token), pos0=pos)
+        h = self._embed(params, Batch(tokens=token), pos0=pos,
+                        group=tp_axis, layout=layout, fsdp=fsdp)
         new_cache: dict = {"blocks": {}, "tail": {}}
         if cfg.pattern_repeats > 0:
             keys = [f"p{i}_{k}" for i, k in enumerate(cfg.block_pattern)]
             for r in range(cfg.pattern_repeats):
                 for kind, key in zip(cfg.block_pattern, keys):
+                    c, fs = ctxs[("blocks", key)] if ctxs else (ctx, None)
                     h, _ = blocks.block_decode(
-                        kind, _slice_tree(params["blocks"][key], r), h,
-                        _slice_tree(cache["blocks"][key], r), pos, ctx)
+                        kind, gather_tree(_slice_tree(params["blocks"][key],
+                                                      r), fs), h,
+                        _slice_tree(cache["blocks"][key], r), pos, c)
             new_cache["blocks"] = {key: cache["blocks"][key] for key in keys}
         for i, kind in enumerate(cfg.tail_layers):
             key = f"t{i}_{kind}"
+            c, fs = ctxs[("tail", key)] if ctxs else (ctx, None)
             h, new_cache["tail"][key] = blocks.block_decode(
-                kind, params["tail"][key], h, cache["tail"][key], pos, ctx)
-        logits = self._head(params, h)
-        return logits[:, 0, :], new_cache
+                kind, gather_tree(params["tail"][key], fs), h,
+                cache["tail"][key], pos, c)
+        return self._last_logits(h=h, params=params, tp_axis=tp_axis,
+                                 layout=layout, fsdp=fsdp), new_cache
+
+
+# the cache leaves whose second dimension is the slots (or an encoder's
+# frames), which the cache layout may split over the model axis
+SLOT_LEAVES = ("k", "v", "k_s", "v_s", "ckv", "kpe")
+
+
+def cache_model_dim(name: str, shape: tuple, size: int) -> Optional[int]:
+    """The dimension of one block's cache leaf `name` (its shape without the
+    stacked repeat dimension, batch first) that the reference's cache
+    layout splits over a model axis of `size` ranks
+    (`repro/launch/dryrun.py:cache_spec_tree`), or None: K/V by KV head
+    where the heads divide, else by slot; MLA's latent by slot; the SSM's
+    state by head; the conv tails by channel; the RG-LRU's state by
+    channel."""
+    def div(n):
+        return size > 1 and n % size == 0
+    if name in ("k", "v", "k_s", "v_s"):        # (B, S, KV, hd|1)
+        return 2 if div(shape[2]) else (1 if div(shape[1]) else None)
+    if name in ("ckv", "kpe", "state", "h"):    # (B, S, r), (B, H, ..)
+        return 1 if div(shape[1]) else None
+    if name in ("conv", "conv_x", "conv_B", "conv_C"):   # (B, W-1, C)
+        return 2 if div(shape[2]) else None
+    return None
+
+
+def _own_range(n: int, group) -> tuple:
+    """This rank's block [lo, hi) of n slots split over `group`."""
+    size = dist.get_world_size(group)
+    if n % size:
+        raise ValueError(f"{n} cache slots do not split over {size} model "
+                         f"ranks")
+    lo = dist.get_rank(group) * (n // size)
+    return lo, lo + n // size
+
+
+def _block_ctx(ctx: blocks.BlockCtx, layout: Optional[dict],
+               fsdp: Optional[dict], part: str, key: str, kind: str):
+    """(a block's context, the FSDP splits its body gathers): its layout
+    under model parallelism; a moe block on the ep dispatch leaves its
+    expert leaves to `moe_apply_ep`."""
+    c = ctx
+    if layout is not None:
+        c = dataclasses.replace(c, layout=layout[part][key])
+    fs = None if fsdp is None else fsdp[part][key]
+    if fs is not None and kind == "moe" and ctx.moe_impl == "ep":
+        fs, c = _ep_experts(fs, c)
+    return c, fs
 
 
 def _add_aux(total, a):

@@ -9,12 +9,22 @@ Greedy decoding takes the first maximum (`torch.argmax`, as `jnp.argmax`).
 Temperature sampling draws from a `torch.Generator` on the engine's device
 seeded by `seed`: it is repeatable from one seed, but it cannot reproduce
 `jax.random`'s bits, so sampled tokens differ from the reference's.
+
+With a mesh and a planner the engine serves model-parallel: its
+parameters are this rank's shards (`convert.shard_params` with
+`trainer.param_specs`), each data group serves its rows of the batch (the
+planner's batch axes), the model's prefill and decode run under the
+planner's layout, FSDP splits and moe dispatch, and every cache leaf is
+this rank's shard under the reference's cache layout (`cache_spec_tree`
+gives the whole tree's). `generate` returns the whole batch's tokens on
+every rank.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import time
 from typing import Optional
 
@@ -22,7 +32,9 @@ import numpy as np
 import torch
 
 from repro_torch import tree as tree_lib
-from repro_torch.models.transformer import Batch, Model
+from repro_torch.core import collectives as cl
+from repro_torch.core.planner import Planner, mesh_shape
+from repro_torch.models.transformer import Batch, Model, cache_model_dim
 
 
 @dataclasses.dataclass
@@ -35,9 +47,18 @@ class EngineConfig:
 
 class Engine:
     def __init__(self, model: Model, params: dict,
-                 cfg: EngineConfig | None = None, *, meter=None, tracer=None,
+                 cfg: EngineConfig | None = None, *, mesh=None,
+                 planner: Planner | None = None, comm=None,
+                 force_model_parallel: bool = False, meter=None, tracer=None,
                  telemetry=None, monitor=None):
-        """`meter` (obs.meter.StepMeter) / `tracer` (obs.trace.TraceWriter)
+        """`mesh` and `planner` (together): serve model-parallel, `params`
+        being this rank's shards under the planner's specs; `comm` (a
+        `trainer.CommConfig`, default gspmd on the gather dispatch) gives
+        the moe blocks' dispatch, `moe_impl` and `wgather_wire`.
+        `force_model_parallel` runs the model-parallel path over the
+        planner's model axis even when it has one rank.
+
+        `meter` (obs.meter.StepMeter) / `tracer` (obs.trace.TraceWriter)
         optionally instrument the host loop: a "prefill" span plus one span
         and one meter step per decode step. `telemetry`
         (obs.telemetry.TelemetryWriter) streams one step record per decode
@@ -49,6 +70,9 @@ class Engine:
         time it; leave them all None on the fast path."""
         if meter is None and (telemetry is not None or monitor is not None):
             raise ValueError("telemetry and monitor need a meter")
+        if (mesh is None) != (planner is None):
+            raise ValueError("a model-parallel engine needs both a mesh and "
+                             "a planner")
         self.model = model
         self.params = params
         self.cfg = cfg or EngineConfig()
@@ -64,14 +88,52 @@ class Engine:
         if self.cfg.kv_dtype != "native":
             ctx_kw["kv_dtype"] = self.cfg.kv_dtype
         self.ctx_kw = ctx_kw
+        self.mp_kw: dict = {}
+        self.data_groups: list = []
+        if mesh is not None:
+            self._model_parallel(mesh, planner, comm, force_model_parallel)
+
+    def _model_parallel(self, mesh, planner: Planner, comm,
+                        force: bool) -> None:
+        """The model-parallel options, made once: the model group and
+        layout, the FSDP splits, the moe dispatch and the data groups."""
+        from repro_torch.train import trainer as tr
+        self.data_groups = [mesh.get_group(a) for a in planner.batch_axes]
+        self.mp_kw = serving_options(self.model, mesh, planner, comm,
+                                     force_model_parallel=force)
+        self.dp = math.prod(mesh_shape(mesh)[a] for a in planner.batch_axes)
+        self.data_rank = tr.data_rank(mesh, planner.batch_axes)
+
+    def rows(self, a):
+        """This data rank's rows of a whole-batch array (all of it without
+        a mesh)."""
+        if a is None or not self.data_groups:
+            return a
+        n = a.shape[0]
+        if n % self.dp:
+            raise ValueError(f"a batch of {n} rows does not split over "
+                             f"{self.dp} data ranks")
+        m = n // self.dp
+        return a[self.data_rank * m:(self.data_rank + 1) * m]
+
+    def whole(self, t: torch.Tensor) -> torch.Tensor:
+        """Every data rank's rows of t, in rank order (row-major over the
+        batch axes)."""
+        for g in reversed(self.data_groups):     # innermost axis first
+            t = cl._all_gather(t, g)
+        return t
 
     def _sample(self, logits: torch.Tensor,
                 gen: torch.Generator) -> torch.Tensor:
+        """This data rank's rows' next tokens. Sampling draws for the whole
+        batch (every data rank's logits gathered) from the same seeded
+        generator on every rank, so the ranks agree and the draws are a
+        one-card run's."""
         if self.cfg.temperature <= 0.0:
             return torch.argmax(logits, dim=-1)
-        probs = torch.softmax(logits.to(torch.float32)
+        probs = torch.softmax(self.whole(logits).to(torch.float32)
                               / self.cfg.temperature, dim=-1)
-        return torch.multinomial(probs, 1, generator=gen)[:, 0]
+        return self.rows(torch.multinomial(probs, 1, generator=gen)[:, 0])
 
     def _tensor(self, a) -> Optional[torch.Tensor]:
         return None if a is None else torch.as_tensor(np.asarray(a),
@@ -121,14 +183,15 @@ class Engine:
         sync = (timings is not None or self.meter is not None
                 or self.tracer is not None)
         t0 = time.perf_counter()
-        tokens = torch.as_tensor(np.asarray(prompts, np.int32),
+        tokens = torch.as_tensor(self.rows(np.asarray(prompts, np.int32)),
                                  device=self.device)
         batch = Batch(tokens=tokens,
-                      img_embeds=self._tensor(img_embeds),
-                      frame_embeds=self._tensor(frame_embeds))
+                      img_embeds=self._tensor(self.rows(img_embeds)),
+                      frame_embeds=self._tensor(self.rows(frame_embeds)))
         with self._span("prefill"):
             logits, cache, pos = self.model.prefill(
-                self.params, batch, self.cfg.max_seq, **self.ctx_kw)
+                self.params, batch, self.cfg.max_seq, **self.mp_kw,
+                **self.ctx_kw)
             if sync:
                 self._sync()
         if timings is not None:
@@ -137,8 +200,11 @@ class Engine:
         gen = torch.Generator(device=self.device).manual_seed(seed)
         out = []
         tok = self._sample(logits, gen)
+        decode_kw = dict(self.mp_kw)
+        if "tp_axis" in decode_kw:
+            decode_kw["max_seq"] = self.cfg.max_seq
         for i in range(n_new):
-            out.append(tok.to(torch.int32).cpu().numpy())
+            out.append(tok.to(torch.int32).cpu())
             t_step = time.perf_counter()
             if timings is not None and i == 0:
                 timings["first_token_s"] = t_step - t0
@@ -146,7 +212,8 @@ class Engine:
                 self.meter.start()
             with self._span(f"decode/{i}"):
                 logits, cache = self.model.decode_step(
-                    self.params, cache, tok[:, None], pos + i, **self.ctx_kw)
+                    self.params, cache, tok[:, None], pos + i, **decode_kw,
+                    **self.ctx_kw)
                 tok = self._sample(logits, gen)
                 if sync:
                     self._sync()
@@ -154,7 +221,66 @@ class Engine:
                 timings["decode_s"].append(time.perf_counter() - t_step)
             if self.meter is not None:
                 self._observe_decode(i, tokens.shape[0])
-        return np.stack(out, axis=1)
+        if not out:
+            return np.zeros((len(prompts), 0), np.int32)
+        toks = torch.stack(out, dim=1)
+        if self.data_groups:
+            toks = self.whole(toks.to(self.device)).cpu()
+        return toks.numpy()
+
+
+def serving_options(model: Model, mesh, planner: Planner, comm=None, *,
+                    force_model_parallel: bool = False) -> dict:
+    """`Model.prefill`'s and `decode_step`'s model-parallel options under
+    `planner` on `mesh`: the moe dispatch (`comm.moe_impl`, default the
+    gather dispatch, which routes the whole batch over the data ranks as
+    the reference's serving does), the model group and layout under model
+    parallelism (`force_model_parallel`: also over a model axis of one
+    rank), and the FSDP splits."""
+    from repro_torch.train import trainer as tr
+    comm = comm or tr.CommConfig()
+    groups = [mesh.get_group(a) for a in planner.batch_axes]
+    kw: dict = {"moe": tr.moe_options(
+        dataclasses.replace(comm, mode="gspmd"), planner, mesh, groups)}
+    if force_model_parallel or tr.model_parallel(planner):
+        kw["tp_axis"] = mesh.get_group(planner.model_axis)
+        kw["layout"] = model.mp_layout(planner)
+    if planner.fsdp:
+        kw["fsdp"] = tr.fsdp_splits(model, planner, mesh)
+    return kw
+
+
+def cache_spec_tree(cache, planner: Planner, batch: int, mesh):
+    """Rank 0's shard of a decode-cache tree under the reference's cache
+    layout (`repro/launch/dryrun.py:cache_spec_tree`), by leaf name: the
+    batch over the batch axes, then the model axis where
+    `transformer.cache_model_dim` puts it (the KV heads, or else the
+    slots, MLA's latent slots, the SSM's heads, the conv channels, the
+    RG-LRU width). Returns (the shard `meta` tensors, the spec tree)."""
+    sizes = mesh_shape(mesh)
+    baxes = planner.batch_spec_axes(batch)
+    lead = baxes if len(baxes) > 1 else (baxes[0] if baxes else None)
+
+    def spec_of(path, t):
+        off = 1 if "blocks" in path else 0
+        dims = [None] * t.dim()
+        if t.dim() > off:
+            dims[off] = lead
+        d = cache_model_dim(path[-1], tuple(t.shape[off:]),
+                            planner.model_size)
+        if d is not None:
+            dims[off + d] = planner.model_axis
+        return tuple(dims)
+
+    specs = tree_lib.map_with_path(spec_of, cache)
+
+    def shard(_, t, spec):
+        shape = [n // math.prod(sizes[a] for a in (
+            () if e is None else e if isinstance(e, tuple) else (e,)))
+            for n, e in zip(t.shape, spec)]
+        return torch.empty(shape, dtype=t.dtype, device="meta")
+
+    return tree_lib.map_with_path(shard, cache, specs), specs
 
 
 @dataclasses.dataclass

@@ -243,7 +243,7 @@ def sharded_flags(model: Model, planner: Planner, axis: str) -> list:
                                                                  planner))]
 
 
-def _data_rank(mesh, data_axes) -> int:
+def data_rank(mesh, data_axes) -> int:
     """This rank's index over the data axes (row-major, as the reference's
     batch PartitionSpec over the same axes)."""
     shape = mesh_shape(mesh)
@@ -291,9 +291,9 @@ def make_train_step(model: Model, optimizer: opt_lib.Optimizer, mesh,
     data_axes = planner.batch_axes
     groups = [mesh.get_group(a) for a in data_axes]
     dp = math.prod(mesh_shape(mesh)[a] for a in data_axes)
-    rank = _data_rank(mesh, data_axes)
+    rank = data_rank(mesh, data_axes)
     fsdp = fsdp_splits(model, planner, mesh) if planner.fsdp else None
-    moe = _moe_options(comm, planner, mesh, groups)
+    moe = moe_options(comm, planner, mesh, groups)
     engine = None
     if comm.mode == "mlsl":
         engine = make_comm_engine(model, mesh, planner, comm, device=device)
@@ -470,7 +470,7 @@ def _clip_over(leaf_groups: list):
     return clip_grads
 
 
-def _moe_options(comm: CommConfig, planner: Planner, mesh, groups):
+def moe_options(comm: CommConfig, planner: Planner, mesh, groups):
     """The moe blocks' dispatch options for `Model.loss(moe=)`. On the
     gather dispatch the gspmd step routes the whole batch over the data
     ranks (the reference's gspmd step routes the global batch), the mlsl

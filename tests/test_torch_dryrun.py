@@ -20,7 +20,13 @@ against the reference's (`repro.launch.dryrun`):
     for the one difference a model axis makes (stated at the test);
   * cell A's configuration on the smoke config at world size 1: the
     predicted parameter, optimizer, gradient and residual bytes equal a
-    real run's state's.
+    real run's state's;
+  * the serving records run on shards: for yi-6b, chatglm3-6b,
+    minicpm3-4b, grok-1-314b and arctic-480b on both production meshes,
+    each prefill and decode record's argument bytes equal rank 0's
+    parameter shards under the serving planner, plus for a decode its
+    `cache_spec_tree` shard of the whole batch's cache, plus its rows of
+    the batch; no record carries a note of whole parameters a rank.
 """
 
 import json
@@ -46,6 +52,7 @@ from repro_torch.core import planner as tpl
 from repro_torch.kernels import flashattn
 from repro_torch.launch import dryrun as tdry
 from repro_torch.models.transformer import Batch as TBatch, Model as TModel
+from repro_torch.serve import engine as tengine
 from repro_torch.train import trainer as ttr
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -155,7 +162,7 @@ def test_decode_cache_shards_equal_reference(jdry, arch):
     jcache = jax.eval_shape(lambda: JModel(jcfg).init_cache(B, S))
     jshards = jdry.cache_spec_tree(jcache, jp, B, mesh)
     tcache = TModel(tcfg).init_cache(B, S, device="meta")
-    tshards, _ = tdry.cache_spec_tree(tcache, tp, B, MESH24)
+    tshards, _ = tengine.cache_spec_tree(tcache, tp, B, MESH24)
     assert [tuple(str(k.key) for k in p) for p, _ in
             jax.tree_util.tree_leaves_with_path(jshards)] == \
         tree_lib.paths(tshards)
@@ -363,3 +370,64 @@ def test_predicted_train_state_bytes_equal_a_real_state():
     p = got["predicted"]
     assert got["memory"]["argument_bytes"] == (
         p["params"] + p["opt_state"] + p["residuals"] + 2 * 8 * 32 * 4)
+
+
+SERVE_ARCHS = ("yi-6b", "chatglm3-6b", "minicpm3-4b", "grok-1-314b",
+               "arctic-480b")
+SERVE_CHILD = """
+import json, math, torch
+from repro_torch import tree as tree_lib
+from repro_torch.configs import registry
+from repro_torch.configs.base import param_count_estimate
+from repro_torch.configs.shapes import SHAPES
+from repro_torch.core.planner import make_planner
+from repro_torch.launch import dryrun as d
+from repro_torch.models.transformer import Model
+from repro_torch.serve.engine import cache_spec_tree
+from repro_torch.train import trainer as tr
+out = {}
+for multi_pod in (False, True):
+    for arch in %r:
+        for name in ("prefill_32k", "decode_32k"):
+            cfg, shape = registry.get_config(arch), SHAPES[name]
+            rec = d.dryrun_one(arch, name, multi_pod=multi_pod)
+            mesh, _ = d.make_mesh(multi_pod=multi_pod)
+            planner = make_planner(mesh, param_count_estimate(cfg),
+                                   train=False, bytes_per_param_state=2.0)
+            model = Model(cfg)
+            shards = sum(
+                math.prod(d.shard_shape(pd.shape, s, mesh))
+                * torch.empty((), dtype=pd.dtype).element_size()
+                for pd, s in zip(tree_lib.leaves(model.param_defs()),
+                                 tree_lib.leaves(tr.param_specs(model,
+                                                                planner))))
+            rows = d._rows(shape, planner)
+            if shape.kind == "decode":     # the cache shard, a token a row
+                cache = model.init_cache(shape.global_batch, shape.seq_len,
+                                         device="meta")
+                want = shards + rows * 4 + d._nbytes(cache_spec_tree(
+                    cache, planner, shape.global_batch, mesh)[0])
+            else:                          # the prompt rows
+                want = shards + d._nbytes(d.batch_specs(
+                    cfg, shape, with_labels=False, rows=rows))
+            out[f"{arch} {name} {multi_pod}"] = [
+                rec["status"], rec["memory"]["argument_bytes"], want,
+                sorted(rec)]
+print(json.dumps(out))
+"""
+
+
+def test_serving_records_run_on_the_planned_shards():
+    """Each serving record's argument bytes are rank 0's parameter shards
+    (the serving planner's: grok-1 and arctic take FSDP), its shard of the
+    cache (decode) and its rows of the batch; grok-1's prefill_32k on
+    pod16x16 holds 2.49 GB of shards where whole parameters were 633 GB."""
+    recs = json.loads(_run(SERVE_CHILD % (SERVE_ARCHS,), timeout=600)
+                      .strip().splitlines()[-1])
+    assert len(recs) == 2 * 2 * len(SERVE_ARCHS)
+    for key, (status, got, want, keys) in recs.items():
+        assert status == "ok", key
+        assert got == want, (key, got, want)
+        assert "serving" not in keys and "planned" not in keys, key
+    grok = recs["grok-1-314b prefill_32k False"][1]
+    assert 2.4e9 < grok < 2.6e9, grok
