@@ -172,7 +172,13 @@ Phases, each fatal on failure:
                  vocabulary, and prints prefill, first-token and decode
                  times and peak memory; then one prefill and 3 decode steps
                  under torch.profiler: kernels, their summed time against
-                 the wall time, the top kernels by time;
+                 the wall time, the top kernels by time. After M-A, M-A
+                 kv_chunk: the same prompts through `Model.prefill(...,
+                 kv_chunk=1024)` and 64 decode steps teacher-forced with
+                 M-A's tokens, against the unchunked prefill and steps and
+                 their f32 evaluation (relative RMS bounds sqrt(2) and
+                 sqrt(3), greedy tokens equal but for bf16 ties), with the
+                 chunked and unchunked prefill's time and peak;
  15. train H  -- cell A's configuration on llava-next-mistral-7b at full
                  width cut to 4 layers, 576 zero patch embeddings + 1472
                  tokens per row (the CLI's stub); its plan fuses the norms,
@@ -1754,9 +1760,145 @@ def family_serve_phase(torch):
             for k, v in mp_ga(torch, model, params, want, flash, kw,
                               serve).items():
                 totals[k] = totals.get(k, 0) + v
+        if label == "M-A":
+            launches, serve["M-A kv_chunk"] = chunked_ma_phase(
+                torch, model, params, want, kw, serve["M-A"])
+            for k, v in launches.items():
+                totals[k] = totals.get(k, 0) + v
         del model, params, want
         torch.cuda.empty_cache()
     return totals, serve
+
+
+# M-A's chunked prefill: kv_chunk, and its bounds against the unchunked
+# run. Both runs are bf16 evaluations of one function; the witness is the
+# f32 evaluation of the same bf16 weights (unchunked prefill, then the
+# teacher-forced decode steps). The chunked attention rounds where the
+# unchunked one does (f32 scores, bf16 probabilities before P V) and, in
+# place of the output's one rounding, the accumulator after each chunk's
+# rescale and add: at 2048 keys over chunks of 1024, at most 3 roundings
+# more a layer. Of the ~14 roundings a layer's output passes (the norm, q,
+# the latents, k, v, the softmax, the attention output, the
+# out-projection, the residual add; the MLP's five) that is about a fifth
+# more variance, a distance to the witness about 1.1x the unchunked run's.
+# The bound MA_CHUNK_F32_FACTOR is sqrt(2) (as many extra roundings as all
+# of the unchunked run's own); the two runs' errors are at most
+# independent, so they lie within sqrt(1 + 2) of the unchunked run's own
+# distance of each other (MA_CHUNK_ONE_FACTOR). Distances are relative
+# RMS over all the compared logits. Greedy tokens: at every compared
+# position a token that differs must be a tie bf16 does not resolve (the
+# rule of `scripts/hybrid_cards.py`'s `_first_tokens`).
+MA_CHUNK = 1024
+MA_CHUNK_F32_FACTOR = 2 ** 0.5
+MA_CHUNK_ONE_FACTOR = 3 ** 0.5
+
+
+def chunked_ma_phase(torch, model, params, want, kw, base) -> tuple:
+    """M-A at full depth prefilled through `Model.prefill(...,
+    kv_chunk=MA_CHUNK)` (MLA's online softmax over two chunks of 1024 keys,
+    the reference's folded-rope `chunked_sdpa`), then decoded, against
+    M-A's unchunked run on the same weights and prompts: the unchunked
+    and the chunked prefill each timed with their peak (after
+    `empty_cache`, the weights and the last run's tokens held), then 64
+    decode steps teacher-forced with M-A's greedy tokens from each cache,
+    and the same in f32 (the witness). Checks the bounds above on the
+    prefill's last-token logits and every step's, and the greedy tokens
+    at all 65 positions (M-A's tokens against the chunked run's, ties
+    excepted). MLA launches no kernel: the flash count stays 0."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.models.transformer import Batch, Model
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "scripts"))
+    from hybrid_cards import _first_tokens, _rel_rms
+    batch, prompt_len, n_new = kw["batch"], kw["prompt_len"], kw["n_new"]
+    phase(f"serve M-A kv_chunk ({model.cfg.name}): batch {batch}, prompt "
+          f"{prompt_len}, prefill kv_chunk={MA_CHUNK}, {n_new} decode steps "
+          f"teacher-forced with M-A's tokens, against the unchunked run and "
+          f"the f32 evaluation")
+    max_seq = prompt_len + n_new + 8
+    prompts = np.random.default_rng(0).integers(
+        0, model.cfg.vocab, (batch, prompt_len)).astype(np.int32)
+    b = Batch(tokens=torch.as_tensor(prompts, device="cuda"))
+    toks = torch.as_tensor(want["tokens"], device="cuda")
+
+    def run(m, p, chunk):
+        """(the prefill's seconds, its peak bytes, the last-token logits
+        and each teacher-forced step's, (n_new + 1, B, V) f32)."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        logits, cache, pos = m.prefill(p, b, max_seq, kv_chunk=chunk)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        check(pos == prompt_len, f"M-A kv_chunk: prefill length {pos}")
+        out = [logits.float()]
+        with torch.inference_mode():
+            for i in range(n_new):
+                logits, cache = m.decode_step(p, cache, toks[:, i:i + 1],
+                                              pos + i)
+                out.append(logits.float())
+        del cache
+        return secs, peak, torch.stack(out)
+
+    one_s, one_peak, one = run(model, params, None)
+    reset_launches()
+    chunk_s, chunk_peak, got = run(model, params, MA_CHUNK)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check(launches["flash_attention"] == 0,
+          f"M-A kv_chunk: MLA launched the flash kernel {launches}")
+    check(bool(torch.isfinite(got).all()), "M-A kv_chunk: logits not finite")
+    log(f"  the unchunked prefill's logits bitwise M-A's: "
+        f"{bool(torch.equal(one[0], want['logits'].float()))}")
+    f32_model = Model(dataclasses.replace(model.cfg, dtype=torch.float32))
+    params32 = tree_lib.tree_map(lambda t: t.float(), params)
+    f32 = run(f32_model, params32, None)[2]
+    del params32, f32_model
+    torch.cuda.empty_cache()
+    d_one, d_got = _rel_rms(one, f32), _rel_rms(got, f32)
+    d_pair = _rel_rms(got, one)
+    held = _first_tokens(got.flatten(0, 1), one.flatten(0, 1),
+                         f32.flatten(0, 1))
+    first = _first_tokens(got[0], one[0], f32[0])
+    rec = {"kv_chunk": MA_CHUNK, "prefill_s": chunk_s,
+           "prefill_peak_bytes": chunk_peak, "unchunked_prefill_s": one_s,
+           "unchunked_prefill_peak_bytes": one_peak,
+           "m_a_prefill_s": base["runs"][0]["prefill_s"],
+           "m_a_peak_bytes": base["peak_bytes"],
+           "rel_rms_to_f32": d_got, "unchunked_rel_rms_to_f32": d_one,
+           "rel_rms_to_unchunked": d_pair,
+           "positions": int(one.shape[0] * one.shape[1]),
+           "tokens_equal": held["first_tokens_equal"],
+           "ties": held["first_token_ties"],
+           "first_tokens_equal": first["first_tokens_equal"]}
+    log(f"  prefill {chunk_s:.5f} s, peak {chunk_peak} B "
+        f"({chunk_peak / 2**30:.2f} GiB); unchunked here {one_s:.5f} s, "
+        f"peak {one_peak} B ({one_peak / 2**30:.2f} GiB); M-A's generate "
+        f"prefill {rec['m_a_prefill_s']:.5f} s, cell peak "
+        f"{base['peak_bytes'] / 2**30:.2f} GiB")
+    log(f"  logits rel RMS to f32: chunked {d_got:.4e}, unchunked "
+        f"{d_one:.4e} (bound x{MA_CHUNK_F32_FACTOR:.4f}); chunked to "
+        f"unchunked {d_pair:.4e} (bound x{MA_CHUNK_ONE_FACTOR:.4f} of "
+        f"{d_one:.4e})")
+    log(f"  greedy tokens at {rec['positions']} positions: "
+        f"{rec['tokens_equal']} equal, {rec['ties']} ties by the f32 "
+        f"witness; first tokens {rec['first_tokens_equal']} of {batch} "
+        f"equal")
+    check(d_got <= MA_CHUNK_F32_FACTOR * d_one,
+          f"M-A kv_chunk: rel RMS to f32 {d_got:.4e} past "
+          f"{MA_CHUNK_F32_FACTOR:.4f} x {d_one:.4e}")
+    check(d_pair <= MA_CHUNK_ONE_FACTOR * d_one,
+          f"M-A kv_chunk: rel RMS to the unchunked run {d_pair:.4e} past "
+          f"{MA_CHUNK_ONE_FACTOR:.4f} x {d_one:.4e}")
+    check(held["first_tokens_held"], f"M-A kv_chunk: a greedy token differs "
+          f"without a tie: {held}")
+    # chunking changes the roundings: a prefill ignoring kv_chunk would be
+    # the unchunked one bit for bit
+    check(d_pair > 0, "M-A kv_chunk: the chunked prefill is the unchunked "
+          "one bit for bit (kv_chunk ignored)")
+    return launches, rec
 
 
 def mp_ga(torch, model, params, want, flash, kw, serve) -> dict:

@@ -106,7 +106,7 @@ fsdp=True)`, gspmd) on the (--nproc, 1) data mesh, NCCL:
     rank draws the full weights before keeping its shards).
 
 families (only when asked for: `--parts families`): model parallelism
-for every family, in one process a rank (NCCL):
+for every family (or those of --families), in one process a rank (NCCL):
   * each of FAMILIES at full width in f32, cut to its depth there, at
     (data, model) = (1, --nproc) against its (--nproc, 1) data-parallel
     twin: `Planner(mesh)`, mlsl on the fp32 wire, SGD at 0.1, global batch
@@ -758,7 +758,8 @@ def families_part(args, work: pathlib.Path) -> tuple:
         str(pathlib.Path(__file__).resolve()), "--worker", "families",
         "--device", args.device, "--cells-config", args.cells_config,
         "--cells-seq", str(args.cells_seq), "--steps", str(args.steps),
-        "--worker-out", str(out)], args.timeout)
+        "--families", args.families, "--worker-out", str(out)],
+        args.timeout)
     r = json.loads(out.read_text()) if out.exists() else {}
     r["rc"] = proc.returncode
     for pair in r.get("families", []):
@@ -871,7 +872,10 @@ def families_worker(args) -> int:
     rec = {"device": [torch.cuda.get_device_name(dev)]
            if dev.type == "cuda" else ["cpu rehearsal"], "families": []}
     agree = True
+    chosen = args.families.split(",")
     for arch, layers, seq in FAMILIES:
+        if arch not in chosen:
+            continue
         cfg = registry.get_config(arch) if cells else \
             registry.get_smoke_config(arch)
         if cells:
@@ -898,6 +902,12 @@ def families_worker(args) -> int:
                          and pair["max_gnorm_diff"] <= GNORM_ATOL)
         agree = agree and pair["agree"]
         rec["families"].append(pair)
+    rec["agree"] = agree
+    if "grok-1-314b" not in chosen:
+        if dist.get_rank() == 0:
+            pathlib.Path(args.worker_out).write_text(json.dumps(rec))
+        dist.destroy_process_group()
+        return 0
     cfg = registry.get_config("grok-1-314b") if cells else \
         registry.get_smoke_config("grok-1-314b")
     if cells:
@@ -1573,6 +1583,9 @@ def main() -> int:
                     choices=["cells", "smoke"])
     ap.add_argument("--cells-seq", type=int, default=2048)
     ap.add_argument("--mp-meshes", default="1x4,2x2,h1x2x2")
+    # the families part's archs: FAMILIES' and grok-1-314b
+    ap.add_argument("--families", default=",".join(
+        [a for a, *_ in FAMILIES] + ["grok-1-314b"]))
     ap.add_argument("--timeout", type=float, default=600)
     ap.add_argument("--out", default=str(ROOT / "build" /
                                          "hybrid_cards.json"))

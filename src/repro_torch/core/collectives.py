@@ -364,37 +364,39 @@ def tp_psum_scatter(x: torch.Tensor, groups) -> torch.Tensor:
 
 # Column exchange for a model group whose ranks hold column shards of one
 # activation (model parallelism where a head or the model dimension is
-# split): `tp_all_gather` concatenates the shards along the last dimension
-# in rank order and keeps only this rank's slice of the cotangent on the
-# way back (the cotangent of the gathered tensor is the same on every rank
-# of the group); `tp_split` is its conjugate, this rank's slice forward and
-# the gathered cotangent backward. `tp_max` is an all-reduce MAX outside
-# autograd (a softmax's shift, whose gradient cancels). `group` is one
-# process group.
+# split): `tp_all_gather` concatenates the shards along a dimension (the
+# last unless told) in rank order and keeps only this rank's slice of the
+# cotangent on the way back (the cotangent of the gathered tensor is the
+# same on every rank of the group); `tp_split` is its conjugate, this
+# rank's slice of the last dimension forward and the gathered cotangent
+# backward. Where the gathered tensor's cotangent is only this rank's
+# share (each rank consumes part of it), `fsdp_gather` is the gather to
+# take: its backward sums the shares. `tp_max` is an all-reduce MAX
+# outside autograd (a softmax's shift, whose gradient cancels). `group`
+# is one process group.
 
-def _gather_last(x: torch.Tensor, group) -> torch.Tensor:
-    return _all_gather(x.movedim(-1, 0), group).movedim(0, -1).contiguous()
+def _gather_dim(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
+    return _all_gather(x.movedim(dim, 0), group).movedim(0, dim).contiguous()
 
 
-def _own_slice(x: torch.Tensor, group) -> torch.Tensor:
+def _own_slice(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
     p = dist.get_world_size(group)
-    if x.shape[-1] % p:
-        raise ValueError(f"the last dimension {x.shape[-1]} does not split "
+    if x.shape[dim] % p:
+        raise ValueError(f"the dimension {x.shape[dim]} does not split "
                          f"over the group size {p}")
-    n = x.shape[-1] // p
-    r = dist.get_rank(group)
-    return x[..., r * n:(r + 1) * n].contiguous()
+    n = x.shape[dim] // p
+    return x.narrow(dim, dist.get_rank(group) * n, n).contiguous()
 
 
-class _GatherLast(torch.autograd.Function):
+class _GatherDim(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return _gather_last(x, group)
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _gather_dim(x, group, dim)
 
     @staticmethod
     def backward(ctx, ct):
-        return _own_slice(ct, ctx.group), None
+        return _own_slice(ct, ctx.group, ctx.dim), None, None
 
 
 class _SplitLast(torch.autograd.Function):
@@ -405,13 +407,13 @@ class _SplitLast(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, ct):
-        return _gather_last(ct, ctx.group), None
+        return _gather_dim(ct, ctx.group), None
 
 
-def tp_all_gather(x: torch.Tensor, group) -> torch.Tensor:
-    """All-gather along the last dimension over `group`, in rank order;
-    the backward keeps this rank's slice of the cotangent."""
-    return _GatherLast.apply(x, group)
+def tp_all_gather(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
+    """All-gather along `dim` (the last by default) over `group`, in rank
+    order; the backward keeps this rank's slice of the cotangent."""
+    return _GatherDim.apply(x, group, dim)
 
 
 def tp_split(x: torch.Tensor, group) -> torch.Tensor:

@@ -228,23 +228,39 @@ class LiveBytes(TorchDispatchMode):
     still alive (`live`), and their most at any moment (`peak`). An output
     that shares a storage with one of the op's inputs (a view, an in-place
     or `out=` op) allocated nothing, whether the storage was made under the
-    mode or before it (an argument's)."""
+    mode or before it (an argument's). `peak_ops`: the PEAK_OPS ops whose
+    live outputs held the most bytes at the peak, and `peak_op` the op
+    whose output set it: [op name, bytes] pairs."""
+
+    PEAK_OPS = 6
 
     def __init__(self):
         super().__init__()
         self.live = self.peak = 0
         self._seen: dict = {}
+        self.peak_ops: list = []
+        self.peak_op = None
 
-    def _track(self, t: torch.Tensor) -> None:
+    def _track(self, t: torch.Tensor, name: str) -> None:
         st = t.untyped_storage()
         key = id(st)
         if key in self._seen:
             return
         n = st.nbytes()
-        self._seen[key] = n
+        self._seen[key] = (n, name)
         self.live += n
-        self.peak = max(self.peak, self.live)
+        if self.live > self.peak:
+            self.peak = self.live
+            self._snapshot(name, n)
         weakref.finalize(st, self._free, key, n)
+
+    def _snapshot(self, name: str, n: int) -> None:
+        held: dict = {}
+        for b, op in self._seen.values():
+            held[op] = held.get(op, 0) + b
+        self.peak_ops = sorted(held.items(), key=lambda kv: -kv[1])[
+            :self.PEAK_OPS]
+        self.peak_op = [name, n]
 
     def _free(self, key, n) -> None:
         self.live -= n
@@ -258,7 +274,7 @@ class LiveBytes(TorchDispatchMode):
         for t in tree_leaves(out):
             if isinstance(t, torch.Tensor) and \
                     id(t.untyped_storage()) not in inputs:
-                self._track(t)
+                self._track(t, str(func))
         return out
 
 
@@ -296,6 +312,8 @@ class Counted:
     collectives: list
     seconds: float
     bounded: bool       # sized a buffer from `expert_slots_bound`
+    peak_ops: list      # LiveBytes.peak_ops
+    peak_op: object     # LiveBytes.peak_op
 
 
 @contextlib.contextmanager
@@ -332,7 +350,8 @@ def run_counted(fn, *args) -> Counted:
     return Counted(out=out, flops=float(flops.get_total_flops()),
                    bytes_accessed=float(nbytes.total), temp_bytes=live.peak,
                    collectives=log.records, seconds=time.time() - t0,
-                   bounded=bool(fired))
+                   bounded=bool(fired), peak_ops=live.peak_ops,
+                   peak_op=live.peak_op)
 
 
 # --------------------------------------------------------------------------
@@ -479,7 +498,8 @@ def dryrun_one(arch: str, shape_name: str, *, multi_pod: bool = False,
     `SHAPES[shape_name]`, the production mesh and `make_planner`'s choice
     (e.g. a train cell's configuration at world size 1);
     `force_model_parallel` serves model-parallel over a model axis of one
-    rank too."""
+    rank too. The record's "peak_ops" names the ops holding the most at
+    the temporaries' peak (`LiveBytes`)."""
     cfg = cfg or registry.get_config(arch)
     shape = shape or SHAPES[shape_name]
     comm = comm or tr.CommConfig()
@@ -548,6 +568,7 @@ def dryrun_one(arch: str, shape_name: str, *, multi_pod: bool = False,
     rec["lower_s"] = time.time() - t0
     run = run_counted(fn, *args)
     rec["compile_s"] = run.seconds
+    rec["peak_ops"] = {"set_by": run.peak_op, "held_by": run.peak_ops}
 
     arg_bytes = sum(v for k, v in parts.items() if k != "grads") \
         + batch_bytes
@@ -692,8 +713,10 @@ def main(argv=None):
         extra = ""
         if st == "ok":
             r = rec["roofline"]
+            op, held = rec["peak_ops"]["held_by"][0]
             extra = (f" dom={r['dominant']} tc={r['t_compute']:.3e}"
-                     f" tm={r['t_memory']:.3e} tx={r['t_collective']:.3e}")
+                     f" tm={r['t_memory']:.3e} tx={r['t_collective']:.3e}"
+                     f" peak held most by {op} ({held / 1e9:.2f} GB)")
         elif st == "failed":
             extra = " " + rec["error"][:160]
         print(f"[{st}] {tag} ({rec['wall_s']:.1f}s){extra}", flush=True)

@@ -15,9 +15,14 @@ Under model parallelism `gqa_apply` takes the layout of its projections
 (`Planner.model_dims`): whole heads per rank run sharded, as under a hybrid
 plan; a shard holding part of a head (the smoke yi-6b's 4 heads of 32 over
 8 ranks, chatglm3-6b's 2 KV heads over 4, recurrentgemma's one KV head)
-runs `gqa_gathered`. The cross-attention (`gqa_cross_kv`, `gqa_cross`)
-and MLA (`mla_apply`: its latents through the f operator) follow the same
-two cases.
+runs `gqa_gathered`, which makes K and V whole on every rank and splits
+the queries (`mp_path`): a rank attends its own query heads where they
+divide by the group size, else its own block of query rows where the
+flash kernel does not run (the sequence padded to a multiple of the group
+size), else (the flash prefill) every head. The cross-attention
+(`gqa_cross_kv`, `gqa_cross`) and MLA (`mla_apply`: its latents through
+the f operator; by query rows where its heads do not split) follow the
+same cases.
 
 Which attention the GQA functions run (`_attention`):
   * the flash kernel (`kernels.flashattn.gqa_flash_attention`) when no
@@ -104,7 +109,8 @@ def chunked_sdpa(q, k, v, *, causal: bool = True, window: int | None = None,
     accumulator in q's dtype, the running max and denominator in f32).
 
     q (B, Sq, H, D); k (B, Sk, H, D) and v (B, Sk, H, Dv) with the heads
-    already repeated. Plain PyTorch, as the reference's is jnp."""
+    already repeated; query row i sits at key position i + q_offset. Plain
+    PyTorch, as the reference's is jnp."""
     B, Sq, H, D = q.shape
     Sk, Dv = k.shape[1], v.shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
@@ -140,17 +146,24 @@ def chunked_sdpa(q, k, v, *, causal: bool = True, window: int | None = None,
     return (acc.to(torch.float32) / denom).to(q.dtype)
 
 
+def _flash_runs(mask: torch.Tensor | None) -> bool:
+    """Does `_attention` run the flash kernel (no mask, autograd off)?"""
+    return mask is None and not torch.is_grad_enabled()
+
+
 def _attention(q, k, v, *, causal: bool, window: int | None,
                mask: torch.Tensor | None, q_offset: int = 0,
                kv_chunk: int | None = None) -> torch.Tensor:
     """Attention of q (B, Sq, H, hd) over k, v (B, Sk, KV, hd): the flash
     kernel when there is no mask and autograd is not recording, else
     `chunked_sdpa` with `kv_chunk`, else `_sdpa` (with the causal/window
-    mask built here when `causal` and no mask is given). A bidirectional
-    attention (`causal=False`) ignores `window` but in `chunked_sdpa`, as
-    the reference's does."""
+    mask built here when `causal` and no mask is given). `q_offset`: the
+    position of q's first row among the keys' (a rank's own query rows;
+    the flash kernel never takes one). A bidirectional attention
+    (`causal=False`) ignores `window` but in `chunked_sdpa`, as the
+    reference's does."""
     H = q.shape[2]
-    if mask is None and not torch.is_grad_enabled():
+    if _flash_runs(mask):
         return flashattn.gqa_flash_attention(
             q, k, v, causal=causal, window=window if causal else None)
     k, v = _repeat_kv(k, H), _repeat_kv(v, H)
@@ -158,31 +171,63 @@ def _attention(q, k, v, *, causal: bool, window: int | None,
         return chunked_sdpa(q, k, v, causal=causal, window=window,
                             q_offset=q_offset, kv_chunk=kv_chunk)
     if mask is None and causal:
-        mask = common.causal_mask(q.shape[1], k.shape[1], window=window,
-                                  device=q.device)
+        mask = common.causal_mask(q.shape[1], k.shape[1], q_offset=q_offset,
+                                  window=window, device=q.device)
     return _sdpa(q, k, v, mask)
 
 
+def _own_kv(t: torch.Tensor, n_heads: int, h0: int, hl: int) -> torch.Tensor:
+    """The KV heads of t (B, S, KV, hd) that query heads h0 .. h0 + hl - 1
+    of `n_heads` read (head h reads KV head h // (n_heads / KV)), laid out
+    for those hl heads as `_attention` takes them: a block of whole groups
+    when the heads' range starts and ends on group boundaries, the one KV
+    head when it lies inside one group, else one KV head per query head
+    (3 heads a rank on groups of 2 start mid-group)."""
+    g = n_heads // t.shape[2]
+    if h0 % g == 0 and hl % g == 0:
+        return t.narrow(2, h0 // g, hl // g)
+    if h0 // g == (h0 + hl - 1) // g:
+        return t.narrow(2, h0 // g, 1)
+    return t.index_select(2, torch.arange(h0, h0 + hl, device=t.device) // g)
+
+
 def _attend(q, k, v, a: AttnConfig, *, pos0: int, window: int | None,
-            mask: torch.Tensor | None, kv_chunk: int | None = None):
-    """`gqa_apply`'s self-attention over the projections q (B, S, H * hd)
-    and k, v (B, S, KV * hd), the head counts read from their widths.
-    Returns the attention output (B, S, H * hd), before the
-    out-projection, and the roped K and V it attended to, (B, S, KV, hd)
-    each, from which the prefill builds its cache."""
-    B, S, _ = q.shape
+            mask: torch.Tensor | None, kv_chunk: int | None = None,
+            q_row0: int = 0, q_head0: int | None = None):
+    """`gqa_apply`'s self-attention over the projections q (B, Sq, Hq *
+    hd) and k, v (B, S, KV * hd), the head counts read from their widths.
+    Returns the attention output (B, Sq, Hq * hd), before the
+    out-projection, and the roped K and V, (B, S, KV, hd) each, from which
+    the prefill builds its cache.
+
+    q may hold only some of the queries (model parallelism): `q_row0`, the
+    first of the Sq query rows among the S positions (its own rows: roped
+    at their absolute positions, masked from there; rows past the last
+    position are padding), or `q_head0`, the first of its Hq heads among
+    `a.n_heads` (its own heads, attending over the KV heads they read,
+    `_own_kv`)."""
+    B, Sq, _ = q.shape
     hd = a.head_dim
     H = q.shape[-1] // hd
     q, k, v = (_split_heads(t, t.shape[-1] // hd, hd) for t in (q, k, v))
-    positions = torch.arange(S, device=q.device) + pos0
-    q = common.apply_rope(q, positions, rotary_frac=a.rotary_frac,
+    q_pos = torch.arange(Sq, device=q.device) + pos0 + q_row0
+    k_pos = torch.arange(k.shape[1], device=k.device) + pos0
+    q = common.apply_rope(q, q_pos, rotary_frac=a.rotary_frac,
                           theta=a.rope_theta)
-    k = common.apply_rope(k, positions, rotary_frac=a.rotary_frac,
+    k = common.apply_rope(k, k_pos, rotary_frac=a.rotary_frac,
                           theta=a.rope_theta)
-    o = _attention(q, k, v, causal=a.causal,
+    ka, va = (k, v) if q_head0 is None else \
+        (_own_kv(t, a.n_heads, q_head0, H) for t in (k, v))
+    if mask is not None:
+        mask = mask[..., q_row0:q_row0 + Sq, :]
+        if mask.shape[-2] < Sq:     # padded rows (`_own_rows`) see every key
+            mask = torch.cat([mask, mask.new_ones(
+                mask.shape[:-2] + (Sq - mask.shape[-2], mask.shape[-1]))],
+                dim=-2)
+    o = _attention(q, ka, va, causal=a.causal,
                    window=window if window is not None else a.window,
-                   mask=mask, q_offset=pos0, kv_chunk=kv_chunk)
-    return o.reshape(B, S, H * hd), k, v
+                   mask=mask, q_offset=q_row0, kv_chunk=kv_chunk)
+    return o.reshape(B, Sq, H * hd), k, v
 
 
 # the layout of a head-sharded attention: each projection split by output
@@ -196,6 +241,57 @@ def head_aligned(layout: dict, a: AttnConfig, size: int) -> bool:
     heads?"""
     return (layout == HEAD_SHARDED and a.n_heads % size == 0
             and a.n_kv % size == 0)
+
+
+# how a model-parallel attention splits its work over the model group
+# (`mp_path`): whole query and KV heads a rank, its own query heads over the
+# gathered K/V, its own block of query rows over every key, or every rank
+# attending over every head
+ALIGNED, OWN_HEADS, OWN_ROWS, WHOLE = "aligned", "heads", "rows", "whole"
+
+
+def mp_path(layout: dict, a: AttnConfig, size: int, *, flash: bool) -> str:
+    """The work a rank of a model group of `size` does in an attention
+    under `layout`:
+      * ALIGNED: the layout gives it whole query and KV heads
+        (`head_aligned`);
+      * OWN_HEADS: its `wq` column shard holds whole query heads (the
+        query heads divide by `size`) and the KV heads do not split: it
+        attends its own heads over the K/V gathered whole;
+      * OWN_ROWS: the query heads do not split either: it attends its
+        block of the query rows over every key (`_own_rows`). Causal
+        attention splits exactly by query rows; the flash kernel takes no
+        query offset, so not where it runs (`flash`: no mask and autograd
+        off, `_flash_runs`);
+      * WHOLE: there, every rank attends over every head."""
+    if head_aligned(layout, a, size):
+        return ALIGNED
+    if layout["wq"] == -1 and layout["wo"] == -2 and a.n_heads % size == 0:
+        return OWN_HEADS
+    return WHOLE if flash else OWN_ROWS
+
+
+def _own_rows(q: torch.Tensor, group) -> tuple:
+    """(this rank's block of the query rows of q (B, S, ...), the first
+    row's index): ceil(S / m) rows a rank of the m, the sequence padded
+    with zero rows to m blocks where S does not divide (a padded row sits
+    past the last position, sees every key, and its output is dropped by
+    `_gather_rows`)."""
+    m, S = dist.get_world_size(group), q.shape[1]
+    c = -(-S // m)
+    if c * m != S:
+        q = torch.cat([q, q.new_zeros((q.shape[0], c * m - S)
+                                      + q.shape[2:])], dim=1)
+    row0 = dist.get_rank(group) * c
+    return q[:, row0:row0 + c], row0
+
+
+def _gather_rows(o: torch.Tensor, n: int, group) -> torch.Tensor:
+    """The ranks' blocks of output rows gathered along the sequence and cut
+    to its n rows. The backward keeps this rank's rows of the cotangent,
+    which is whole on every rank (`gathered_rows`, `tp_split`'s
+    backward)."""
+    return cl.tp_all_gather(o, group, dim=1)[:, :n]
 
 
 def gqa_apply(p: dict, x: torch.Tensor, a: AttnConfig, *, pos0: int = 0,
@@ -235,10 +331,24 @@ def gqa_apply(p: dict, x: torch.Tensor, a: AttnConfig, *, pos0: int = 0,
 
 def gathered_cols(w: torch.Tensor, x: torch.Tensor, xr: torch.Tensor,
                   dim, group) -> torch.Tensor:
-    """x @ w whole on every rank: a column-split w (`dim` -1) takes x
-    through the f operator (`xr`, `tp_replicate(x)`) and gathers the
-    product's columns over `group`; a replicated w takes x as it is."""
+    """x @ w whole on every rank, for a consumer whose cotangent is whole
+    on every rank: a column-split w (`dim` -1) takes x through the f
+    operator (`xr`, `tp_replicate(x)`) and gathers the product's columns
+    over `group`; a replicated w takes x as it is."""
     return cl.tp_all_gather(xr @ w, group) if dim == -1 else x @ w
+
+
+def summed_cols(w: torch.Tensor, x: torch.Tensor, xr: torch.Tensor,
+                dim, group) -> torch.Tensor:
+    """x @ w whole on every rank, for a consumer whose cotangent is only
+    this rank's share (its own query heads or rows): a column-split w
+    gathers `xr @ w` with a backward that sums the shares and keeps this
+    rank's columns (`fsdp_gather`); a replicated w's product has its
+    cotangent summed over `group` (the f operator), so its gradient, and
+    x's, is whole on every rank."""
+    if dim == -1:
+        return cl.fsdp_gather(xr @ w, [group], -1)
+    return cl.tp_replicate(x @ w, group)
 
 
 def gathered_rows(o: torch.Tensor, w: torch.Tensor, dim,
@@ -251,23 +361,59 @@ def gathered_rows(o: torch.Tensor, w: torch.Tensor, dim,
     return o @ w
 
 
+def _split_attend(p: dict, x: torch.Tensor, a: AttnConfig, group,
+                  layout: dict, *, pos0: int, window: int | None,
+                  mask: torch.Tensor | None, kv_chunk: int | None) -> tuple:
+    """(`gqa_gathered`'s output, the whole roped K and V, (B, S, KV, hd)
+    each). Every projection of x (entering column-split ones through
+    `tp_replicate`) is made whole on every rank; the work splits by
+    `mp_path`:
+      * OWN_HEADS (or ALIGNED): q is this rank's `wq` shard's product
+        (its H / m whole heads), K and V are gathered with summing
+        backwards (`summed_cols`: each rank's K gradient comes from its
+        own heads only), and the output's columns are the rows of its `wo`
+        shard (`tp_psum(o @ wo)`);
+      * OWN_ROWS: q, K and V are whole through `summed_cols`; the rank
+        attends its own query rows (`_own_rows`), whose outputs are
+        gathered along the sequence (`_gather_rows`), then
+        `gathered_rows`;
+      * WHOLE: q, K and V are gathered (`gathered_cols`), every rank
+        attends over all heads, and `gathered_rows` takes the output."""
+    path = mp_path(layout, a, dist.get_world_size(group),
+                   flash=_flash_runs(mask))
+    if path == ALIGNED:         # whole KV heads too: its own query heads
+        path = OWN_HEADS
+    xr = cl.tp_replicate(x, group)
+    kw = dict(pos0=pos0, window=window, mask=mask, kv_chunk=kv_chunk)
+    if path == WHOLE:
+        o, k, v = _attend(*(gathered_cols(p[n], x, xr, layout[n], group)
+                            for n in ("wq", "wk", "wv")), a, **kw)
+        return gathered_rows(o, p["wo"], layout["wo"], group), k, v
+    k, v = (summed_cols(p[n], x, xr, layout[n], group) for n in ("wk", "wv"))
+    if path == OWN_HEADS:
+        q = xr @ p["wq"]
+        o, k, v = _attend(q, k, v, a, q_head0=dist.get_rank(group) * (
+            q.shape[-1] // a.head_dim), **kw)
+        return cl.tp_psum(o @ p["wo"], group), k, v
+    q, row0 = _own_rows(summed_cols(p["wq"], x, xr, layout["wq"], group),
+                        group)
+    o, k, v = _attend(q, k, v, a, q_row0=row0, **kw)
+    return gathered_rows(_gather_rows(o, x.shape[1], group), p["wo"],
+                         layout["wo"], group), k, v
+
+
 def gqa_gathered(p: dict, x: torch.Tensor, a: AttnConfig, group,
                  layout: dict, *, pos0: int = 0, window: int | None = None,
                  mask: torch.Tensor | None = None,
                  kv_chunk: int | None = None) -> torch.Tensor:
     """Attention whose projections' column shards need not hold whole
-    heads: each column-sharded projection of x (entering through
-    `tp_replicate`) is gathered over `group` (`tp_all_gather`), every rank
-    attends over the full heads (rope on whole heads), and a row-sharded
-    out-projection takes this rank's columns of the attention output
-    (`tp_split`) and sums the partial products (`tp_psum`). Replicated
-    projections use x and the full output as they are."""
-    xr = cl.tp_replicate(x, group)
-    q, k, v = (gathered_cols(p[n], x, xr, layout[n], group)
-               for n in ("wq", "wk", "wv"))
-    o = _attend(q, k, v, a, pos0=pos0, window=window, mask=mask,
-                kv_chunk=kv_chunk)[0]
-    return gathered_rows(o, p["wo"], layout["wo"], group)
+    heads (a layout that is not `head_aligned`): a rank attends its own
+    query heads where the query heads divide by the group size, else its
+    own query rows where the flash kernel does not run, else every head
+    (`mp_path`, `_split_attend`). Replicated projections use x as it
+    is."""
+    return _split_attend(p, x, a, group, layout, pos0=pos0, window=window,
+                         mask=mask, kv_chunk=kv_chunk)[0]
 
 
 def gqa_cross_kv(p: dict, enc: torch.Tensor, a: AttnConfig, *,
@@ -278,16 +424,21 @@ def gqa_cross_kv(p: dict, enc: torch.Tensor, a: AttnConfig, *,
     projections' `layout`) the encoder output enters through the f
     operator (`enc_rep`: `tp_replicate(enc)` made once for every cross
     block, else made here): this rank's heads when the layout gives whole
-    heads, else the whole heads gathered (`gqa_gathered`'s rule)."""
+    heads, else the whole heads, gathered as `gqa_cross` consumes them
+    (`summed_cols` for its own heads or rows, `gathered_cols` where every
+    rank attends over every head)."""
     hd = a.head_dim
     if tp_axis is None:
         k, v = enc @ p["wk"], enc @ p["wv"]
     else:
         er = cl.tp_replicate(enc, tp_axis) if enc_rep is None else enc_rep
-        if head_aligned(layout, a, dist.get_world_size(tp_axis)):
+        path = mp_path(layout, a, dist.get_world_size(tp_axis),
+                       flash=_flash_runs(None))
+        if path == ALIGNED:
             k, v = er @ p["wk"], er @ p["wv"]
         else:
-            k, v = (gathered_cols(p[n], enc, er, layout[n], tp_axis)
+            cols = gathered_cols if path == WHOLE else summed_cols
+            k, v = (cols(p[n], enc, er, layout[n], tp_axis)
                     for n in ("wk", "wv"))
     return (_split_heads(k, k.shape[-1] // hd, hd),
             _split_heads(v, v.shape[-1] // hd, hd))
@@ -298,26 +449,35 @@ def gqa_cross(p: dict, x: torch.Tensor, kv: tuple, a: AttnConfig, *,
     """Cross-attention of the decoder's x (B, S, d) over the encoder's
     (k, v) from `gqa_cross_kv` (with the same `tp_axis` and `layout`):
     every query sees every key, nothing is roped (the reference's
-    `gqa_apply(..., kv_override=kv, mask=None)`). Under model parallelism
-    x enters through f and the out-projection's partial sum leaves through
-    g, over this rank's heads or, with heads split, the gathered ones."""
-    B, S, _ = x.shape
-    hd = a.head_dim
-    aligned = tp_axis is not None and head_aligned(
-        layout, a, dist.get_world_size(tp_axis))
-    if tp_axis is None or aligned:
-        xr = x if tp_axis is None else cl.tp_replicate(x, tp_axis)
-        q = xr @ p["wq"]
-    else:
-        q = gathered_cols(p["wq"], x, cl.tp_replicate(x, tp_axis),
-                          layout["wq"], tp_axis)
-    H = q.shape[-1] // hd
-    o = _attention(_split_heads(q, H, hd), *kv, causal=False, window=None,
-                   mask=None).reshape(B, S, H * hd)
+    `gqa_apply(..., kv_override=kv, mask=None)`). Under model
+    parallelism x enters through f, and the work splits by `mp_path` as in
+    `gqa_gathered` (own rows: the decoder's, non-causal); the
+    out-projection's partial sum leaves through g."""
+    S, hd = x.shape[1], a.head_dim
+
+    def attend(q, kv, q_head0=None):
+        H = q.shape[-1] // hd
+        if q_head0 is not None:
+            kv = tuple(_own_kv(t, a.n_heads, q_head0, H) for t in kv)
+        return _attention(_split_heads(q, H, hd), *kv, causal=False,
+                          window=None, mask=None).reshape(*q.shape[:2], -1)
+
     if tp_axis is None:
-        return o @ p["wo"]
-    if aligned:
-        return cl.tp_psum(o @ p["wo"], tp_axis)
+        return attend(x @ p["wq"], kv) @ p["wo"]
+    path = mp_path(layout, a, dist.get_world_size(tp_axis),
+                   flash=_flash_runs(None))
+    xr = cl.tp_replicate(x, tp_axis)
+    if path in (ALIGNED, OWN_HEADS):
+        q = xr @ p["wq"]
+        h0 = dist.get_rank(tp_axis) * (q.shape[-1] // hd) \
+            if path == OWN_HEADS else None
+        return cl.tp_psum(attend(q, kv, h0) @ p["wo"], tp_axis)
+    if path == OWN_ROWS:
+        q = _own_rows(summed_cols(p["wq"], x, xr, layout["wq"], tp_axis),
+                      tp_axis)[0]
+        o = _gather_rows(attend(q, kv), S, tp_axis)
+    else:
+        o = attend(gathered_cols(p["wq"], x, xr, layout["wq"], tp_axis), kv)
     return gathered_rows(o, p["wo"], layout["wo"], tp_axis)
 
 
@@ -357,31 +517,31 @@ def gqa_init_cache(batch: int, max_seq: int, a: AttnConfig, dtype, *,
 
 def gqa_prefill(p: dict, x: torch.Tensor, a: AttnConfig, *,
                 window: int | None = None, kv_dtype: str = "native",
-                tp_axis=None, layout: dict | None = None,
-                kv_split: int | None = None):
+                kv_chunk: int | None = None, tp_axis=None,
+                layout: dict | None = None, kv_split: int | None = None):
     """`gqa_apply` over the whole prompt, and the cache of the K/V it
     attended to (ring-compacted if windowed): returns (y, cache). The
     reference's `gqa_prefill_cache` projects K/V a second time.
+    `kv_chunk` is `gqa_apply`'s: where the flash kernel runs (no mask,
+    autograd off, as in `Model.prefill`) it keeps running, since it never
+    forms the scores; elsewhere `chunked_sdpa` takes it.
 
     Under model parallelism (`tp_axis`, `layout`) the attention runs as in
-    `gqa_apply` and the cache holds the K/V heads the cache layout gives
-    this rank (`kv_split` 2: its KV heads, which head-sharded attention
+    `gqa_apply` (own query heads where they split whole and the KV heads do
+    not; the flash kernel keeps whole heads where the query heads do not
+    split) and the cache holds the K/V heads the cache layout gives this
+    rank (`kv_split` 2: its KV heads, which head-sharded attention
     computed; else every head), every slot: `Model.prefill` keeps this
     rank's slots where the layout splits them (`kv_split` 1)."""
+    kw = dict(pos0=0, window=window, mask=None, kv_chunk=kv_chunk)
     if tp_axis is None:
-        o, k, v = _attend(*_project(p, x), a, pos0=0, window=window,
-                          mask=None)
+        o, k, v = _attend(*_project(p, x), a, **kw)
         y = o @ p["wo"]
     elif head_aligned(layout, a, dist.get_world_size(tp_axis)):
-        o, k, v = _attend(*_project(p, cl.tp_replicate(x, tp_axis)), a,
-                          pos0=0, window=window, mask=None)
+        o, k, v = _attend(*_project(p, cl.tp_replicate(x, tp_axis)), a, **kw)
         y = cl.tp_psum(o @ p["wo"], tp_axis)
     else:
-        xr = cl.tp_replicate(x, tp_axis)
-        o, k, v = _attend(*(gathered_cols(p[n], x, xr, layout[n], tp_axis)
-                            for n in ("wq", "wk", "wv")), a, pos0=0,
-                          window=window, mask=None)
-        y = gathered_rows(o, p["wo"], layout["wo"], tp_axis)
+        y, k, v = _split_attend(p, x, a, tp_axis, layout, **kw)
         if kv_split == 2:
             k, v = (common.own_part(t, 2, tp_axis) for t in (k, v))
     S = x.shape[1]
@@ -617,18 +777,22 @@ def _mla_latents(p: dict, x: torch.Tensor, m: MLAConfig,
 
 
 def _mla_core(q, k_nope, v, kpe, m: MLAConfig, *, pos0: int,
-              window: int | None, kv_chunk: int | None) -> torch.Tensor:
-    """MLA's causal attention, before the out-projection: q (B, S, H *
+              window: int | None, kv_chunk: int | None,
+              q_row0: int = 0) -> torch.Tensor:
+    """MLA's causal attention, before the out-projection: q (B, Sq, H *
     (nope + rope)) from the query latent, k_nope (B, S, H * nope) and v
     (B, S, H * v_head_dim) expanded from the KV latent, kpe (B, S, rope)
-    shared by the heads; H is read from the widths. Returns (B, S, H *
-    v_head_dim)."""
-    B, S, _ = q.shape
+    shared by the heads; H is read from the widths. q's rows are query
+    rows q_row0 .. of the S positions (a rank's own rows under model
+    parallelism; all of them by default): roped at their absolute
+    positions, masked from there. Returns (B, Sq, H * v_head_dim)."""
+    B, Sq, _ = q.shape
+    S = k_nope.shape[1]
     d_qk = m.qk_nope_dim + m.qk_rope_dim
     H = q.shape[-1] // d_qk
-    q = q.reshape(B, S, H, d_qk)
+    q = q.reshape(B, Sq, H, d_qk)
     q_nope = q[..., :m.qk_nope_dim]
-    positions = torch.arange(S, device=q.device) + pos0
+    positions = torch.arange(Sq, device=q.device) + pos0 + q_row0
     q_pe = common.apply_rope(q[..., m.qk_nope_dim:], positions,
                              theta=m.rope_theta)
     k_nope = k_nope.reshape(B, S, H, m.qk_nope_dim)
@@ -639,20 +803,21 @@ def _mla_core(q, k_nope, v, kpe, m: MLAConfig, *, pos0: int,
         k_cat = torch.cat([k_nope, kpe[:, :, None, :].expand(
             B, S, H, m.qk_rope_dim)], dim=-1)
         o = chunked_sdpa(q_cat, k_cat, v, causal=True, window=window,
-                         q_offset=pos0, kv_chunk=kv_chunk,
+                         q_offset=q_row0, kv_chunk=kv_chunk,
                          scale=1.0 / math.sqrt(d_qk))
     else:
         scores = (torch.einsum("bqhd,bkhd->bhqk", q_nope, k_nope)
                   + torch.einsum("bqhd,bkd->bhqk", q_pe, kpe)
                   ).to(torch.float32)
         scores = scores / math.sqrt(d_qk)
-        mask = common.causal_mask(S, S, window=window, device=q.device)
+        mask = common.causal_mask(Sq, S, q_offset=q_row0, window=window,
+                                  device=q.device)
         scores = torch.where(mask[None, None], scores,
                              torch.full((), -1e30, dtype=scores.dtype,
                                         device=scores.device))
         w = torch.softmax(scores, dim=-1).to(v.dtype)
         o = torch.einsum("bhqk,bkhd->bqhd", w, v)
-    return o.reshape(B, S, H * m.v_head_dim)
+    return o.reshape(B, Sq, H * m.v_head_dim)
 
 
 # the layout of a head-sharded MLA: the up-projections split by output
@@ -672,8 +837,8 @@ def mla_apply(p: dict, x: torch.Tensor, m: MLAConfig, *, pos0: int = 0,
     whole gradients); with whole heads a rank attends over its own and the
     out-projection's partial sum leaves through g; with heads split
     (`MLA_HEAD_SHARDED` not whole over the group) every column-split
-    up-projection is gathered and the attention runs on the full heads
-    (`gqa_gathered`'s rule)."""
+    up-projection is gathered whole and a rank attends its own query rows
+    (`gqa_gathered`'s rule: MLA never runs the flash kernel)."""
     return _mla_forward(p, x, m, pos0=pos0, window=window, kv_chunk=kv_chunk,
                         tp_axis=tp_axis, layout=layout)[0]
 
@@ -684,11 +849,23 @@ def _mla_aligned(layout: dict, m: MLAConfig, group) -> bool:
         m.n_heads % dist.get_world_size(group) == 0
 
 
+def mla_path(layout: dict, m: MLAConfig, size: int) -> str:
+    """`mp_path` for MLA over a model group of `size`: ALIGNED where the
+    layout gives whole heads, else OWN_ROWS (MLA never runs the flash
+    kernel)."""
+    if layout == MLA_HEAD_SHARDED and m.n_heads % size == 0:
+        return ALIGNED
+    return OWN_ROWS
+
+
 def _mla_forward(p: dict, x: torch.Tensor, m: MLAConfig, *, pos0: int,
                  window: int | None, kv_chunk: int | None, tp_axis,
                  layout: dict | None) -> tuple:
     """(`mla_apply`'s output, the whole latents ckv and kpe it attended
-    over)."""
+    over). With heads split (`mla_path` OWN_ROWS) the up-projections'
+    products and kpe are made whole with summing backwards (`summed_cols`,
+    `tp_replicate`: each rank's share of their gradient comes from its own
+    rows), and the rows' outputs are gathered along the sequence."""
     cq, ckv, kpe = _mla_latents(p, x, m, pos0)
     kw = dict(pos0=pos0, window=window, kv_chunk=kv_chunk)
     if tp_axis is None:
@@ -699,12 +876,16 @@ def _mla_forward(p: dict, x: torch.Tensor, m: MLAConfig, *, pos0: int,
         o = _mla_core(cqr @ p["w_uq"], ckvr @ p["w_uk"], ckvr @ p["w_uv"],
                       kper, m, **kw)
         return cl.tp_psum(o @ p["wo"], tp_axis), ckv, kpe
+    # heads split (`mla_path` OWN_ROWS)
     cqr, ckvr = cl.tp_replicate(cq, tp_axis), cl.tp_replicate(ckv, tp_axis)
-    q = gathered_cols(p["w_uq"], cq, cqr, layout["w_uq"], tp_axis)
-    k_nope, v = (gathered_cols(p[n], ckv, ckvr, layout[n], tp_axis)
+    q, row0 = _own_rows(summed_cols(p["w_uq"], cq, cqr, layout["w_uq"],
+                                    tp_axis), tp_axis)
+    k_nope, v = (summed_cols(p[n], ckv, ckvr, layout[n], tp_axis)
                  for n in ("w_uk", "w_uv"))
-    o = _mla_core(q, k_nope, v, kpe, m, **kw)
-    return gathered_rows(o, p["wo"], layout["wo"], tp_axis), ckv, kpe
+    o = _mla_core(q, k_nope, v, cl.tp_replicate(kpe, tp_axis), m,
+                  q_row0=row0, **kw)
+    return gathered_rows(_gather_rows(o, x.shape[1], tp_axis), p["wo"],
+                         layout["wo"], tp_axis), ckv, kpe
 
 
 def mla_init_cache(batch: int, max_seq: int, m: MLAConfig, dtype, *,
@@ -717,16 +898,18 @@ def mla_init_cache(batch: int, max_seq: int, m: MLAConfig, dtype, *,
 
 
 def mla_prefill(p: dict, x: torch.Tensor, m: MLAConfig, *,
-                window: int | None = None, tp_axis=None,
-                layout: dict | None = None):
-    """`mla_apply` over the whole prompt, and the latent cache of the
-    `ckv`/`kpe` it attended over (ring-compacted if windowed): returns
-    (y, cache). The reference's `mla_prefill_cache` computes them again.
-    Under model parallelism the latents are whole on every rank, and
-    `Model.prefill` keeps this rank's slots where the cache layout splits
-    them."""
-    y, ckv, kpe = _mla_forward(p, x, m, pos0=0, window=window, kv_chunk=None,
-                               tp_axis=tp_axis, layout=layout)
+                window: int | None = None, kv_chunk: int | None = None,
+                tp_axis=None, layout: dict | None = None):
+    """`mla_apply` over the whole prompt (`kv_chunk`: its online softmax
+    over chunks of that many keys, the reference's folded-rope
+    `chunked_sdpa`), and the latent cache of the `ckv`/`kpe` it attended
+    over (ring-compacted if windowed): returns (y, cache). The reference's
+    `mla_prefill_cache` computes them again. Under model parallelism the
+    latents are whole on every rank, and `Model.prefill` keeps this rank's
+    slots where the cache layout splits them."""
+    y, ckv, kpe = _mla_forward(p, x, m, pos0=0, window=window,
+                               kv_chunk=kv_chunk, tp_axis=tp_axis,
+                               layout=layout)
     S = x.shape[1]
     if window and S > window:
         # position p at ring slot p % window

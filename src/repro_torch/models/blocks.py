@@ -290,6 +290,8 @@ def block_prefill(kind: str, p: dict, h: torch.Tensor, ctx: BlockCtx):
     the prompt). Takes the place of the reference's `block_prefill_cache`,
     which projects the block input's K/V (MLA: its latent; cross: the
     encoder's K/V; the recurrent kinds: runs the scan) a second time.
+    `ctx.kv_chunk` reaches every self-attention, as the reference's
+    `block_apply` passes it.
     Under model parallelism the cache leaves hold this rank's heads or
     channels and every slot; `Model.prefill` keeps this rank's slots."""
     _check_kind(kind)
@@ -309,11 +311,13 @@ def block_prefill(kind: str, p: dict, h: torch.Tensor, ctx: BlockCtx):
         tp, lay = ctx.sub_tp("mla")
         y, cache = attn_mod.mla_prefill(p["mla"], x, cfg.mla,
                                         window=ctx.window_override,
-                                        tp_axis=tp, layout=lay)
+                                        kv_chunk=ctx.kv_chunk, tp_axis=tp,
+                                        layout=lay)
         return _mlp_residual(p, h + y, cfg, mlp_tp), cache
     tp, lay = ctx.sub_tp("attn")
     if kind == "cross":
-        y, self_c = attn_mod.gqa_prefill(p["attn"], x, cfg.attn, tp_axis=tp,
+        y, self_c = attn_mod.gqa_prefill(p["attn"], x, cfg.attn,
+                                         kv_chunk=ctx.kv_chunk, tp_axis=tp,
                                          layout=lay,
                                          kv_split=_split(ctx, "self", "k"))
         xtp, xlay = ctx.sub_tp("xattn")
@@ -328,7 +332,8 @@ def block_prefill(kind: str, p: dict, h: torch.Tensor, ctx: BlockCtx):
                                                   "cross": {"k": k, "v": v}}
     y, cache = attn_mod.gqa_prefill(p["attn"], x, cfg.attn,
                                     window=ctx.window_for(kind),
-                                    kv_dtype=ctx.kv_dtype, tp_axis=tp,
+                                    kv_dtype=ctx.kv_dtype,
+                                    kv_chunk=ctx.kv_chunk, tp_axis=tp,
                                     layout=lay, kv_split=_split(ctx, "k"))
     if kind == "moe":
         return _moe_residual(p, h + y, ctx)[0], cache

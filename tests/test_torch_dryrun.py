@@ -223,6 +223,25 @@ def test_prefill_flops_count_the_flash_shape_operator():
     assert fc.get_total_flops() == want
 
 
+def test_live_bytes_names_the_ops_at_the_peak():
+    """`LiveBytes`: the peak of live storages, the op whose output set it
+    and the ops holding the most at that moment; a storage freed before
+    the peak is not counted in it."""
+    live = tdry.LiveBytes()
+    with live:
+        a = torch.zeros(256, device="meta")             # 1 KiB
+        b = torch.ones(512, device="meta")              # 2 KiB
+        c = a + 1.0                                     # 1 KiB
+        del a
+        d = torch.cat([b, b])                           # 4 KiB, the peak
+    assert live.peak == (2 + 1 + 4) * 1024
+    assert live.peak_op == ["aten.cat.default", 4096]
+    assert live.peak_ops == [("aten.cat.default", 4096),
+                             ("aten.ones.default", 2048),
+                             ("aten.add.Tensor", 1024)]
+    del b, c, d
+
+
 def _run(code: str, timeout: float = 240) -> str:
     """Run `code` in a fresh interpreter with JAX and the reference
     blocked; returns its stdout."""

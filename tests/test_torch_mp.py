@@ -5,7 +5,7 @@ smoke yi-6b's 4 heads of 32 then split into half heads), and the two-level
 ("node", "local", "model") = (2, 2, 2).
 
 One group of 8 ranks is spawned once for the file (tests/torch_mp_ranks.py,
-torch only). It runs each new operator at model sizes 2 and 4 (forward and
+torch only). It runs each new operator at model sizes 2, 4 and 8 (forward and
 backward), the expert-parallel MoE layer (`moe_apply_ep`) on (data 2, model
 4), the engine's leafwise-bucket and replay checks at (4, 2), then 3
 steps (SGD at 0.1, LARS or LAMB; data seed 3, batch 8, seq 16) of every
@@ -62,16 +62,16 @@ from repro_torch.checkpoint import ckpt as tckpt
 from repro_torch.configs import registry as treg
 from repro_torch.core import planner as tpl
 from repro_torch.launch import mesh as tmesh
-from repro_torch.models import moe as tmoe
+from repro_torch.models import attention as tattn, moe as tmoe
 from repro_torch.models.transformer import Model as TModel
 from repro_torch.train import trainer as ttr
 
 import torch_spawn
 from torch_mp_ranks import (BATCH, CASES, DATA_SEED, EP_AUX_WEIGHT,
                             EP_CASES, EP_D, EP_DENSE, EP_E, EP_FF,
-                            FSDP_BATCH, FSDP_CASES, FSDP_LR, FSDP_MESHES, LR,
-                            MESHES,
-                            OPS_ATTN, OPS_SIZES, RESUME_FROM, SEQ, STEPS,
+                            FSDP_BATCH, FSDP_CASES, FSDP_LR, FSDP_MESHES,
+                            HEADS_ATTN, LR, MESHES, OPS_ATTN, OPS_SIZES,
+                            RESUME_FROM, ROWS_ATTN, SEQ, SPLIT_OPS, STEPS,
                             ep_config)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -134,7 +134,15 @@ def _ops_inputs():
             "wk": normal(d, a.n_kv * a.head_dim, scale=0.3),
             "wv": normal(d, a.n_kv * a.head_dim, scale=0.3),
             "wo": normal(a.n_heads * a.head_dim, d, scale=0.3),
-            "w_attn": normal(2, 6, d)}
+            "w_attn": normal(2, 6, d),
+            **{f"{n}_{sfx}": normal(*shape, scale=0.3)
+               for sfx, c in (("h", HEADS_ATTN), ("r", ROWS_ATTN))
+               for n, shape in (("wq", (d, c.n_heads * c.head_dim)),
+                                ("wk", (d, c.n_kv * c.head_dim)),
+                                ("wv", (d, c.n_kv * c.head_dim)),
+                                ("wo", (c.n_heads * c.head_dim, d)))},
+            "xr": normal(2, 8, d), "enc": normal(2, 5, d),
+            "w_xa": normal(2, 6, d), "w_xr": normal(2, 8, d)}
 
 
 def _ep_inputs():
@@ -246,7 +254,8 @@ def _dense_grad(fn, args, weight=None):
     def loss(*a):
         y = fn(*a)
         return y if weight is None else jnp.sum(y * weight)
-    return fn(*args), jax.grad(loss, argnums=tuple(range(len(args))))(*args)
+    return jax.jit(fn)(*args), jax.jit(jax.grad(
+        loss, argnums=tuple(range(len(args)))))(*args)
 
 
 def _dense(op, ops):
@@ -270,31 +279,53 @@ def _dense(op, ops):
             lambda z: jcommon.softmax_xent(z, J["labels"], mask),
             [J["logits"]])
         return y, g, ("cols",)
-    a = JAttnConfig(n_heads=OPS_ATTN.n_heads, n_kv=OPS_ATTN.n_kv,
-                    head_dim=OPS_ATTN.head_dim,
-                    rotary_frac=OPS_ATTN.rotary_frac)
+    if op in SPLIT_OPS:
+        c, xkey, chunk, cross = SPLIT_OPS[op]
+        sfx = "h" if c is HEADS_ATTN else "r"
+        keys = [xkey] + [f"{n}_{sfx}" for n in ("wq", "wk", "wv", "wo")]
+        weight = J[f"w_{xkey}"]
+    else:
+        c, chunk, cross = OPS_ATTN, None, False
+        keys, weight = ["xa", "wq", "wk", "wv", "wo"], J["w_attn"]
+    a = JAttnConfig(n_heads=c.n_heads, n_kv=c.n_kv, head_dim=c.head_dim,
+                    rotary_frac=c.rotary_frac)
 
-    def attn(x, wq, wk, wv, wo):
-        return jattn.gqa_apply({"wq": wq, "wk": wk, "wv": wv, "wo": wo}, x,
-                               a)
-    y, g = _dense_grad(attn, [J[k] for k in ("xa", "wq", "wk", "wv", "wo")],
-                       J["w_attn"])
-    return y, g, ("full", "cols", "cols", "cols", "rows")
+    def attn(x, wq, wk, wv, wo, enc=None):
+        p = {"wq": wq, "wk": wk, "wv": wv, "wo": wo}
+        if cross:
+            return jattn.gqa_apply(p, x, a,
+                                   kv_override=jattn.gqa_cross_kv(p, enc, a))
+        return jattn.gqa_apply(p, x, a, kv_chunk=chunk)
+    y, g = _dense_grad(attn, [J[k] for k in keys + ["enc"] * cross], weight)
+    return y, g, ("full", "cols", "cols", "cols", "rows", "full")
 
 
 OPS = ("gather", "split", "embed_vocab", "embed_dim", "xent", "xent_mask",
-       "attn_apply", "attn_gathered")
+       "attn_apply", "attn_gathered", *SPLIT_OPS)
+
+
+@pytest.fixture(scope="module")
+def dense(inputs):
+    """`_dense(op, ...)` on the operators' inputs, made once an op for
+    every model size."""
+    _, ops, _ = inputs
+    made = {}
+
+    def get(op):
+        if op not in made:
+            made[op] = _dense(op, ops)
+        return made[op]
+    return get
 
 
 @pytest.mark.parametrize("m", OPS_SIZES)
 @pytest.mark.parametrize("op", OPS)
-def test_operators_match_their_dense_forms(port, inputs, op, m):
+def test_operators_match_their_dense_forms(port, dense, op, m):
     """Each operator's output on every rank, and its gradients assembled
     over each model group, equal the dense single-device computation."""
-    _, ops, _ = inputs
-    y, grads, splits = _dense(op, ops)
-    suffixes = (("gx", "gwq", "gwk", "gwv", "gwo") if op.startswith("attn")
-                else ("g",))
+    y, grads, splits = dense(op)
+    suffixes = (("gx", "gwq", "gwk", "gwv", "gwo", "genc")
+                if op.startswith(("attn", "cross")) else ("g",))
     outs = port["ops"][m]
     for ranks in _groups(m):
         group = [outs[r] for r in ranks]
@@ -332,6 +363,62 @@ def test_attention_dispatches_on_whole_heads(port):
     (the hybrid path), half a KV head at 4 (the gathered path)."""
     assert all(bool(o["aligned"]) for o in port["ops"][2])
     assert not any(bool(o["aligned"]) for o in port["ops"][4])
+
+
+# op -> the path it takes at model sizes 2, 4 and 8
+SPLIT_PATHS = {"attn_own_heads": ("aligned", "heads", "heads"),
+               "attn_own_rows": ("aligned", "rows", "rows"),
+               "attn_own_rows_chunk": ("aligned", "rows", "rows"),
+               "attn_own_rows_padded": ("aligned", "rows", "rows"),
+               "attn_own_rows_padded_chunk": ("aligned", "rows", "rows"),
+               "cross_own_heads": ("aligned", "heads", "heads"),
+               "cross_own_rows": ("aligned", "rows", "rows"),
+               "cross_own_rows_padded": ("aligned", "rows", "rows")}
+
+
+def test_split_operators_take_their_paths(port):
+    """Each split operator case ran the path it is named for (at model
+    sizes 4 and 8; whole heads a rank at 2)."""
+    assert set(SPLIT_PATHS) == set(SPLIT_OPS)
+    for name, paths in SPLIT_PATHS.items():
+        for m, want in zip(OPS_SIZES, paths):
+            assert {str(o[f"{name}_path"]) for o in port["ops"][m]} == \
+                {want}, (name, m)
+
+
+def _full(arch):
+    return treg.get_config(arch)
+
+
+@pytest.mark.parametrize("case,want", [
+    # (arch, model size, flash: the no-grad prefill) -> path
+    (("deepseek-7b", 16, False), "aligned"),
+    (("yi-6b", 16, False), "heads"),
+    (("yi-6b", 16, True), "heads"),
+    (("chatglm3-6b", 4, False), "heads"),
+    (("llava-next-mistral-7b", 16, False), "heads"),
+    (("grok-1-314b", 16, False), "heads"),
+    (("whisper-small", 4, False), "aligned"),
+    (("whisper-small", 16, False), "rows"),
+    (("whisper-small", 16, True), "whole"),
+    (("arctic-480b", 16, False), "rows"),
+    (("recurrentgemma-2b", 4, False), "rows"),
+    (("recurrentgemma-2b", 16, True), "whole"),
+    (("minicpm3-4b", 16, False), "rows"),
+    (("minicpm3-4b", 8, False), "aligned"),
+])
+def test_mp_path_per_layout(case, want):
+    """The path each production layout takes: whole heads a rank (aligned),
+    own query heads, own query rows (not where the flash kernel runs), or
+    every head (where it does). MLA's under `mla_path`, which never runs
+    the flash kernel."""
+    arch, size, flash = case
+    cfg = _full(arch)
+    if cfg.mla is not None:
+        got = tattn.mla_path(tattn.MLA_HEAD_SHARDED, cfg.mla, size)
+    else:
+        got = tattn.mp_path(tattn.HEAD_SHARDED, cfg.attn, size, flash=flash)
+    assert got == want
 
 
 @pytest.fixture(scope="module")

@@ -57,6 +57,16 @@ CASES = {
     "recurrentgemma_gspmd_2x4_kv_chunk": ("recurrentgemma-2b", "2x4",
                                           dict(mode="gspmd", kv_chunk=16),
                                           "mp", LONG_SEQ),
+    # 4 heads over 8 ranks: each rank attends its own 2 of the 16 query
+    # rows (MLA; whisper's encoder, decoder and cross-attention; the local
+    # blocks past the window on chunks of 16 keys)
+    "minicpm3_gspmd_1x8": ("minicpm3-4b", "1x8", dict(mode="gspmd"), "mp",
+                           SEQ),
+    "whisper_mlsl_1x8": ("whisper-small", "1x8", dict(mode="mlsl"), "mp",
+                         SEQ),
+    "recurrentgemma_gspmd_1x8_kv_chunk": ("recurrentgemma-2b", "1x8",
+                                          dict(mode="gspmd", kv_chunk=16),
+                                          "mp", LONG_SEQ),
     "mamba2_gspmd_2x4": ("mamba2-2.7b", "2x4", dict(mode="gspmd"), "mp",
                          SEQ),
     "mamba2_mlsl_4x2": ("mamba2-2.7b", "4x2", dict(mode="mlsl"), "mp", SEQ),

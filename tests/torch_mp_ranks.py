@@ -47,7 +47,23 @@ STEPS, SEQ, BATCH, DATA_SEED, LR = 3, 16, 8, 3, 0.1
 # the operators' attention: 4 query heads on 2 KV heads of 8, half of each
 # head rotated (as chatglm3-6b); a KV shard at model size 4 is half a head
 OPS_ATTN = AttnConfig(n_heads=4, n_kv=2, head_dim=8, rotary_frac=0.5)
-OPS_SIZES = (2, 4)
+# the split attentions (`attention.mp_path`), d 16: 24 query heads on 6 KV
+# heads of 4 (own heads at model sizes 4 and 8, where a rank's 6 or 3 heads
+# start mid-group; whole heads at 2), and 6 on 2 (own rows of 8 at 4 and
+# 8, whole heads at 2; over 6 rows, padded to 8: at 8 two ranks hold only
+# a padded row)
+HEADS_ATTN = AttnConfig(n_heads=24, n_kv=6, head_dim=4, rotary_frac=0.5)
+ROWS_ATTN = AttnConfig(n_heads=6, n_kv=2, head_dim=4, rotary_frac=0.5)
+# op -> (config, the input x's key, kv_chunk, cross-attention)
+SPLIT_OPS = {"attn_own_heads": (HEADS_ATTN, "xa", None, False),
+             "attn_own_rows": (ROWS_ATTN, "xr", None, False),
+             "attn_own_rows_chunk": (ROWS_ATTN, "xr", 3, False),
+             "attn_own_rows_padded": (ROWS_ATTN, "xa", None, False),
+             "attn_own_rows_padded_chunk": (ROWS_ATTN, "xa", 4, False),
+             "cross_own_heads": (HEADS_ATTN, "xa", None, True),
+             "cross_own_rows": (ROWS_ATTN, "xr", None, True),
+             "cross_own_rows_padded": (ROWS_ATTN, "xa", None, True)}
+OPS_SIZES = (2, 4, 8)
 
 
 # moe_apply_ep on (data 2, model 4): one layer of 8 experts (2 a model
@@ -220,6 +236,28 @@ def ops(mesh, data: dict, out_dir: str, m: int):
         for k, g in zip(("x", "wq", "wk", "wv", "wo"), grads):
             out[f"{name}_g{k}"] = g
     out["aligned"] = np.array(attention.head_aligned(layout, OPS_ATTN, m))
+    for name, (a, xkey, chunk, cross) in SPLIT_OPS.items():
+        sfx = "h" if a is HEADS_ATTN else "r"
+        args = [T[xkey], _cols(T[f"wq_{sfx}"], r, m),
+                _cols(T[f"wk_{sfx}"], r, m), _cols(T[f"wv_{sfx}"], r, m),
+                _rows(T[f"wo_{sfx}"], r, m)] + ([T["enc"]] if cross else [])
+
+        def fn(x, wq, wk, wv, wo, enc=None, a=a, chunk=chunk, cross=cross):
+            p = {"wq": wq, "wk": wk, "wv": wv, "wo": wo}
+            if not cross:
+                return attention.gqa_apply(p, x, a, kv_chunk=chunk,
+                                           tp_axis=group, layout=layout)
+            kv = attention.gqa_cross_kv(p, enc, a, tp_axis=group,
+                                        layout=layout)
+            return attention.gqa_cross(p, x, kv, a, tp_axis=group,
+                                       layout=layout)
+
+        y, grads = _grad(fn, args, T[f"w_{xkey}"])
+        out[f"{name}_y"] = y
+        for k, g in zip(("x", "wq", "wk", "wv", "wo", "enc"), grads):
+            out[f"{name}_g{k}"] = g
+        out[f"{name}_path"] = np.array(attention.mp_path(layout, a, m,
+                                                         flash=False))
     path = os.path.join(out_dir, "ops", f"m{m}")
     os.makedirs(path, exist_ok=True)
     np.savez(os.path.join(path, f"rank{dist.get_rank()}.npz"),
