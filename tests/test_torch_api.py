@@ -73,18 +73,6 @@ MESHES = {"8x1": (lambda: jmesh.make_host_mesh(8, 1),
                       {"node": 2, "local": 4})}
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """The port's side on one thread: its smoke shapes gain nothing from
-    more, and the suite's other workers and spawned ranks share the CPUs
-    (a thread pool that waits for preempted threads slows these tests by
-    an order of magnitude there)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 # ---------------------------------------------------------------------------
 # the reference's test_system pipeline on both packages
 # ---------------------------------------------------------------------------

@@ -15,11 +15,6 @@ composed error feedback run the same arithmetic, so the port holds them to
 each other bitwise.
 """
 
-import os
-import pathlib
-import subprocess
-import sys
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,10 +25,11 @@ from repro import compat
 from repro.core import collectives as jcl
 from repro.kernels import ops as jops
 
+import torch_spawn
+
 WORLD = 4
 N = 70000                       # odd size: the int8 legs pad per rank
 AX = ("data",)
-ROOT = pathlib.Path(__file__).resolve().parents[1]
 BF16_ULP = 2.0 ** -7            # relative spacing of bf16
 
 
@@ -55,24 +51,9 @@ def port(inputs, tmp_path_factory):
     """Per-rank results of the port's collectives on 4 gloo ranks."""
     path, _ = inputs
     out_dir = tmp_path_factory.mktemp("ranks")
-    store = tmp_path_factory.mktemp("store")
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]),
-        OMP_NUM_THREADS="1")
-    script = str(ROOT / "tests" / "torch_collective_ranks.py")
-    procs = [subprocess.Popen(
-        [sys.executable, script, str(r), str(WORLD), str(store), str(path),
-         str(out_dir)], env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for r in range(WORLD)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=240)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-    assert all(p.returncode == 0 for p in procs), "\n".join(logs)
+    torch_spawn.spawn("torch_collective_ranks.py", WORLD,
+                      tmp_path_factory.mktemp("store"), path, out_dir,
+                      timeout=60)
     return [dict(np.load(out_dir / f"rank{r}.npz")) for r in range(WORLD)]
 
 

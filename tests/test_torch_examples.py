@@ -45,7 +45,7 @@ from repro_torch.optim import schedules as tsched
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
-def _run(script: str, *args, timeout: float = 300, blocked: bool = True,
+def _run(script: str, *args, timeout: float = 120, blocked: bool = True,
          env_extra=None) -> list:
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), **(env_extra or {}))
     if blocked:

@@ -79,7 +79,8 @@ def port(inputs, tmp_path_factory):
     path, _ = inputs
     out_dir = tmp_path_factory.mktemp("hier_ranks")
     torch_spawn.spawn("torch_hier_ranks.py", WORLD,
-                      tmp_path_factory.mktemp("store"), path, out_dir)
+                      tmp_path_factory.mktemp("store"), path, out_dir,
+                      timeout=90)
     return [dict(np.load(out_dir / f"rank{r}.npz")) for r in range(WORLD)]
 
 

@@ -42,7 +42,7 @@ def test_every_module_imports_without_jax():
             "print('ok', len(sys.modules))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", code], env=env,
-                          capture_output=True, text=True, timeout=120)
+                          capture_output=True, text=True, timeout=60)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
 
@@ -78,7 +78,7 @@ def test_example_twin_parses_its_arguments_without_jax(path):
             "sys.modules.items() if v is not None)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", code], env=env,
-                          capture_output=True, text=True, timeout=120)
+                          capture_output=True, text=True, timeout=60)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "--device" in proc.stdout
 
@@ -109,7 +109,7 @@ def test_stats_run_keeps_jax_out(tmp_path):
     env = dict(os.environ, BENCH_DIR=str(tmp_path),
                PYTHONPATH=os.pathsep.join([str(ROOT / "src"), str(ROOT)]))
     proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
-                          capture_output=True, text=True, timeout=300)
+                          capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert proc.stdout.rstrip().endswith("ok")
     assert os.listdir(tmp_path) == ["BENCH_torch_comm_stats.json"]

@@ -90,7 +90,7 @@ def port(inputs, tmp_path_factory):
     out = tmp_path_factory.mktemp("families_ranks")
     torch_spawn.spawn("torch_mp_families_ranks.py", WORLD,
                       tmp_path_factory.mktemp("store"), path, out,
-                      timeout=900)
+                      timeout=390)
     res = {}
     for name, (arch, *_) in CASES.items():
         recs = [json.loads((out / name / f"rank{r}.json").read_text())

@@ -189,7 +189,7 @@ def port(ref, tmp_path_factory):
     out = tmp_path_factory.mktemp("mp_serve_ranks")
     torch_spawn.spawn("torch_mp_serve_ranks.py", WORLD,
                       tmp_path_factory.mktemp("store"), path, out,
-                      ",".join(CASES), timeout=900)
+                      ",".join(CASES), timeout=600)
     return {name: [np.load(out / name / f"rank{r}.npz")
                    for r in range(WORLD)] for name in CASES}
 

@@ -44,7 +44,7 @@ DATA_AXES = ("node", "local")
 def port(tmp_path_factory):
     out = tmp_path_factory.mktemp("obs_ranks")
     torch_spawn.spawn("torch_obs_ranks.py", WORLD,
-                      tmp_path_factory.mktemp("store"), out, timeout=600)
+                      tmp_path_factory.mktemp("store"), out, timeout=150)
     return {name: [json.loads((out / name / f"rank{r}.json").read_text())
                    for r in range(WORLD)] for name in CASES}
 

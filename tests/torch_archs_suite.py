@@ -354,7 +354,7 @@ def ranks8(request, tmp_path_factory):
     out = tmp_path_factory.mktemp("archs_ranks")
     torch_spawn.spawn("torch_archs_ranks.py", 8,
                       tmp_path_factory.mktemp("store"), weights, out,
-                      ",".join(archs), timeout=600)
+                      ",".join(archs), timeout=180)
     return {(arch, case): [json.loads(
         (out / arch / case / f"rank{r}.json").read_text()) for r in range(8)]
         for arch in archs for case in CASES}

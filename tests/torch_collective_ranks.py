@@ -26,7 +26,6 @@ def _np(t: torch.Tensor) -> np.ndarray:
 
 
 def run(rank: int, world: int, store_dir: str, inputs: str, out_dir: str):
-    torch.set_num_threads(1)
     mesh_lib.init_process_group("cpu", rank=rank, world_size=world,
                                 store_dir=store_dir)
     try:

@@ -131,7 +131,6 @@ def run_case(name, inputs_dir, out_dir, rank):
 
 def run(rank: int, world: int, store_dir: str, inputs_dir: str,
         out_dir: str, names: str):
-    torch.set_num_threads(1)
     mesh_lib.init_process_group("cpu", rank=rank, world_size=world,
                                 store_dir=store_dir)
     try:

@@ -85,7 +85,6 @@ def run_case(name, mesh, weights_dir, out_dir, rank):
 
 def run(rank: int, world: int, store_dir: str, weights_dir: str,
         out_dir: str):
-    torch.set_num_threads(1)
     mesh_lib.init_process_group("cpu", rank=rank, world_size=world,
                                 store_dir=store_dir)
     try:
